@@ -1,0 +1,145 @@
+"""phaser_tpu_torch main CLI: phaser_tpu's `phaser` command (flag-compatible
+with phASER's phaser.py:26-81) on the PyTorch / CUDA port.
+
+--device: cuda (default; auto is the same) runs allele assignment through
+the CUDA kernels and fails without a GPU, cpu runs the kernels' plain
+PyTorch versions on CPU tensors, host runs the exact host mapper.
+--process_slow 1 and --threads > 1 are not ported yet and exit 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import sys
+import time
+
+from phaser_tpu.engine.output_stage import PhaserOptions
+from phaser_tpu.version import PHASER_COMPAT_VERSION, __version__
+
+from ..engine.pipeline import run_phaser
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="phaser")
+    p.add_argument("--bam", required=False, default="")
+    p.add_argument("--vcf", required=True, default="")
+    p.add_argument("--sample", required=False, default="")
+    p.add_argument("--mapq", required=True)
+    p.add_argument("--baseq", type=int, required=True)
+    p.add_argument("--paired_end", required=True)
+    p.add_argument("--o", required=True)
+    p.add_argument("--python_string", default="python3")          # accepted, unused
+    p.add_argument("--haplo_count_bam_exclude", default="")
+    p.add_argument("--haplo_count_blacklist", default="")
+    p.add_argument("--cc_threshold", type=float, default=0.01)
+    p.add_argument("--isize", default="0")
+    p.add_argument("--as_q_cutoff", type=float, default=0.05)
+    p.add_argument("--blacklist", default="")
+    p.add_argument("--write_vcf", type=int, default=1)
+    p.add_argument("--include_indels", type=int, default=0)
+    p.add_argument("--output_read_ids", type=int, default=0)
+    p.add_argument("--remove_dups", type=int, default=1)
+    p.add_argument("--pass_only", type=int, default=1)
+    p.add_argument("--unphased_vars", type=int, default=1)
+    p.add_argument("--chr_prefix", type=str, default="")
+    p.add_argument("--gw_phase_method", type=int, default=0)
+    p.add_argument("--gw_af_field", default="AF")
+    p.add_argument("--gw_phase_vcf", type=int, default=0)
+    p.add_argument("--gw_phase_vcf_min_confidence", type=float, default=0.90)
+    p.add_argument("--threads", type=int, default=1,
+                   help="Thread the per-contig host stages (mapper, "
+                        "accumulate, connections); reference semantics "
+                        "phaser.py:2077-2094.")
+    p.add_argument("--max_block_size", type=int, default=15)
+    p.add_argument("--temp_dir", default="")
+    p.add_argument("--max_items_per_thread", type=int, default=100000)
+    p.add_argument("--show_warning", type=int, default=0)
+    p.add_argument("--debug", type=int, default=0)
+    p.add_argument("--chr", default="")
+    p.add_argument("--unique_ids", type=int, default=0)
+    p.add_argument("--id_separator", default="_")
+    p.add_argument("--output_network", default="")
+    p.add_argument("--process_slow", type=int, default=0)         # accepted; engine streams
+    p.add_argument("--resume", type=int, default=0,
+                   help="Reuse completed work from a failed previous run: "
+                        "with --process_slow 1, skip contigs whose outputs "
+                        "exist; with --threads N (multiprocess), replay "
+                        "completed shards' journals and recompute only "
+                        "lost shards (phaser_tpu extension).")
+    p.add_argument("--device", default="cuda",
+                   choices=("cuda", "auto", "cpu", "host"),
+                   help="Allele-assignment device: cuda (CUDA kernels; "
+                        "auto is the same), cpu (their plain PyTorch "
+                        "versions on CPU tensors) or host (exact host "
+                        "mapper) (phaser_tpu_torch extension).")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    print("")
+    print("##################################################")
+    print("       phaser_tpu_torch v%s (phASER v%s compatible)"
+          % (__version__, PHASER_COMPAT_VERSION))
+    print("   PyTorch / CUDA read-backed phasing + ASE engine")
+    print("##################################################")
+    print("")
+    start = time.time()
+    print('STARTED "Read backed phasing and ASE/haplotype analyses" ... ')
+    print("    DATE, TIME : %s"
+          % datetime.datetime.now().strftime("%Y-%m-%d, %H:%M:%S"))
+
+    opts = PhaserOptions(
+        id_separator=args.id_separator, unique_ids=args.unique_ids,
+        gw_phase_method=args.gw_phase_method,
+        output_read_ids=args.output_read_ids,
+        output_network=args.output_network,
+        unphased_vars=args.unphased_vars, max_block_size=args.max_block_size,
+        cc_threshold=args.cc_threshold, as_q_cutoff=args.as_q_cutoff,
+        pass_only=args.pass_only, include_indels=args.include_indels,
+        remove_dups=args.remove_dups, write_vcf=args.write_vcf,
+        gw_phase_vcf=args.gw_phase_vcf,
+        gw_phase_vcf_min_confidence=args.gw_phase_vcf_min_confidence,
+        gw_af_field=args.gw_af_field, chr_prefix=args.chr_prefix,
+        show_warning=args.show_warning)
+    device = "cuda" if args.device == "auto" else args.device
+    kwargs = dict(
+        vcf=args.vcf, bam=args.bam, sample=args.sample, o=args.o,
+        mapq=args.mapq, baseq=args.baseq, paired_end=args.paired_end,
+        isize=args.isize, blacklist=args.blacklist,
+        haplo_count_blacklist=args.haplo_count_blacklist,
+        haplo_count_bam_exclude=args.haplo_count_bam_exclude)
+    try:
+        if args.process_slow == 1:
+            raise RuntimeError(
+                "--process_slow 1 is not ported to phaser_tpu_torch yet "
+                "(ROADMAP.md, queue 1: slow_mode and the threads and "
+                "multihost runners); run phaser_tpu for it")
+        if args.threads > 1:
+            raise RuntimeError(
+                "--threads > 1 is not ported to phaser_tpu_torch yet "
+                "(ROADMAP.md, queue 1: slow_mode and the threads and "
+                "multihost runners); run phaser_tpu for it")
+        run_phaser(chrom=args.chr, opts=opts, threads=1,
+                   device=device, **kwargs)
+    except (ValueError, RuntimeError, FileNotFoundError) as e:
+        from phaser_tpu.utils.failures import write_failure_record
+        record = write_failure_record(args.o, "phaser", e, argv)
+        print("     FATAL ERROR: %s" % e)
+        if record:
+            print("     failure record: %s" % record)
+        return 1
+    from phaser_tpu.utils.failures import clear_failure_record
+    clear_failure_record(args.o)
+    if device != "host":
+        from ..kernels.alleles import LAUNCHES
+        print("     kernel launches: %s"
+              % " ".join("%s=%d" % kv for kv in LAUNCHES.items()))
+    print('COMPLETED "Read backed phasing" of sample %s in %s hh:mm:ss'
+          % (args.sample,
+             time.strftime("%H:%M:%S", time.gmtime(time.time() - start))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
