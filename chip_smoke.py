@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing here imports jax):
      that phaser_tpu's native IO library loaded;
   3. kernel parity at chromosome scale (tests/benchdata.py: 5M reads, 100k
      hets, 200 Mbp, 10% N-spliced): assign_alleles_auto on the GPU == the
-     exact host mapper; then one 262,144-row launch of each kernel, planned
+     exact host mapper, also with every launch's hit capacity forced to
+     overflow (the chunk must be relaunched on the card, never rerun on the
+     host); then one 262,144-row launch of each kernel, planned
      windows and whole table, against its plain PyTorch version on the card
      (hits compared after a (read, var) sort; timed with CUDA events); then a
      small tests/datagen.py fixture with deletion reads;
@@ -177,6 +179,7 @@ def chromosome_phase(tmp, device):
     from phaser_tpu.engine.varmap import build_variant_table
     from phaser_tpu.io import bam as bamio
     from phaser_tpu_torch.kernels import alleles as K
+    from phaser_tpu_torch.mapper import dispatch as D
     from phaser_tpu_torch.mapper.dispatch import assign_alleles_auto
 
     dev = torch.device(device)
@@ -194,6 +197,7 @@ def chromosome_phase(tmp, device):
     want = assign_alleles_auto(bd, vt, baseq=10, device="host")
     t_host = time.perf_counter() - t0
     walls = []
+    D.RELAUNCHES["capacity"] = 0
     for _ in range(2):
         K.reset_launches()
         t0 = time.perf_counter()
@@ -207,6 +211,31 @@ def chromosome_phase(tmp, device):
           flush=True)
     check(K.LAUNCHES["affine_nibble"] > 0 and K.LAUNCHES["plane"] > 0,
           "chromosome-scale run skipped a kernel: %s" % K.LAUNCHES)
+    check(D.RELAUNCHES["capacity"] == 0,
+          "chromosome-scale run overflowed its hit capacity")
+
+    # forced hit-capacity overflow: every launch with more than one hit
+    # overflows, and resolve() relaunches the chunk on the card with the
+    # exact counts
+    adaptive_cap = D._adaptive_cap
+    D._adaptive_cap = lambda key, n: 1
+    try:
+        pend = assign_alleles_auto(bd, vt, baseq=10, device=device,
+                                   defer=True)
+    finally:
+        D._adaptive_cap = adaptive_cap
+    K.reset_launches()
+    t0 = time.perf_counter()
+    got = pend.resolve()
+    torch.cuda.synchronize()
+    t_relaunch = time.perf_counter() - t0
+    same_hits(got, want, "capacity-overflow relaunch")
+    print("   capacity overflow: relaunched %d chunk(s) on the card, "
+          "resolve %.3f s, launches %s; hits equal the host's"
+          % (D.RELAUNCHES["capacity"], t_relaunch, dict(K.LAUNCHES)),
+          flush=True)
+    check(D.RELAUNCHES["capacity"] == 1 and K.LAUNCHES["affine_nibble"] > 0
+          and K.LAUNCHES["plane"] > 0, "overflow was not relaunched on the card")
     if dev.type == "cuda":
         profile_dispatch(lambda: assign_alleles_auto(bd, vt, baseq=10,
                                                      device=device))
@@ -343,6 +372,7 @@ def run_cli(argv):
 def e2e_phase(tmp, device):
     import datagen
     from phaser_tpu_torch.kernels import alleles as K
+    from phaser_tpu_torch.mapper import dispatch as D
 
     shares = (0.6, 0.25, 0.15)
     pairs = [int(E2E_READS // 2 * s) for s in shares]
@@ -359,15 +389,17 @@ def e2e_phase(tmp, device):
           % (2 * sum(pairs), sum(nvar), time.perf_counter() - t0),
           flush=True)
     walls = {}
-    launches = None
+    launches, relaunches = None, 0
     for dv in (device, "host"):
         argv = ["--vcf", vcf, "--bam", bam, "--sample", data.sample,
                 "--mapq", "10", "--baseq", "10", "--paired_end", "1",
                 "--o", os.path.join(d, dv), "--device", dv]
         K.reset_launches()
+        D.RELAUNCHES["capacity"] = 0
         rc, stdout, walls[dv] = run_cli(argv)
         if dv == device:
             launches = dict(K.LAUNCHES)
+            relaunches = D.RELAUNCHES["capacity"]
         check(rc == 0, "CLI --device %s failed:\n%s" % (dv, stdout[-3000:]))
         lines = stdout.splitlines()
         start = next((i for i, x in enumerate(lines)
@@ -382,8 +414,9 @@ def e2e_phase(tmp, device):
               % (sfx, device))
     print("   outputs byte-identical (%s)" % ", ".join(SUFFIXES), flush=True)
     print("   e2e wall (CLI main, in process): %s %.3f s, host %.3f s; "
-          "kernel launches %s" % (device, walls[device], walls["host"],
-                                  launches), flush=True)
+          "kernel launches %s; capacity relaunches %d"
+          % (device, walls[device], walls["host"], launches, relaunches),
+          flush=True)
     check(launches and min(launches.values()) > 0,
           "main path skipped a kernel: %s" % launches)
     return launches, walls

@@ -106,6 +106,13 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
     dist_reduce.  The reference caps parallelism at one worker per contig
     (phaser.py:62); the plan removes that cap."""
     opts = opts or PhaserOptions()
+    if shard_plan is not None or dist_reduce is not None or threads > 1:
+        # the threads and multihost runners are not ported yet (ROADMAP.md,
+        # queue 1); the branches below that serve them are kept line for
+        # line with phaser_tpu's pipeline and are unreachable until then
+        raise NotImplementedError(
+            "shard_plan, dist_reduce and threads > 1 need the threads and "
+            "multihost runners, which phaser_tpu_torch does not port yet")
     if shard_plan is not None:
         if dist_reduce is None:
             raise ValueError("shard_plan requires dist_reduce")

@@ -238,7 +238,7 @@ def decode_packed_hits(full: np.ndarray) -> Tuple[np.ndarray, np.ndarray,
                                                   np.ndarray, np.ndarray, int]:
     """Decode a fetched packed-hit buffer.  Returns (read_idx, var_idx,
     allele_class, base_code, n_hits); n_hits may exceed the capacity
-    (overflow: the hit arrays are then empty and the caller falls back)."""
+    (overflow: the hit arrays are then empty and the caller relaunches)."""
     cap = int(full.shape[1]) - 1
     full = full.astype(np.int64)
     nh = int(full[0, 0])

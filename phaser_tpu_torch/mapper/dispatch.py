@@ -32,8 +32,14 @@ from phaser_tpu.mapper.dispatch import _next_pow2, _read_op_masks
 from phaser_tpu.mapper.host import ContigHits, assign_alleles
 
 _SUB_ROWS = 1 << 18          # max reads per kernel launch
+# max table entries per launch: the packed-hit word holds a table index
+# below 2^23 and the table pads to a power of two; larger tables launch
+# in slices
+_MAX_TABLE = 1 << 22
 _cap_feedback: dict = {}     # (kind, pow2 row bucket, L) -> max hits observed
 _cap_loaded = False
+# chunks relaunched on their device after a hit-capacity overflow
+RELAUNCHES = {"capacity": 0}
 
 
 def resolve_device(device) -> torch.device:
@@ -102,8 +108,8 @@ def _cap_save() -> None:
 def _adaptive_cap(fb_key, n_elems: int) -> int:
     """Packed-hit capacity for a launch bucket: elements/32 until a resolve
     reports real hit counts, then 8x the bucket's maximum.  An overflow
-    falls back to the exact host path for that chunk.  Feedback persists in
-    $PHASER_TPU_TORCH_CACHE/hit_caps.json."""
+    relaunches the chunk on its device once the exact counts are recorded.
+    Feedback persists in $PHASER_TPU_TORCH_CACHE/hit_caps.json."""
     _cap_load()
     seen = _cap_feedback.get(fb_key, 0)
     if seen:
@@ -115,15 +121,18 @@ class PendingHits:
     """Launched GPU work + completed host parts for one chunk.
 
     resolve() copies the packed hits to the host and merges; it is safe to
-    call long after launch (device buffers are held alive here)."""
+    call long after launch (device buffers are held alive here).  When a
+    launch's hit count exceeds its capacity, resolve() records every
+    launch's exact count and calls `relaunch`, which runs the chunk again on
+    the same device with capacities that now hold those counts."""
 
-    def __init__(self, fallback: Callable[[], ContigHits],
+    def __init__(self, relaunch: Optional[Callable[[], ContigHits]],
                  dev_parts: List[Tuple[torch.Tensor, int,
                                        Optional[np.ndarray], np.ndarray, int,
                                        tuple]],
                  host_parts: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
                  hits_map: dict, done: Optional[torch.cuda.Event] = None):
-        self._fallback = fallback
+        self._relaunch = relaunch
         # (packed_dev, cap, row_map, dev_vidx, row_offset, fb_key)
         self._dev = dev_parts
         self._host = host_parts        # (read_idx, var_idx, codes16)
@@ -142,6 +151,7 @@ class PendingHits:
         from ..kernels.alleles import decode_packed_hits
 
         rows_parts = list(self._host)
+        overflow = False
         for k, (packed, cap, row_map, dev_vidx, offset, fb_key) in \
                 enumerate(self._dev):
             if prefetched is not None:
@@ -154,9 +164,7 @@ class PendingHits:
             if nh > _cap_feedback.get(fb_key, 0):
                 _cap_feedback[fb_key] = nh
                 _cap_save()
-            if nh > cap:
-                # capacity overflow: exact host rerun for the chunk (rare)
-                return self._fallback()
+            overflow |= nh > cap
             vfull = dev_vidx[v]
             codes_out = mc  # the observed masked nibble IS the allele code
             if row_map is not None:
@@ -164,6 +172,13 @@ class PendingHits:
             elif offset:
                 r = r + offset
             rows_parts.append((r, vfull, codes_out))
+        if overflow:
+            # the counts stay exact past capacity and are recorded above, so
+            # the relaunch's capacities hold every launch's hits (rare)
+            if self._relaunch is None:
+                raise RuntimeError("hit capacity overflowed again on relaunch")
+            RELAUNCHES["capacity"] += 1
+            return self._relaunch()
 
         if not rows_parts:
             return ContigHits(np.zeros(0, np.int64), np.zeros(0, np.int64),
@@ -203,10 +218,6 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
     if np.any(np.diff(vt.pos) < 0):
         raise ValueError("variant table must be position-sorted")
 
-    def _fallback():
-        return assign_alleles(bd, vt, baseq=baseq, splice=splice,
-                              isize_cutoff=isize_cutoff)
-
     has_ins, has_n = _read_op_masks(bd)
     keep_read = np.ones(len(bd), bool)
     if isize_cutoff != 0:
@@ -222,9 +233,6 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
         dup[1:] |= d
         dup[:-1] |= d
     dev_var = vt.is_simple & ~dup
-    if len(vt) >= (1 << 23):  # packed-hit layout limit; never seen per-contig
-        hits = _fallback()
-        return _ResolvedPending(hits) if defer else hits
     dev_vidx = np.flatnonzero(dev_var)
 
     dev_read = keep_read & ~has_ins
@@ -237,9 +245,6 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
     from phaser_tpu.utils.trace import add_device_time
     _t_dev = time.perf_counter()
     if dev_vidx.size and dev_read.any():
-        vpos = K.padded_table(vt, dev_vidx)[0]  # host copy for the planners
-        table = K.device_table(vt, dev_vidx, dev)
-
         nibble = K.pack_affine_nibble(bd, baseq, reuse=reuse)
         if nibble is None:
             raise RuntimeError(
@@ -248,15 +253,20 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
                 "run with --device host")
         mcodes, is_aff, a_start, a_lo, a_hi = nibble
         aff = dev_read & is_aff
+        N, Lh = mcodes.shape
+        st_k = np.where(aff, a_start, 0).astype(np.int32)
+        lo_k = np.where(aff, a_lo, 0).astype(np.int32)
+        hi_k = np.where(aff, a_hi, 0).astype(np.int32)
+        plane_all = np.flatnonzero(dev_read & ~is_aff)
 
-        if aff.any():
+        for t in range(0, dev_vidx.size, _MAX_TABLE):
+            tab_vidx = dev_vidx[t:t + _MAX_TABLE]
+            vpos = K.padded_table(vt, tab_vidx)[0]  # host copy: planners
+            table = K.device_table(vt, tab_vidx, dev)
+
             # affine fast path: nibble plane (BASEQ pre-applied), refpos
             # rebuilt on the device, in <= _SUB_ROWS-row launches
-            N, Lh = mcodes.shape
-            st_k = np.where(aff, a_start, 0).astype(np.int32)
-            lo_k = np.where(aff, a_lo, 0).astype(np.int32)
-            hi_k = np.where(aff, a_hi, 0).astype(np.int32)
-            for s in range(0, N, _SUB_ROWS):
+            for s in range(0, N if aff.any() else 0, _SUB_ROWS):
                 e = min(s + _SUB_ROWS, N)
                 if not aff[s:e].any():
                     continue
@@ -271,49 +281,49 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
                     _upload(mcodes[s:e], dev), _upload(ss, dev),
                     _upload(ls, dev), _upload(hs, dev), table, cap,
                     ws=None if ws is None else _upload(ws, dev))
-                dev_parts.append((packed, cap, None, dev_vidx, s, fb_key))
+                dev_parts.append((packed, cap, None, tab_vidx, s, fb_key))
 
-        plane_all = np.flatnonzero(dev_read & ~is_aff)
-        for s in range(0, plane_all.size, _SUB_ROWS):
-            # non-affine remainder: delta-nibble format for D/split-M reads,
-            # refpos plane only for what delta can't carry (N-spliced reads,
-            # delta overflow)
-            plane_sel = plane_all[s:s + _SUB_ROWS]
-            sub = bd.select(plane_sel)
-            ncd, dlt, okm, dst, rmn, rmx = K.pack_delta_nibble(
-                sub, baseq, reuse=reuse)
-            ok_idx = np.flatnonzero(okm)
-            if ok_idx.size:
-                Nd = ok_idx.size
-                Ld = dlt.shape[1]
-                ws_d = K.plan_windows_minmax(rmn[ok_idx], rmx[ok_idx],
-                                             np.ones(Nd, bool), vpos, Nd,
-                                             min(256, Nd))
-                kind = "delta_win" if ws_d is not None else "delta_nib"
-                fb_key = (kind, _next_pow2(max(Nd, 8)), Ld)
-                cap_d = _adaptive_cap(fb_key, Nd * Ld)
-                packed_d = K.assign_compact_delta_nibble(
-                    _upload(ncd[ok_idx], dev), _upload(dst[ok_idx], dev),
-                    _upload(dlt[ok_idx], dev), table, cap_d,
-                    ws=None if ws_d is None else _upload(ws_d, dev))
-                dev_parts.append((packed_d, cap_d, plane_sel[ok_idx],
-                                  dev_vidx, 0, fb_key))
-            rest_idx = np.flatnonzero(~okm)
-            if rest_idx.size == 0:
-                continue
-            plane_sel = plane_sel[rest_idx]
-            sub = sub.select(rest_idx)
-            codes2, quals2, refpos2 = K.pack_reads(sub)
-            N2, L2 = codes2.shape
-            ws2 = K.plan_windows_plane(refpos2, vpos, min(256, N2))
-            kind = "plane_win" if ws2 is not None else "plane"
-            fb_key = (kind, _next_pow2(max(N2, 8)), L2)
-            cap2 = _adaptive_cap(fb_key, N2 * L2)
-            packed2 = K.assign_compact_plane(
-                _upload(codes2, dev), _upload(quals2, dev),
-                _upload(refpos2, dev), baseq, table, cap2,
-                ws=None if ws2 is None else _upload(ws2, dev))
-            dev_parts.append((packed2, cap2, plane_sel, dev_vidx, 0, fb_key))
+            for s in range(0, plane_all.size, _SUB_ROWS):
+                # non-affine remainder: delta-nibble format for D/split-M
+                # reads, refpos plane only for what delta can't carry
+                # (N-spliced reads, delta overflow)
+                plane_sel = plane_all[s:s + _SUB_ROWS]
+                sub = bd.select(plane_sel)
+                ncd, dlt, okm, dst, rmn, rmx = K.pack_delta_nibble(
+                    sub, baseq, reuse=reuse)
+                ok_idx = np.flatnonzero(okm)
+                if ok_idx.size:
+                    Nd = ok_idx.size
+                    Ld = dlt.shape[1]
+                    ws_d = K.plan_windows_minmax(rmn[ok_idx], rmx[ok_idx],
+                                                 np.ones(Nd, bool), vpos, Nd,
+                                                 min(256, Nd))
+                    kind = "delta_win" if ws_d is not None else "delta_nib"
+                    fb_key = (kind, _next_pow2(max(Nd, 8)), Ld)
+                    cap_d = _adaptive_cap(fb_key, Nd * Ld)
+                    packed_d = K.assign_compact_delta_nibble(
+                        _upload(ncd[ok_idx], dev), _upload(dst[ok_idx], dev),
+                        _upload(dlt[ok_idx], dev), table, cap_d,
+                        ws=None if ws_d is None else _upload(ws_d, dev))
+                    dev_parts.append((packed_d, cap_d, plane_sel[ok_idx],
+                                      tab_vidx, 0, fb_key))
+                rest_idx = np.flatnonzero(~okm)
+                if rest_idx.size == 0:
+                    continue
+                plane_sel = plane_sel[rest_idx]
+                sub = sub.select(rest_idx)
+                codes2, quals2, refpos2 = K.pack_reads(sub)
+                N2, L2 = codes2.shape
+                ws2 = K.plan_windows_plane(refpos2, vpos, min(256, N2))
+                kind = "plane_win" if ws2 is not None else "plane"
+                fb_key = (kind, _next_pow2(max(N2, 8)), L2)
+                cap2 = _adaptive_cap(fb_key, N2 * L2)
+                packed2 = K.assign_compact_plane(
+                    _upload(codes2, dev), _upload(quals2, dev),
+                    _upload(refpos2, dev), baseq, table, cap2,
+                    ws=None if ws2 is None else _upload(ws2, dev))
+                dev_parts.append((packed2, cap2, plane_sel, tab_vidx, 0,
+                                  fb_key))
     done = None
     if dev.type == "cuda" and dev_parts:
         done = torch.cuda.Event()
@@ -356,7 +366,15 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
         for row, s in h.allele_strs.items():
             hits_map[(int(rr[row]), int(vv[row]))] = s
 
-    pending = PendingHits(_fallback, dev_parts, host_parts, hits_map, done)
+    def _relaunch():
+        again = assign_alleles_auto(bd, vt, baseq=baseq, splice=splice,
+                                    isize_cutoff=isize_cutoff, device=dev,
+                                    defer=True)
+        if isinstance(again, PendingHits):
+            again._relaunch = None  # its capacities hold the exact counts
+        return again.resolve()
+
+    pending = PendingHits(_relaunch, dev_parts, host_parts, hits_map, done)
     return pending if defer else pending.resolve()
 
 

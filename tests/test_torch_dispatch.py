@@ -83,9 +83,10 @@ def test_dispatch_cpu_matches_host(tmp_path, spy, fixture, kw):
         assert min(spy.values()) > 0, spy
 
 
-def test_whole_table_and_overflow_paths(tmp_path, monkeypatch):
+def test_whole_table_and_overflow_paths(tmp_path, monkeypatch, spy):
     """Planner band overflow (whole-table search) and hit-capacity overflow
-    (exact host rerun) both keep the hits equal."""
+    (the chunk relaunched on its device with the exact counts, no host
+    rerun) both keep the hits equal."""
     bd, vt = _load(tmp_path, "indel_multiallelic")
     want = jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="host")
     for name in ("plan_windows_affine", "plan_windows_minmax",
@@ -94,15 +95,40 @@ def test_whole_table_and_overflow_paths(tmp_path, monkeypatch):
     _assert_equal_hits(
         D.assign_alleles_auto(bd, vt, baseq=10, device="cpu"), want)
 
-    reruns = []
-    monkeypatch.setattr(D, "_adaptive_cap", lambda key, n: 2)
-    monkeypatch.setattr(D, "_cap_save", lambda: None)
+    host_rows = []
     monkeypatch.setattr(D, "assign_alleles",
-                        lambda *a, **k: reruns.append(1) or
-                        jax_dispatch.assign_alleles(*a, **k))
-    _assert_equal_hits(
-        D.assign_alleles_auto(bd, vt, baseq=10, device="cpu"), want)
-    assert reruns
+                        lambda sub, *a, **k: host_rows.append(len(sub)) or
+                        jax_dispatch.assign_alleles(sub, *a, **k))
+    adaptive_cap = D._adaptive_cap
+    monkeypatch.setattr(D, "_adaptive_cap", lambda key, n: 2)
+    base = dict(spy)
+    pend = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu", defer=True)
+    monkeypatch.setattr(D, "_adaptive_cap", adaptive_cap)
+    launched = {k: spy[k] - base[k] for k in spy}
+    host_launch = list(host_rows)
+    before = D.RELAUNCHES["capacity"]
+    _assert_equal_hits(pend.resolve(), want)
+    assert D.RELAUNCHES["capacity"] == before + 1
+    # the relaunch ran every program again and sent the host mapper only
+    # the remainders it sent the first time
+    assert all(spy[k] - base[k] == 2 * launched[k] > 0 for k in spy), \
+        (spy, base, launched)
+    assert host_rows == host_launch + host_launch
+
+
+def test_table_slices(tmp_path, monkeypatch, spy):
+    """Tables above the packed-hit layout's limit launch in slices."""
+    bd, vt = _load(tmp_path, "spliced")
+    want = jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="host")
+    got = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu")
+    one = dict(spy)
+    monkeypatch.setattr(D, "_MAX_TABLE", 16)
+    sliced = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu")
+    _assert_equal_hits(got, want)
+    _assert_equal_hits(sliced, want)
+    n_slices = -(-len(vt) // 16)
+    assert n_slices > 4
+    assert spy["affine_nibble"] == one["affine_nibble"] * (1 + n_slices)
 
 
 def test_deferred_resolve_all(tmp_path):

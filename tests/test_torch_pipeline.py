@@ -110,6 +110,15 @@ def test_cli_fails_loud(tmp_path, capsys, extra, message):
     assert not os.path.exists(str(tmp_path / "out") + ".haplotypes.txt")
 
 
+@pytest.mark.parametrize("kw", [dict(threads=2), dict(shard_plan=object()),
+                                dict(dist_reduce=object())])
+def test_run_phaser_rejects_unported_runners(tmp_path, kw):
+    with pytest.raises(NotImplementedError, match="not port"):
+        run_phaser(vcf="", bam="", sample="", o=str(tmp_path / "out"),
+                   mapq="10", baseq=10, paired_end="1", device="cpu",
+                   log=lambda *x: None, **kw)
+
+
 def test_port_sources_never_import_jax():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
     paths = [os.path.join(REPO, "chip_smoke.py")]
