@@ -12,16 +12,31 @@ Phases (any failure exits non-zero; nothing here imports jax):
      hets, 200 Mbp, 10% N-spliced): assign_alleles_auto on the GPU == the
      exact host mapper, also with every launch's hit capacity forced to
      overflow (the chunk must be relaunched on the card, never rerun on the
-     host); then one 262,144-row launch of each kernel, planned
-     windows and whole table, against its plain PyTorch version on the card
-     (hits compared after a (read, var) sort; timed with CUDA events); then a
+     host) and without the native nibble packer (the masked-affine path);
+     then one 262,144-row launch of each fused kernel, planned windows and
+     whole table, against its plain PyTorch version on the card (hits
+     compared after a (read, var) sort; timed with CUDA events); then a
      small tests/datagen.py fixture with deletion reads;
-  4. end to end: the CLI's entry point (phaser_main.main, what `python -m
-     phaser_tpu_torch.cli.phaser_main` runs) with --device cuda and --device
-     host on a tests/datagen.py fixture shaped like bench_engine.py (3
-     contigs, 60/25/15% of 1M input reads); the six output files must be
-     byte-identical, and every kernel must have launched in the cuda run
-     (launch counts zeroed just before it, read just after).
+  4. the kernel-level entries (assign_alleles_pallas_windowed with gather
+     and cmp, assign_alleles_pallas with a resident table) on
+     tests/test_tpu_hw.py's layout (M = 100k, N = 2^15, narrow regions, the
+     plan asserted), each against its plain version, max_abs_err 0 on both
+     planes;
+  5. engine stages #3 pair counting, #4 components and #5 the 2^n scorer at
+     and above their size gates, cuda against host: equal results, both
+     times printed;
+  6. end to end: the CLI's entry point (phaser_main.main, what `python -m
+     phaser_tpu_torch.cli.phaser_main` runs) with --device cuda, --device
+     host, and --device cuda with the stage gates forced down, on a
+     tests/datagen.py fixture shaped like bench_engine.py (3 contigs,
+     60/25/15% of 1M input reads); the six output files must be
+     byte-identical, and every fused kernel (default run) and every stage's
+     device hook (gates-down run) must have run (counts zeroed just before
+     each run, read just after).
+
+Each kernel's `launches` comes from the run of its own path: the e2e cuda
+run for the three nibble/plane kernels, the no-nibble-packer dispatcher run
+for affine_masked, and phase 4's entry calls for the planes kernels.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -39,10 +54,14 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "phaser_tpu_torch/csrc/alleles.cu"
-REPLACES = {  # the fused TPU program each kernel replaces
+REPLACES = {  # the TPU program each kernel (or kernel mode) replaces
     "affine_nibble": "phaser_tpu/kernels/alleles.py:975",
     "delta_nibble": "phaser_tpu/kernels/alleles.py:424",
     "plane": "phaser_tpu/kernels/alleles.py:1038",
+    "affine_masked": "phaser_tpu/kernels/alleles.py:246",
+    "planes": "phaser_tpu/kernels/alleles.py:673",
+    "planes_resident": "phaser_tpu/kernels/alleles.py:627",
+    "planes_cmp": "phaser_tpu/kernels/alleles.py:757",
 }
 SUFFIXES = (".allelic_counts.txt", ".variant_connections.txt",
             ".allele_config.txt", ".haplotypes.txt",
@@ -51,6 +70,7 @@ SUB_ROWS = 1 << 18
 CHROM_READS = 5_000_000      # tests/benchdata.py chromosome-scale workload
 CHROM_HETS = 100_000
 E2E_READS = 1_000_000        # bench_engine.py's input-read count
+MAIN_PATH = ("affine_nibble", "delta_nibble", "plane")  # the dispatcher's
 
 
 class SmokeError(Exception):
@@ -240,6 +260,27 @@ def chromosome_phase(tmp, device):
         profile_dispatch(lambda: assign_alleles_auto(bd, vt, baseq=10,
                                                      device=device))
 
+    # the dispatcher without the native nibble packer: affine reads take
+    # the 1 B/base masked plane and the affine_masked kernel
+    pack_nibble = K.pack_affine_nibble
+    K.pack_affine_nibble = lambda *a, **k: None
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = assign_alleles_auto(bd, vt, baseq=10, device=device)
+        torch.cuda.synchronize()
+        t_masked = time.perf_counter() - t0
+        masked_launches = dict(K.LAUNCHES)
+    finally:
+        K.pack_affine_nibble = pack_nibble
+    same_hits(got, want, "assign_alleles_auto without the nibble packer")
+    print("   no nibble packer: %.3f s, launches %s; hits equal the host's"
+          % (t_masked, masked_launches), flush=True)
+    check(masked_launches["affine_masked"] > 0 and
+          masked_launches["affine_nibble"] == 0,
+          "the no-nibble-packer run skipped affine_masked: %s"
+          % masked_launches)
+
     # one 262,144-row launch of each kernel at the main path's shapes
     dev_vidx = np.arange(len(vt))
     vpos = K.padded_table(vt, dev_vidx)[0]
@@ -288,6 +329,23 @@ def chromosome_phase(tmp, device):
         w, win, R = K.window_args(ws_dt if planned else None, n, table, dev)
         return K.delta_nibble_plain(*d_in, w, win, R, table, cap)
 
+    mcodes, aff_m, st_m, lo_m, hi_m = K.pack_affine_masked(bd, 10)
+    ia_m = aff_m[:n]
+    m_in = [T(np.where(ia_m[:, None], mcodes[:n], 15).astype(np.uint8))] + \
+        [T(np.where(ia_m, x[:n], 0).astype(np.int32))
+         for x in (st_m, lo_m, hi_m)]
+    ws_m = K.plan_windows_affine(*[x.cpu().numpy() for x in m_in[1:]],
+                                 ia_m, vpos, n, min(256, n))
+    ws_mt = None if ws_m is None else T(ws_m)
+
+    def masked_k(planned):
+        return K.assign_compact_affine_masked(
+            *m_in, table, cap, ws=ws_mt if planned else None)
+
+    def masked_plain(planned):
+        w, win, R = K.window_args(ws_mt if planned else None, n, table, dev)
+        return K.affine_masked_plain(*m_in, w, win, R, table, cap)
+
     sub = bd.select(np.flatnonzero(~aff_all)[:SUB_ROWS])
     codes, quals, refpos = K.pack_reads(sub)
     n_p = codes.shape[0]
@@ -310,13 +368,14 @@ def chromosome_phase(tmp, device):
     for name, k, p, rows, w in (
             ("affine_nibble", affine, affine_plain, n, ws),
             ("delta_nibble", delta_k, delta_plain, n, ws_d),
-            ("plane", plane, plane_plain, n_p, ws_p)):
+            ("plane", plane, plane_plain, n_p, ws_p),
+            ("affine_masked", masked_k, masked_plain, n, ws_m)):
         if w is None:
             print("   %s: a row block overflows the 256-entry window; "
                   "whole-table launch only" % name, flush=True)
         results[name] = kernel_vs_plain(name, k, p, rows, w is not None)
     torch.cuda.synchronize()
-    return results
+    return results, masked_launches["affine_masked"]
 
 
 def small_delta_phase(tmp, device):
@@ -348,8 +407,263 @@ def small_delta_phase(tmp, device):
     same_hits(got, want, "datagen assign_alleles_auto")
     print("   datagen fixture: %d reads, %d hits, launches %s"
           % (len(bd), len(want), dict(K.LAUNCHES)), flush=True)
-    check(min(K.LAUNCHES.values()) > 0,
+    check(min(K.LAUNCHES[k] for k in MAIN_PATH) > 0,
           "datagen run skipped a kernel: %s" % K.LAUNCHES)
+
+
+def planes_vs_plain(name, path_out, kernel, plain):
+    """A planes kernel's (vidx, allele) against its plain version on the
+    same CUDA tensors: the path's output and one timed launch of each.
+    Returns (max_abs_err, ms, plain_ms)."""
+    import torch
+    want = plain()
+    err = 0
+    for got in (path_out, kernel()):
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    hits = int((want[0] >= 0).sum())
+    check(err == 0, "%s: kernel disagrees with plain version" % name)
+    check(hits > 100, "%s: only %d hits" % (name, hits))
+    p1 = time_ms(plain, 5)
+    k1 = time_ms(kernel, 20)
+    k2 = time_ms(kernel, 20)
+    p2 = time_ms(plain, 5)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print("   %-15s hits=%d max_abs_err=%d  kernel %.4f ms (%.4f, %.4f)   "
+          "plain %.4f ms (%.4f, %.4f)"
+          % (name, hits, err, ms, k1, k2, plain_ms, p1, p2), flush=True)
+    return err, ms, plain_ms
+
+
+def entries_phase(device):
+    """The kernel-level entries on tests/test_tpu_hw.py's layout: M = 100k
+    table, N = 2^15 reads of 128 bases in 8 narrow regions, so that every
+    256-row block's band fits the window (asserted).  The resident table is
+    128 positions drawn from the reads' positions."""
+    import numpy as np
+    import torch
+    from phaser_tpu_torch.kernels import alleles as K
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    M, contig, N, L = 100_000, 200_000_000, 1 << 15, 128
+    vpos = np.sort(rng.choice(np.arange(1, contig, dtype=np.int64), size=M,
+                              replace=False)).astype(np.int32)
+    ind = rng.integers(1, 9, size=(M, 2)).astype(np.uint8)
+    ni = np.full(M, 2, np.int8)
+    region_w = max(contig // 2000, 10 * L)
+    region_lo = rng.integers(1, contig - region_w - L, size=8)
+    starts = np.sort(np.concatenate([
+        rng.integers(lo, lo + region_w, size=N // 8) for lo in region_lo
+    ])).astype(np.int32)[:N]
+    refpos = starts[:, None] + np.arange(L, dtype=np.int32)[None, :]
+    codes = rng.integers(1, 16, size=(N, L)).astype(np.uint8)
+    quals = rng.integers(0, 40, size=(N, L)).astype(np.uint8)
+    ws = K.plan_windows_plane(refpos, vpos)
+    check(ws is not None, "windowed plan failed: the comparison would be "
+          "vacuous (whole table against whole table)")
+    R_res = 128
+    vres = np.sort(rng.choice(np.unique(refpos), size=R_res,
+                              replace=False)).astype(np.int32)
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    big = [T(x) for x in (codes, quals, refpos, vpos, ind, ni)]
+    res = [T(x) for x in (codes, quals, refpos, vres, ind[:R_res],
+                          ni[:R_res])]
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    outs = {
+        "planes": K.assign_alleles_pallas_windowed(
+            *big, 10, refpos_host=refpos, vpos_host=vpos),
+        "planes_cmp": K.assign_alleles_pallas_windowed(
+            *big, 10, refpos_host=refpos, vpos_host=vpos, algo="cmp"),
+        "planes_resident": K.assign_alleles_pallas(*res, 10),
+    }
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: K.LAUNCHES[k] for k in outs}
+    print("   entry calls: %.3f s, launches %s" % (wall, launches), flush=True)
+    check(min(launches.values()) > 0, "an entry skipped its kernel: %s"
+          % launches)
+
+    # the launches alone (the windowed entry also plans on the host)
+    table, rtable = K._entry_table(*big), K._entry_table(*res)
+    ws_t = T(ws)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    R = min(256, N)
+    runs = {
+        "planes": (
+            lambda: K._launch_planes("planes_launch", "planes", *big[:3], 10,
+                                     ws_t, (K._WIN, R), table, (0,)),
+            lambda: K.planes_plain(*big[:3], 10, ws_t, K._WIN, R, table)),
+        "planes_cmp": (
+            lambda: K._launch_planes("planes_cmp_launch", "planes_cmp",
+                                     *big[:3], 10, ws_t, (R,), table),
+            lambda: K.planes_cmp_plain(*big[:3], 10, ws_t, R, table)),
+        "planes_resident": (
+            lambda: K._launch_planes("planes_launch", "planes_resident",
+                                     *res[:3], 10, zero, (R_res, N), rtable,
+                                     (1,)),
+            lambda: K.planes_plain(*res[:3], 10, zero, R_res, N, rtable)),
+    }
+    results = {name: planes_vs_plain(name, outs[name], *runs[name])
+               for name in outs}
+    # the windowed entry equals the whole-table classifier, as on the TPU
+    whole = K.assign_alleles_device(*big, 10)
+    torch.cuda.synchronize()
+    for g, w in zip(outs["planes"], whole):
+        check(torch.equal(g, w), "windowed planes differ from the whole "
+              "table's")
+    return results, launches
+
+
+class _FakeVT:
+    """Variant-table stand-in for build_connections
+    (tests/test_components.py)."""
+
+    def __init__(self, n):
+        self._n = n
+        self.phases = ["-"] * n
+        self.ind_alleles = [("A", "G")] * n
+
+    def __len__(self):
+        return self._n
+
+
+def timed_pair(fn, device, warm):
+    """(host s, cuda s, results) in turns host, cuda, cuda, host; each time
+    is the mean of its two runs.  With `warm`, one untimed device call
+    first takes the CUDA start-up of the stage's operators."""
+    import torch
+    ts = {"host": [], device: []}
+    out = {}
+    for dv in ((device,) if warm else ()) + ("host", device, device,
+                                            "host"):
+        t0 = time.perf_counter()
+        out[dv] = fn(dv)
+        torch.cuda.synchronize()
+        ts[dv].append(time.perf_counter() - t0)
+    if warm:
+        ts[device].pop(0)
+    return (sum(ts["host"]) / 2, sum(ts[device]) / 2, out["host"],
+            out[device], ts)
+
+
+class forced_gate:
+    """Sets a module's gate constant for a with-block (a below-gate size
+    that should still take the device path)."""
+
+    def __init__(self, module, name, value):
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def stages_phase(device):
+    """Engine stages #3-#5 below (gate forced down), at and above their
+    gates, cuda against host."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    from phaser_tpu_torch.engine import blocks, connections, phasing
+
+    rng = np.random.default_rng(1)
+    rows = []
+
+    # #3: synthetic two-hit reads over 5000 variants, pairs within 200
+    n_vars = 5000
+    for k, n_reads in enumerate((60_000, 240_000, 2_000_000)):
+        v1 = rng.integers(0, n_vars, n_reads)
+        v2 = np.minimum(v1 + 1 + rng.integers(0, 200, n_reads), n_vars - 1)
+        ok = v1 != v2
+        v1, v2 = v1[ok], v2[ok]
+        uid = np.repeat(np.arange(len(v1), dtype=np.int64), 2)
+        var = np.stack([v1, v2], 1).ravel().astype(np.int64)
+        allele = rng.integers(0, 3, size=len(var)).astype(np.int64)
+        vr = SimpleNamespace(vt=_FakeVT(n_vars), rv_uid=uid, rv_var=var,
+                             h_uid=uid, h_var=var, h_allele=allele)
+        before = connections.COUNTS["device_calls"]
+        with forced_gate(connections, "DEVICE_PAIR_GATE",
+                         0 if k == 0 else connections.DEVICE_PAIR_GATE):
+            th, tc, h, c, ts = timed_pair(
+                lambda dv: connections.build_connections(vr, 0.002, 0.01,
+                                                         device=dv),
+                device, warm=k == 0)
+        check(connections.COUNTS["device_calls"] == before + 2 + (k == 0),
+              "#3 did not take the device path")
+        check((h.n_pairs >= connections.DEVICE_PAIR_GATE) == (k > 0),
+              "#3 size on the wrong side of the gate")
+        for f in ("var_a", "var_b", "c_supporting", "c_total", "p_value",
+                  "chosen_config", "pruned"):
+            check(np.array_equal(getattr(h, f), getattr(c, f)),
+                  "#3 %s differs between cuda and host" % f)
+        check(h.adj == c.adj and h.allele_conn == c.allele_conn,
+              "#3 graph differs between cuda and host")
+        rows.append(("#3 pair counting", "%d pairs" % h.n_pairs, th, tc, ts))
+
+    # #4: local edges (each variant linked to one of its next four), the
+    # shape of haplotype blocks; n_edges counts both directions
+    for k, n_und in enumerate((13_000, 53_000, 500_000)):
+        V = 4 * n_und
+        a = rng.integers(0, V - 5, n_und)
+        b = a + rng.integers(1, 5, n_und)
+        adj = {}
+        for x, y in zip(a.tolist(), b.tolist()):
+            adj.setdefault(x, set()).add(y)
+            adj.setdefault(y, set()).add(x)
+        n_edges = sum(len(v) for v in adj.values())
+        conn = SimpleNamespace(adj=adj,
+                               var_rank=rng.permutation(V).astype(np.int64))
+        vt = SimpleNamespace(pos=np.arange(V, dtype=np.int64) * 10)
+        before = blocks.COUNTS["device_calls"]
+        with forced_gate(blocks, "_DEVICE_EDGE_GATE",
+                         0 if k == 0 else blocks._DEVICE_EDGE_GATE):
+            th, tc, h, c, ts = timed_pair(
+                lambda dv: blocks.find_blocks(conn, vt, device=dv), device,
+                warm=k == 0)
+        check(blocks.COUNTS["device_calls"] == before + 2 + (k == 0),
+              "#4 did not take the device path")
+        check((n_edges >= blocks._DEVICE_EDGE_GATE) == (k > 0),
+              "#4 size on the wrong side of the gate")
+        check(h == c, "#4 blocks differ between cuda and host")
+        rows.append(("#4 components", "%d edges" % n_edges, th, tc, ts))
+
+    # #5: a read-consistent chain with longer links: a unique best config
+    gate = phasing.DEVICE_SCORE_GATE
+    for n in range(gate - 4, 23):
+        truth = rng.integers(0, 2, n)
+        ac = {}
+        for i in range(n - 1):
+            for j in (i + 1, i + 3):
+                if j >= n:
+                    continue
+                for x in (0, 1):
+                    y = x if truth[i] == truth[j] else 1 - x
+                    ac.setdefault((i, x), set()).add((j, y))
+                    ac.setdefault((j, y), set()).add((i, x))
+        variants = list(range(n))
+        before = phasing.COUNTS["device_calls"]
+        with forced_gate(phasing, "DEVICE_SCORE_GATE", min(n, gate)):
+            th, tc, h, c, ts = timed_pair(
+                lambda dv: phasing.sub_block_phase(variants, ac, device=dv),
+                device, warm=n == gate - 4)
+        check(phasing.COUNTS["device_calls"] ==
+              before + 2 + (n == gate - 4), "#5 did not take the device path")
+        check(h == c and "-" not in h[0], "#5 phase differs between cuda and "
+              "host, or tied: %s / %s" % (h, c))
+        rows.append(("#5 2^n scorer", "n = %d" % n, th, tc, ts))
+
+    for stage, size, th, tc, ts in rows:
+        print("   %-17s %-14s host %.4f s  cuda %.4f s   (runs %s)"
+              % (stage, size, th, tc, {k: ["%.4f" % t for t in v]
+                                       for k, v in ts.items()}), flush=True)
+    return rows
 
 
 def run_cli(argv):
@@ -388,37 +702,61 @@ def e2e_phase(tmp, device):
     print("   fixture: %d input reads, %d variants, %.1f s"
           % (2 * sum(pairs), sum(nvar), time.perf_counter() - t0),
           flush=True)
+    import contextlib
+
+    from phaser_tpu_torch.engine import blocks, connections, phasing
+    gates = [(connections, "DEVICE_PAIR_GATE", 0),
+             (blocks, "_DEVICE_EDGE_GATE", 0),
+             (phasing, "DEVICE_SCORE_GATE", 2)]
+    stage_counts = (connections.COUNTS, blocks.COUNTS, phasing.COUNTS)
     walls = {}
-    launches, relaunches = None, 0
-    for dv in (device, "host"):
+    launches, relaunches, stage_calls = None, 0, {}
+    for run in (device, "host", "gates_down"):
+        dv = "host" if run == "host" else device
         argv = ["--vcf", vcf, "--bam", bam, "--sample", data.sample,
                 "--mapq", "10", "--baseq", "10", "--paired_end", "1",
-                "--o", os.path.join(d, dv), "--device", dv]
+                "--o", os.path.join(d, run), "--device", dv]
         K.reset_launches()
         D.RELAUNCHES["capacity"] = 0
-        rc, stdout, walls[dv] = run_cli(argv)
-        if dv == device:
+        for c in stage_counts:
+            c["device_calls"] = 0
+        with contextlib.ExitStack() as stack:
+            if run == "gates_down":
+                for gate in gates:
+                    stack.enter_context(forced_gate(*gate))
+            rc, stdout, walls[run] = run_cli(argv)
+        calls = {m.__name__.rsplit(".", 1)[1]: c["device_calls"]
+                 for (m, _, _), c in zip(gates, stage_counts)}
+        if run == device:
             launches = dict(K.LAUNCHES)
             relaunches = D.RELAUNCHES["capacity"]
-        check(rc == 0, "CLI --device %s failed:\n%s" % (dv, stdout[-3000:]))
+        stage_calls[run] = calls
+        check(rc == 0, "CLI %s failed:\n%s" % (run, stdout[-3000:]))
         lines = stdout.splitlines()
         start = next((i for i, x in enumerate(lines)
                       if "stage timings" in x), len(lines))
         for line in lines[start + 1:]:
             if line.strip().startswith(("#", "device path", "COMPLETED")):
-                print("   [%s] %s" % (dv, line.strip()), flush=True)
-    for sfx in SUFFIXES:
-        a = open(os.path.join(d, device) + sfx, "rb").read()
-        b = open(os.path.join(d, "host") + sfx, "rb").read()
-        check(a == b, "end-to-end output %s differs between %s and host"
-              % (sfx, device))
-    print("   outputs byte-identical (%s)" % ", ".join(SUFFIXES), flush=True)
-    print("   e2e wall (CLI main, in process): %s %.3f s, host %.3f s; "
-          "kernel launches %s; capacity relaunches %d"
-          % (device, walls[device], walls["host"], launches, relaunches),
-          flush=True)
-    check(launches and min(launches.values()) > 0,
+                print("   [%s] %s" % (run, line.strip()), flush=True)
+        print("   [%s] device stage calls %s, reads over the pair K cap %d"
+              % (run, calls, connections.COUNTS["host_reads"]), flush=True)
+    for run in (device, "gates_down"):
+        for sfx in SUFFIXES:
+            a = open(os.path.join(d, run) + sfx, "rb").read()
+            b = open(os.path.join(d, "host") + sfx, "rb").read()
+            check(a == b, "end-to-end output %s differs between %s and host"
+                  % (sfx, run))
+    print("   outputs byte-identical to host in both cuda runs (%s)"
+          % ", ".join(SUFFIXES), flush=True)
+    print("   e2e wall (CLI main, in process): %s %.3f s, host %.3f s, "
+          "gates down %.3f s; kernel launches %s; capacity relaunches %d"
+          % (device, walls[device], walls["host"], walls["gates_down"],
+             launches, relaunches), flush=True)
+    check(launches and min(launches[k] for k in MAIN_PATH) > 0,
           "main path skipped a kernel: %s" % launches)
+    check(min(stage_calls["gates_down"].values()) > 0,
+          "gates-down run skipped a device stage: %s"
+          % stage_calls["gates_down"])
     return launches, walls
 
 
@@ -455,12 +793,23 @@ def main() -> int:
     os.environ["PHASER_TPU_TORCH_CACHE"] = os.path.join(tmp, "cache")
     try:
         phase(3, "kernel parity at chromosome scale")
-        results = chromosome_phase(tmp, "cuda")
+        results, masked_launches = chromosome_phase(tmp, "cuda")
         small_delta_phase(tmp, "cuda")
         torch.cuda.synchronize()
 
-        phase(4, "end to end, --device cuda vs --device host")
+        phase(4, "kernel-level entries (planes kernels)")
+        entry_results, entry_launches = entries_phase("cuda")
+        results.update(entry_results)
+        torch.cuda.synchronize()
+
+        phase(5, "engine stages #3-#5 below, at and above their gates")
+        stages_phase("cuda")
+        torch.cuda.synchronize()
+
+        phase(6, "end to end, --device cuda vs --device host")
         launches, _ = e2e_phase(tmp, "cuda")
+        launches["affine_masked"] = masked_launches
+        launches.update(entry_launches)
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -470,6 +819,9 @@ def main() -> int:
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
                for name, (err, ms, plain_ms) in results.items()]
+    check(len(kernels) == len(REPLACES) and
+          min(k["launches"] for k in kernels) > 0,
+          "a kernel was not launched on its path: %s" % kernels)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """phaser_tpu_torch main CLI: phaser_tpu's `phaser` command (flag-compatible
 with phASER's phaser.py:26-81) on the PyTorch / CUDA port.
 
---device: cuda (default; auto is the same) runs allele assignment through
-the CUDA kernels and fails without a GPU, cpu runs the kernels' plain
-PyTorch versions on CPU tensors, host runs the exact host mapper.
+--device: cuda (default; auto is the same) runs the device stages on the
+GPU and fails without one: #2 allele assignment through the CUDA kernels,
+and, above their size gates, #3 pair counting, #4 components and the #5 2^n
+scorer as torch code.  cpu runs the same stages with the kernels' plain
+PyTorch versions on CPU tensors; host runs every stage on the host.
 --process_slow 1 and --threads > 1 are not ported yet and exit 1.
 """
 
@@ -68,10 +70,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "lost shards (phaser_tpu extension).")
     p.add_argument("--device", default="cuda",
                    choices=("cuda", "auto", "cpu", "host"),
-                   help="Allele-assignment device: cuda (CUDA kernels; "
-                        "auto is the same), cpu (their plain PyTorch "
-                        "versions on CPU tensors) or host (exact host "
-                        "mapper) (phaser_tpu_torch extension).")
+                   help="Device of allele assignment and, above their "
+                        "size gates, pair counting, components and the 2^n "
+                        "scorer: cuda (CUDA kernels and torch on the GPU; "
+                        "auto is the same), cpu (the kernels' plain PyTorch "
+                        "versions on CPU tensors) or host (host code only) "
+                        "(phaser_tpu_torch extension).")
     return p
 
 
@@ -132,9 +136,16 @@ def main(argv=None) -> int:
     from phaser_tpu.utils.failures import clear_failure_record
     clear_failure_record(args.o)
     if device != "host":
+        from ..engine import blocks, connections, phasing
         from ..kernels.alleles import LAUNCHES
         print("     kernel launches: %s"
               % " ".join("%s=%d" % kv for kv in LAUNCHES.items()))
+        print("     device stage calls: pair_counts=%d components=%d "
+              "phase_scores=%d (reads over the pair K cap on the host: %d)"
+              % (connections.COUNTS["device_calls"],
+                 blocks.COUNTS["device_calls"],
+                 phasing.COUNTS["device_calls"],
+                 connections.COUNTS["host_reads"]))
     print('COMPLETED "Read backed phasing" of sample %s in %s hh:mm:ss'
           % (args.sample,
              time.strftime("%H:%M:%S", time.gmtime(time.time() - start))))

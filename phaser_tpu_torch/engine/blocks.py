@@ -1,0 +1,76 @@
+"""Haplotype-block discovery (the port of phaser_tpu/engine/blocks.py).
+
+`find_blocks` and `_device_blocks` are copies whose device path is this
+package's torch label propagation (kernels.components) on a CUDA or CPU
+device: at or above the edge gate the components come from the device, or
+the call raises.  `_host_blocks` is imported unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Set
+
+import numpy as np
+
+from phaser_tpu.engine.blocks import _host_blocks
+from phaser_tpu.engine.connections import ContigConnections
+
+# device label propagation pays off only on big graphs
+# (phaser_tpu engine/blocks.py:20)
+_DEVICE_EDGE_GATE = 100_000
+# device calls
+COUNTS = {"device_calls": 0}
+
+
+def find_blocks(conn: ContigConnections, vt,
+                device: str = "host") -> List[List[int]]:
+    """Blocks as lists of table indices (phaser_tpu engine/blocks.py:23-51).
+
+    Order: by first overlap-key rank among members (reference seed order).
+    Within a block: (int(pos), table index)."""
+    adj = conn.adj
+    if not adj:
+        return []
+
+    n_edges = sum(len(nbrs) for nbrs in adj.values())  # 2x undirected count
+    if device not in ("host", "off") and n_edges >= _DEVICE_EDGE_GATE:
+        from phaser_tpu.utils.trace import device_section
+        with device_section():
+            blocks = _device_blocks(adj, device)
+    else:
+        blocks = _host_blocks(adj)
+
+    rank = conn.var_rank
+    blocks.sort(key=lambda mem: min(int(rank[v]) for v in mem))
+    out = []
+    for mem in blocks:
+        mem = sorted(mem, key=lambda v: (int(vt.pos[v]), v))
+        out.append(mem)
+    return out
+
+
+def _device_blocks(adj: Dict[int, Set[int]], device) -> List[List[int]]:
+    """Flattens the adjacency to an edge list and labels its components on
+    `device` (phaser_tpu engine/blocks.py:74-97)."""
+    from ..kernels.components import connected_components
+    from ..mapper.dispatch import resolve_device
+
+    dev = resolve_device(device)
+    COUNTS["device_calls"] += 1
+    ea = []
+    eb = []
+    for a, nbrs in adj.items():
+        for b in nbrs:
+            if a < b:  # one direction suffices for an undirected CC
+                ea.append(a)
+                eb.append(b)
+    if not ea:
+        # isolated self-connected keys only; treat each as its own block
+        return [[v] for v in adj]
+    comps = connected_components(np.asarray(ea, np.int64),
+                                 np.asarray(eb, np.int64), dev)
+    # vertices present in adj but in no a<b edge (possible only if adj held
+    # a vertex with an empty neighbor set) become singletons
+    seen = {v for mem in comps for v in mem}
+    comps.extend([v] for v in adj if v not in seen)
+    return comps

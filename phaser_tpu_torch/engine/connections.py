@@ -1,0 +1,212 @@
+"""Variant-connection graph (the port of phaser_tpu/engine/connections.py).
+
+`build_connections` and `_device_pair_counts` are copies whose device path
+is this package's torch pair counting (kernels.paircount) on a CUDA or CPU
+device.  On a non-host device at or above the pair gate the counts come
+from the device, or the call raises; nothing retreats to the host except the
+reads with more hits than the K cap, as in phaser_tpu.  The helpers and
+`ContigConnections` are imported unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Set, Tuple
+
+import numpy as np
+from scipy.stats import binom
+
+from phaser_tpu.engine.connections import (ContigConnections, _pair_combos,
+                                           compute_overlap_ranks)
+from phaser_tpu.engine.hits import VariantReads
+
+# device pair counting pays off only for large pair universes
+# (phaser_tpu engine/connections.py:200)
+DEVICE_PAIR_GATE = 200_000
+# largest per-read hit count the device emits pairs for; reads above it
+# take the host combos
+MAX_K = 24
+# device calls, and reads sent to the host combos for exceeding K
+COUNTS = {"device_calls": 0, "host_reads": 0}
+
+
+def _device_pair_counts(vr: VariantReads, uniq_pk: np.ndarray, n_vars: int,
+                        device) -> np.ndarray:
+    """Pair-config counting on `device` (kernels.paircount); reads with more
+    hits than the K cap take the host combos.  Returns (P, 3, 3) counts
+    aligned to uniq_pk (phaser_tpu engine/connections.py:118-172)."""
+    import torch
+
+    from ..kernels.paircount import (count_pair_configs, emit_pairs,
+                                     pack_read_hits)
+    from ..mapper.dispatch import resolve_device
+
+    dev = resolve_device(device)
+    COUNTS["device_calls"] += 1
+    # bucket K to the true per-read hit maximum (pow2, capped): emit_pairs
+    # materializes (R, K*(K-1)/2) pair planes, so K drives device memory
+    if len(vr.h_uid):
+        _, hit_counts = np.unique(vr.h_uid, return_counts=True)
+        maxc = int(hit_counts.max())
+    else:
+        maxc = 2
+    K = 2
+    while K < min(maxc, MAX_K):
+        K *= 2
+    K = min(K, MAX_K)
+    var_mat, allele_mat, overflow = pack_read_hits(
+        vr.h_uid, vr.h_var, vr.h_allele, K)
+    P = len(uniq_pk)
+    counts = np.zeros((P, 3, 3), np.int64)
+    if var_mat.shape[0]:
+        lo, hi, al, ah = emit_pairs(torch.from_numpy(var_mat).to(dev),
+                                    torch.from_numpy(allele_mat).to(dev), K)
+        keys, dev_counts, n_uniq = count_pair_configs(lo, hi, al, ah, n_vars)
+        keys = keys.cpu().numpy()
+        dev_counts = dev_counts.cpu().numpy().reshape(n_uniq, 3, 3)
+        pidx = np.searchsorted(uniq_pk, keys)
+        ok = (pidx < P) & (uniq_pk[np.minimum(pidx, P - 1)] == keys)
+        np.add.at(counts, pidx[ok], dev_counts[ok])
+    if len(overflow):
+        COUNTS["host_reads"] += len(overflow)
+        sel = np.isin(vr.h_uid, overflow)
+        order = np.argsort(vr.h_uid[sel], kind="stable")
+        ci, cj, cai, caj = _pair_combos(vr.h_uid[sel][order],
+                                        vr.h_var[sel][order],
+                                        vr.h_allele[sel][order])
+        if len(ci):
+            ck = ci * n_vars + cj
+            pidx = np.searchsorted(uniq_pk, ck)
+            ok = (pidx < P) & (uniq_pk[np.minimum(pidx, P - 1)] == ck)
+            np.add.at(counts, (pidx[ok], cai[ok], caj[ok]), 1)
+    return counts
+
+
+def build_connections(vr: VariantReads, noise_e: float,
+                      cc_threshold: float,
+                      device: str = "host") -> ContigConnections:
+    """phaser_tpu engine/connections.py:175-308.  `device` "host" counts
+    pairs on the host; "cpu" or "cuda" count them with torch on that device
+    when the contig has at least DEVICE_PAIR_GATE pairs."""
+    vt = vr.vt
+    var_rank = compute_overlap_ranks(vr)
+
+    # ---- pair universe from read_vars co-occurrence
+    uorder = np.argsort(vr.rv_uid, kind="stable")
+    pv_i, pv_j = _pair_combos(vr.rv_uid[uorder], vr.rv_var[uorder], None)
+    if len(pv_i):
+        pk = pv_i * len(vt) + pv_j
+        uniq_pk = np.unique(pk)
+        P = len(uniq_pk)
+        p_lo = uniq_pk // len(vt)
+        p_hi = uniq_pk % len(vt)
+    else:
+        P = 0
+        p_lo = p_hi = np.zeros(0, np.int64)
+
+    # ---- counts over deduplicated hits (all allele classes)
+    if P >= DEVICE_PAIR_GATE and device not in ("host", "off"):
+        from phaser_tpu.utils.trace import device_section
+        with device_section():
+            counts = _device_pair_counts(vr, uniq_pk, len(vt), device)
+    else:
+        counts = np.zeros((P, 3, 3), np.int64)
+        if P:
+            horder = np.argsort(vr.h_uid, kind="stable")
+            hv, ha, hu = vr.h_var[horder], vr.h_allele[horder], vr.h_uid[horder]
+            ci, cj, cai, caj = _pair_combos(hu, hv, ha)
+            if len(ci):
+                ck = ci * len(vt) + cj
+                pidx = np.searchsorted(uniq_pk, ck)
+                inuni = (pidx < P) & (uniq_pk[np.minimum(pidx, P - 1)] == ck)
+                np.add.at(counts, (pidx[inuni], cai[inuni], caj[inuni]), 1)
+
+    config_a = counts[:, 0, 0] + counts[:, 1, 1]
+    config_b = counts[:, 0, 1] + counts[:, 1, 0]
+    other = (counts[:, 2, 0] + counts[:, 2, 1] + counts[:, 0, 2] +
+             counts[:, 1, 2] + counts[:, 2, 2])
+    c_supporting = np.maximum(config_a, config_b)
+    c_total = config_a + config_b + other
+    chosen = np.where(config_a > config_b, 0,
+                      np.where(config_a < config_b, 1, -1)).astype(np.int8)
+
+    # p-values: always host scipy, because variant_connections.txt prints
+    # every pair's p at full float64 precision
+    p_value = np.ones(P, np.float64)
+    p_value[c_supporting == 0] = 0.0
+    do_test = (c_supporting > 0) & (c_total - c_supporting > 0)
+    if do_test.any():
+        p_success = 1 - ((6 * noise_e) + (10 * noise_e ** 2))
+        p_value[do_test] = binom.cdf(c_supporting[do_test], c_total[do_test],
+                                     p_success)
+    pruned = p_value < cc_threshold
+    # display objects: the reference assigns int 0 / int 1 outside the test
+    # branch (:1645-1652), floats from binom.cdf inside it
+    p_display = [
+        (float(p_value[k]) if do_test[k] else int(p_value[k]))
+        for k in range(P)]
+
+    # ---- orientation: variant_a = earlier overlap-key rank
+    ra, rb = var_rank[p_lo], var_rank[p_hi]
+    swap = ra > rb
+    va = np.where(swap, p_hi, p_lo)
+    vb = np.where(swap, p_lo, p_hi)
+
+    # phase concordance (test_variant_connection :1607-1620): per-variant
+    # phase indices precompute once (O(n)), the per-pair loop reduces to
+    # vectorized selects
+    n_vt = len(vt)
+    dash = np.ones(n_vt, bool)
+    idx0 = np.zeros(n_vt, np.int8)
+    idx1 = np.zeros(n_vt, np.int8)
+    for v in np.unique(np.concatenate([p_lo, p_hi])) if P else []:
+        v = int(v)
+        pa = vt.phases[v]
+        if "-" in pa:
+            continue
+        ind = vt.ind_alleles[v]
+        dash[v] = False
+        idx0[v] = pa.index(ind[0])
+        idx1[v] = pa.index(ind[1])
+    if P:
+        ok = ~dash[va] & ~dash[vb]
+        gt = config_a > config_b
+        lt = config_a < config_b
+        pc_num = np.where(gt, idx0[va] == idx0[vb],
+                          idx1[va] == idx0[vb]).astype(np.int64)
+        use = ok & (gt | lt)
+        phase_concordant: List = [
+            int(pc_num[k]) if use[k] else "." for k in range(P)]
+    else:
+        phase_concordant = []
+
+    # ---- post-prune adjacency + allele edges
+    adj: Dict[int, Set[int]] = {}
+    allele_conn: Dict[Tuple[int, int], Set[Tuple[int, int]]] = {}
+    for k in np.flatnonzero(~pruned):
+        a, b = int(va[k]), int(vb[k])
+        adj.setdefault(a, set()).add(b)
+        adj.setdefault(b, set()).add(a)
+        for key in ((a, 0), (a, 1), (b, 0), (b, 1)):
+            allele_conn.setdefault(key, set())
+        ch = int(chosen[k])
+        if ch == 0:
+            allele_conn[(a, 0)].add((b, 0))
+            allele_conn[(b, 0)].add((a, 0))
+            allele_conn[(a, 1)].add((b, 1))
+            allele_conn[(b, 1)].add((a, 1))
+        elif ch == 1:
+            allele_conn[(a, 0)].add((b, 1))
+            allele_conn[(b, 0)].add((a, 1))
+            allele_conn[(a, 1)].add((b, 0))
+            allele_conn[(b, 1)].add((a, 0))
+
+    # canonical file order: (rank_a, rank_b)
+    order = np.lexsort((var_rank[vb], var_rank[va]))
+    return ContigConnections(
+        var_a=va[order], var_b=vb[order],
+        c_supporting=c_supporting[order], c_total=c_total[order],
+        p_value=p_value[order],
+        p_display=[p_display[i] for i in order],
+        phase_concordant=[phase_concordant[i] for i in order],
+        chosen_config=chosen[order], pruned=pruned[order],
+        var_rank=var_rank, adj=adj, allele_conn=allele_conn)

@@ -9,9 +9,10 @@ phASER's phaser.py:182-1263), built on:
 
 It differs from phaser_tpu's only where the device is reached: allele
 assignment and hit resolution use this package's dispatcher (CUDA kernels),
-the JAX compile-cache setup is gone, connections and blocks run on the host
-(their device kernels are not ported yet), and phasing uses this package's
-phase_v3 (no device scorer).  Everything else is kept line for line.
+the JAX compile-cache setup is gone, and connections (#3 pair counting),
+blocks (#4 components) and phasing (#5 2^n scorer) are this package's
+copies, which take `device` and run their torch device paths above their
+size gates.  Everything else is kept line for line.
 
 No subprocesses, no external genomics tools.
 """
@@ -28,8 +29,8 @@ import numpy as np
 from phaser_tpu.io import bam as bamio
 from phaser_tpu.io import vcf as vcfio
 from phaser_tpu.io.bed import IntervalSet
-from phaser_tpu.engine.blocks import find_blocks
-from phaser_tpu.engine.connections import build_connections
+from .blocks import find_blocks
+from .connections import build_connections
 from phaser_tpu.engine.hits import build_contig_rows, build_variant_reads, noise_terms
 from phaser_tpu.engine.output_stage import (BlockOutputWriter, PhaserOptions,
                            write_allelic_counts, write_variant_connections)
@@ -571,9 +572,8 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
         with tracer.stage("#3 connections", "pairs"):
             def _connect(state):
                 vr = state[0]
-                # host until the pair-count kernel is ported
                 return (vr, build_connections(vr, noise_e, opts.cc_threshold,
-                                              device="host"))
+                                              device=device))
 
             # same serial-launch invariant as _process_chunk: device pair-count
             # kernels are dispatched from one thread only
@@ -599,8 +599,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
         final = []  # (vr, conn, [(v, allele_char)...])
         with tracer.stage("#4/#5 blocks+phasing", "blocks"):
             for vr, conn in contig_states:
-                # host until the components kernel is ported
-                blocks = find_blocks(conn, vr.vt, device="host")
+                blocks = find_blocks(conn, vr.vt, device=device)
                 tracer.add("#4/#5 blocks+phasing", len(blocks), "blocks")
                 for block in blocks:
                     vconn = {v: conn.adj[v] for v in block if v in conn.adj}
@@ -609,7 +608,9 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
                         for a in (0, 1):
                             if (v, a) in conn.allele_conn:
                                 ac[(v, a)] = conn.allele_conn[(v, a)]
-                    for phased in phase_v3(block, vconn, ac, opts.max_block_size):
+                    for phased in phase_v3(block, vconn, ac,
+                                           opts.max_block_size,
+                                           device=device):
                         final.append((vr, conn, phased))
 
         # ---- #6 outputs

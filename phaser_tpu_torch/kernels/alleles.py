@@ -1,17 +1,27 @@
-"""Allele assignment on the GPU: the port of phaser_tpu/kernels/alleles.py's
-three fused programs (unpack + classify + compact), each a hand-written
-CUDA kernel in csrc/alleles.cu beside a plain PyTorch version.
+"""Allele assignment on the GPU: the port of phaser_tpu/kernels/alleles.py.
+
+The dispatcher's fused programs (unpack + classify + compact), each a
+hand-written CUDA kernel in csrc/alleles.cu beside a plain PyTorch version:
 
   assign_compact_affine_nibble  affine reads, nibble-packed masked plane
+  assign_compact_affine_masked  affine reads, 1 B/base masked plane (no
+                                nibble packer)
   assign_compact_delta_nibble   D / split-M reads, nibble plane + int16 delta
   assign_compact_plane          N-spliced reads / delta overflow, refpos plane
 
-Each wrapper takes `ws` (per-256-row-block table offsets from a planner) or
-None for a search over the whole table, and returns the packed-hit buffer of
+Each takes `ws` (per-256-row-block table offsets from a planner) or None for
+a search over the whole table, and returns the packed-hit buffer of
 phaser_tpu's `_pack_hits`: int32 (2, capacity + 1), out[0, 0] = n_hits (exact
 even past capacity), row 0 = read index within the launch, row 1 =
 (var << 8) | (masked base << 4) | allele.  The CUDA kernels compact with
 atomics, so hit order is free; callers sort.
+
+The kernel-level entries keep phaser_tpu's public layout (codes/quals (N, L)
+uint8, refpos (N, L) int32, vpos (M,) int32, ind_codes (M, 2) uint8, n_ind
+(M,) int8) and return the (N, L) int32 vidx / allele planes:
+assign_alleles_device (whole table), assign_alleles_pallas_windowed (planned
+256-entry windows, algo "gather" or "cmp") and assign_alleles_pallas (table
+resident in shared memory), plus compact_hits.
 
 A wrapper runs the plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises.
@@ -38,7 +48,9 @@ _WIN = 256  # table window entries per read block
 _INT32_MAX = int(np.iinfo(np.int32).max)
 
 # kernel launches per wrapper (CUDA launches only; plain runs do not count)
-LAUNCHES = {"affine_nibble": 0, "delta_nibble": 0, "plane": 0}
+LAUNCHES = {"affine_nibble": 0, "delta_nibble": 0, "plane": 0,
+            "affine_masked": 0, "planes": 0, "planes_resident": 0,
+            "planes_cmp": 0}
 
 Table = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -96,9 +108,25 @@ def _plane_width(bd) -> int:
     return ((L + 127) // 128) * 128
 
 
+def _pack_reads_numpy(bd, codes, quals, refpos) -> None:
+    """Fills the zeroed (N, L) planes from the BamData (phaser_tpu
+    kernels/alleles.py:161-169)."""
+    from phaser_tpu.mapper.host import expand_refpos
+
+    n = len(bd)
+    lens = np.diff(bd.seq_off)
+    rp_flat, _, _ = expand_refpos(bd)
+    idx = np.arange(len(bd.seq_flat)) - np.repeat(bd.seq_off[:-1], lens)
+    rows = np.repeat(np.arange(n), lens)
+    codes[rows, idx] = bd.seq_flat
+    quals[rows, idx] = bd.qual_flat
+    refpos[rows, idx] = rp_flat
+
+
 def pack_reads(bd) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(codes, quals, refpos) padded (N, L) planes, L a multiple of 128, from
-    the native packer (raises without it)."""
+    """(codes, quals, refpos) padded (N, L) planes, L a multiple of 128:
+    phaser_tpu's pack_reads (kernels/alleles.py:114-169), the native packer
+    or, without it, numpy."""
     n = len(bd)
     L = _plane_width(bd)
     codes = np.zeros((n, L), np.uint8)
@@ -108,13 +136,71 @@ def pack_reads(bd) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         return codes, quals, refpos
     lib = _native_lib()
     if lib is None:
-        raise RuntimeError("pack_reads needs phaser_tpu's native IO library")
+        _pack_reads_numpy(bd, codes, quals, refpos)
+        return codes, quals, refpos
     ptr = ctypes.c_void_p
     keep, p = _read_arrays(bd)
     lib.pack_reads_native(
         n, *p, L, codes.ctypes.data_as(ptr), quals.ctypes.data_as(ptr),
         refpos.ctypes.data_as(ptr), _n_threads())
     return codes, quals, refpos
+
+
+def pack_codes_quals(bd, reuse: bool = False
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """codes/quals planes only, for the masked-affine path, where refpos is
+    rebuilt on the device (phaser_tpu kernels/alleles.py:530-560)."""
+    n = len(bd)
+    L = _plane_width(bd)
+    lib = _native_lib() if n else None
+    if lib is not None and hasattr(lib, "pack_codes_quals_native"):
+        if reuse:
+            codes = _reuse_buf("codes", n, L, np.uint8)
+            quals = _reuse_buf("quals", n, L, np.uint8)
+        else:
+            codes = np.empty((n, L), np.uint8)
+            quals = np.empty((n, L), np.uint8)
+        ptr = ctypes.c_void_p
+        seq = np.ascontiguousarray(bd.seq_flat, np.uint8)
+        qual = np.ascontiguousarray(bd.qual_flat, np.uint8)
+        soff = np.ascontiguousarray(bd.seq_off, np.int64)
+        lib.pack_codes_quals_native(
+            n, seq.ctypes.data_as(ptr), qual.ctypes.data_as(ptr),
+            soff.ctypes.data_as(ptr), L, codes.ctypes.data_as(ptr),
+            quals.ctypes.data_as(ptr), _n_threads())
+        return codes, quals
+    codes = np.zeros((n, L), np.uint8)
+    quals = np.zeros((n, L), np.uint8)
+    if n:
+        _pack_reads_numpy(bd, codes, quals, np.zeros((n, L), np.int32))
+    return codes, quals
+
+
+def pack_affine_masked(bd, baseq: int, reuse: bool = False):
+    """One-pass native masked-plane packing + affine classification
+    (phaser_tpu kernels/alleles.py:454-491): (n, L) uint8 with 15 where the
+    base is masked.  Returns (mcodes, is_affine, start, lo, hi) or None
+    without the native library."""
+    n = len(bd)
+    L = _plane_width(bd)
+    lib = _native_lib() if n else None
+    if lib is None or not hasattr(lib, "pack_affine_masked_native"):
+        return None
+    if reuse:
+        mcodes = _reuse_buf("mcodes", n, L, np.uint8)
+    else:
+        mcodes = np.empty((n, L), np.uint8)
+    is_aff = np.empty(n, np.uint8)
+    start = np.empty(n, np.int32)
+    lo = np.empty(n, np.int32)
+    hi = np.empty(n, np.int32)
+    ptr = ctypes.c_void_p
+    keep, p = _read_arrays(bd)
+    lib.pack_affine_masked_native(
+        n, *p, baseq, L, mcodes.ctypes.data_as(ptr),
+        is_aff.ctypes.data_as(ptr), start.ctypes.data_as(ptr),
+        lo.ctypes.data_as(ptr), hi.ctypes.data_as(ptr), _n_threads())
+    return mcodes, is_aff.astype(bool), start, lo, hi
 
 
 def pack_affine_nibble(bd, baseq: int, reuse: bool = False):
@@ -280,13 +366,15 @@ def device_table(vt, dev_vidx: np.ndarray, device) -> Table:
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _classify_plain(masked: torch.Tensor, refpos: torch.Tensor,
-                    ws: torch.Tensor, win: int, block_rows: int,
-                    table: Table) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hit, word) planes: a base hits the table entry equal to its refpos
-    when that entry lies in its row block's window [ws[b], ws[b] + win).
-    The table's finite positions are unique, so the global lower bound
-    inside the window is the window's own lower bound."""
+def _lookup_plain(masked: torch.Tensor, refpos: torch.Tensor,
+                  ws: torch.Tensor, win: int, block_rows: int,
+                  table: Table) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(hit, table index, allele) planes: a base hits the table entry equal
+    to its refpos when that entry lies in its row block's window
+    [ws[b], ws[b] + win).  The planners put every position a block can hit
+    at or after its window start, so the global lower bound is the window's
+    own lower bound."""
     vpos, a0, a1, ni = table
     mp = vpos.shape[0]
     N = refpos.shape[0]
@@ -299,6 +387,15 @@ def _classify_plain(masked: torch.Tensor, refpos: torch.Tensor,
     allele = torch.where(
         (masked == a0[safe]) & (ni[safe] > 0), 0,
         torch.where((masked == a1[safe]) & (ni[safe] > 1), 1, OTHER))
+    return hit, safe, allele
+
+
+def _classify_plain(masked: torch.Tensor, refpos: torch.Tensor,
+                    ws: torch.Tensor, win: int, block_rows: int,
+                    table: Table) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hit, packed hit word) planes."""
+    hit, safe, allele = _lookup_plain(masked, refpos, ws, win, block_rows,
+                                      table)
     word = (safe << 8) | (masked.long() << 4) | allele.long()
     return hit, word
 
@@ -328,13 +425,27 @@ def _base_index(L: int, device) -> torch.Tensor:
     return torch.arange(L, dtype=torch.int32, device=device)[None, :]
 
 
+def _affine_refpos(start, lo, hi, L: int) -> torch.Tensor:
+    """refpos = start + (i - lo) on [lo, hi), else 0."""
+    i = _base_index(L, start.device)
+    lo_ = lo[:, None]
+    aligned = (i >= lo_) & (i < hi[:, None])
+    return torch.where(aligned, start[:, None] + (i - lo_), 0)
+
+
 def affine_nibble_plain(ncodes, start, lo, hi, ws, win: int, block_rows: int,
                         table: Table, capacity: int) -> torch.Tensor:
     masked = _unpack_nibbles(ncodes)
-    i = _base_index(masked.shape[1], masked.device)
-    lo_ = lo[:, None]
-    aligned = (i >= lo_) & (i < hi[:, None])
-    refpos = torch.where(aligned, start[:, None] + (i - lo_), 0)
+    refpos = _affine_refpos(start, lo, hi, masked.shape[1])
+    hit, word = _classify_plain(masked, refpos, ws, win, block_rows, table)
+    return _pack_plain(hit, word, capacity)
+
+
+def affine_masked_plain(mcodes, start, lo, hi, ws, win: int,
+                        block_rows: int, table: Table,
+                        capacity: int) -> torch.Tensor:
+    masked = mcodes.to(torch.int32)
+    refpos = _affine_refpos(start, lo, hi, masked.shape[1])
     hit, word = _classify_plain(masked, refpos, ws, win, block_rows, table)
     return _pack_plain(hit, word, capacity)
 
@@ -349,13 +460,56 @@ def delta_nibble_plain(ncodes, start, delta, ws, win: int, block_rows: int,
     return _pack_plain(hit, word, capacity)
 
 
+def _masked_plane(codes, quals, baseq: int) -> torch.Tensor:
+    return torch.where(quals.to(torch.int32) >= baseq, codes.to(torch.int32),
+                       15)
+
+
 def plane_plain(codes, quals, refpos, baseq: int, ws, win: int,
                 block_rows: int, table: Table, capacity: int) -> torch.Tensor:
-    masked = torch.where(quals.to(torch.int32) >= baseq,
-                         codes.to(torch.int32), 15)
+    masked = _masked_plane(codes, quals, baseq)
     hit, word = _classify_plain(masked, refpos.to(torch.int32), ws, win,
                                 block_rows, table)
     return _pack_plain(hit, word, capacity)
+
+
+def planes_plain(codes, quals, refpos, baseq: int, ws, win: int,
+                 block_rows: int, table: Table
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(vidx, allele) planes: the lower bound in the row block's window;
+    with ws = [0] and win = M, phaser_tpu's jnp assign_alleles_device."""
+    N, L = refpos.shape
+    if table[0].shape[0] == 0:
+        dev = refpos.device
+        return (torch.full((N, L), -1, dtype=torch.int32, device=dev),
+                torch.full((N, L), NO_HIT, dtype=torch.int32, device=dev))
+    hit, idx, allele = _lookup_plain(_masked_plane(codes, quals, baseq),
+                                     refpos, ws, win, block_rows, table)
+    return (torch.where(hit, idx, -1).to(torch.int32),
+            torch.where(hit, allele, NO_HIT).to(torch.int32))
+
+
+def planes_cmp_plain(codes, quals, refpos, baseq: int, ws, block_rows: int,
+                     table: Table) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(vidx, allele) planes of the compare-all body: the LAST table entry
+    in the row block's 256-entry window whose position equals refpos.  On
+    unique positions this is planes_plain's lower bound."""
+    vpos, a0, a1, ni = table
+    mp = vpos.shape[0]
+    N = refpos.shape[0]
+    masked = _masked_plane(codes, quals, baseq)
+    rows = torch.arange(N, device=refpos.device)
+    w0 = ws.long()[rows // block_rows][:, None]
+    last = torch.searchsorted(vpos, refpos.contiguous(), right=True) - 1
+    k = torch.minimum(last, torch.clamp(w0 + _WIN, max=mp) - 1)
+    safe = k.clamp_min(0)
+    hit = ((refpos > 0) & (masked != 15) & (k >= w0) &
+           (vpos[safe] == refpos))
+    allele = torch.where(
+        (masked == a0[safe]) & (ni[safe] > 0), 0,
+        torch.where((masked == a1[safe]) & (ni[safe] > 1), 1, OTHER))
+    return (torch.where(hit, safe, -1).to(torch.int32),
+            torch.where(hit, allele, NO_HIT).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -378,8 +532,16 @@ def _kernels() -> ctypes.CDLL:
             [_P] * 3 + [_I, _I, _P, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
         lib.plane_launch.argtypes = (
             [_P] * 3 + [_I, _I, _I, _P, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
+        lib.affine_masked_launch.argtypes = (
+            [_P] * 4 + [_I, _I, _P, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
+        lib.planes_launch.argtypes = (
+            [_P] * 3 + [_I, _I, _I, _P, _I, _I] + [_P] * 4 +
+            [_I, _I, _P, _P, _P])
+        lib.planes_cmp_launch.argtypes = (
+            [_P] * 3 + [_I, _I, _I, _P, _I] + [_P] * 4 + [_I, _P, _P, _P])
         for fn in (lib.affine_nibble_launch, lib.delta_nibble_launch,
-                   lib.plane_launch):
+                   lib.plane_launch, lib.affine_masked_launch,
+                   lib.planes_launch, lib.planes_cmp_launch):
             fn.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [_I]
         lib.kernel_error_string.restype = ctypes.c_char_p
@@ -538,3 +700,195 @@ def assign_compact_plane(codes: torch.Tensor, quals: torch.Tensor,
         capacity, _stream(dev)))
     LAUNCHES["plane"] += 1
     return out
+
+
+def assign_compact_affine_masked(mcodes: torch.Tensor, start: torch.Tensor,
+                                 lo: torch.Tensor, hi: torch.Tensor,
+                                 table: Table, capacity: int,
+                                 ws: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """Affine reads from the 1 B/base masked plane (BASEQ applied, 15 =
+    masked): mcodes (N, L) uint8, start/lo/hi (N,) int32 with
+    refpos = start + (i - lo) on [lo, hi).  phaser_tpu's jnp
+    assign_compact_affine_masked (kernels/alleles.py:246-259)."""
+    dev = mcodes.device
+    N, L = mcodes.shape
+    _check("mcodes", mcodes, torch.uint8, (N, L), dev)
+    for k, t in (("start", start), ("lo", lo), ("hi", hi)):
+        _check(k, t, torch.int32, (N,), dev)
+    if L % 2:
+        raise ValueError("masked plane width %d is odd" % L)
+    ws, win, R = window_args(ws, N, table, dev)
+    _check_size(N, L, capacity)
+    if not _on_cuda(dev):
+        return affine_masked_plain(mcodes, start, lo, hi, ws, win, R, table,
+                                   capacity)
+    out = _new_packed(capacity, dev)
+    vpos, a0, a1, ni = table
+    _launch("affine_masked_launch", (
+        mcodes.data_ptr(), start.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        N, L, ws.data_ptr(), win, R, vpos.data_ptr(), a0.data_ptr(),
+        a1.data_ptr(), ni.data_ptr(), vpos.shape[0], out.data_ptr(),
+        capacity, _stream(dev)))
+    LAUNCHES["affine_masked"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel-level entries (phaser_tpu's public layout, vidx / allele planes)
+# ---------------------------------------------------------------------------
+
+# shared memory per block for the resident table (4 x int32 per entry)
+_MAX_RESIDENT = (227 * 1024) // 16
+
+
+def _entry_table(codes, quals, refpos, vpos, ind_codes, n_ind) -> Table:
+    """Checks the entry's planes and returns its table as four contiguous
+    int32 (M,) tensors (vpos, allele 0 code, allele 1 code, n_ind)."""
+    dev = codes.device
+    N, L = codes.shape
+    _check("codes", codes, torch.uint8, (N, L), dev)
+    _check("quals", quals, torch.uint8, (N, L), dev)
+    _check("refpos", refpos, torch.int32, (N, L), dev)
+    M = vpos.shape[0]
+    _check("vpos", vpos, torch.int32, (M,), dev)
+    _check("ind_codes", ind_codes, torch.uint8, (M, 2), dev)
+    _check("n_ind", n_ind, torch.int8, (M,), dev)
+    if N * L >= (1 << 31):
+        raise ValueError("plane of %d x %d bases exceeds int32 indexing"
+                         % (N, L))
+    return (vpos, ind_codes[:, 0].to(torch.int32).contiguous(),
+            ind_codes[:, 1].to(torch.int32).contiguous(),
+            n_ind.to(torch.int32))
+
+
+def _launch_planes(fn_name: str, counter: str, codes, quals, refpos,
+                   baseq: int, ws: torch.Tensor, window: tuple, table: Table,
+                   mode: tuple = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launches a planes kernel: `window` holds the ints between ws and the
+    table ((win, block_rows) or (block_rows,)), `mode` those after mp."""
+    dev = codes.device
+    N, L = codes.shape
+    vidx = torch.empty((N, L), dtype=torch.int32, device=dev)
+    allele = torch.empty((N, L), dtype=torch.int32, device=dev)
+    vpos, a0, a1, ni = table
+    _launch(fn_name, (codes.data_ptr(), quals.data_ptr(), refpos.data_ptr(),
+                      N, L, int(baseq), ws.data_ptr()) + window +
+            (vpos.data_ptr(), a0.data_ptr(), a1.data_ptr(), ni.data_ptr(),
+             vpos.shape[0]) + mode +
+            (vidx.data_ptr(), allele.data_ptr(), _stream(dev)))
+    LAUNCHES[counter] += 1
+    return vidx, allele
+
+
+def assign_alleles_device(codes: torch.Tensor, quals: torch.Tensor,
+                          refpos: torch.Tensor, vpos: torch.Tensor,
+                          ind_codes: torch.Tensor, n_ind: torch.Tensor,
+                          baseq: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-base hit classification against the whole table (phaser_tpu
+    kernels/alleles.py:33-63).  codes/quals (N, L) uint8, refpos (N, L)
+    int32 (0 = unaligned), vpos (M,) sorted int32, ind_codes (M, 2) uint8,
+    n_ind (M,) int8.  Returns (vidx, allele) (N, L) int32: vidx = the
+    lower-bound table index of a hit, else -1; allele 0/1 = individual
+    allele index, 2 = OTHER, 3 = NO_HIT.  On CUDA tensors: the planes
+    kernel with one whole-table window."""
+    table = _entry_table(codes, quals, refpos, vpos, ind_codes, n_ind)
+    N, L = codes.shape
+    M = vpos.shape[0]
+    ws = torch.zeros(1, dtype=torch.int32, device=codes.device)
+    if not _on_cuda(codes.device) or M == 0 or N == 0:
+        return planes_plain(codes, quals, refpos, baseq, ws, M, max(N, 1),
+                            table)
+    return _launch_planes("planes_launch", "planes", codes, quals, refpos,
+                          baseq, ws, (M, max(N, 1)), table, (0,))
+
+
+def compact_hits(vidx: torch.Tensor, allele: torch.Tensor, capacity: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Stream-compact per-base hits into (read, var, allele) int32 triplets
+    of length `capacity`, -1 padded, in row-major order (phaser_tpu
+    kernels/alleles.py:66-89).  Returns (read_idx, var_idx, allele_class,
+    n_hits); n_hits is exact past capacity."""
+    N, L = vidx.shape
+    flat = torch.nonzero(allele.reshape(-1) < NO_HIT).squeeze(1)
+    n = int(flat.numel())
+    k = min(n, capacity)
+    out = torch.full((3, capacity), -1, dtype=torch.int32, device=vidx.device)
+    out[0, :k] = (flat[:k] // L).to(torch.int32)
+    out[1, :k] = vidx.reshape(-1)[flat[:k]]
+    out[2, :k] = allele.reshape(-1)[flat[:k]]
+    return out[0], out[1], out[2], n
+
+
+def assign_alleles_pallas_windowed(codes: torch.Tensor, quals: torch.Tensor,
+                                   refpos: torch.Tensor, vpos: torch.Tensor,
+                                   ind_codes: torch.Tensor,
+                                   n_ind: torch.Tensor, baseq: int,
+                                   block_rows: int = 256,
+                                   refpos_host: Optional[np.ndarray] = None,
+                                   vpos_host: Optional[np.ndarray] = None,
+                                   algo: str = "gather"
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """assign_alleles_device through planned 256-entry table windows
+    (phaser_tpu kernels/alleles.py:813-876).  Windows are planned on the
+    host from a CPU copy of refpos (`refpos_host`, else copied here) and of
+    vpos (`vpos_host`).  Where no plan fits (N or M zero, L % 128 != 0, or
+    a block's variant band overflows the window) this returns
+    assign_alleles_device, as phaser_tpu does.
+
+    algo="gather" searches the window (the planes kernel); algo="cmp"
+    compares every window entry (the planes_cmp kernel), where the LAST
+    equal entry wins: the two agree on tables with unique positions, which
+    the dispatcher guarantees (duplicate positions go to the host mapper)."""
+    if algo not in ("gather", "cmp"):
+        raise ValueError("algo must be 'gather' or 'cmp', not %r" % (algo,))
+    table = _entry_table(codes, quals, refpos, vpos, ind_codes, n_ind)
+    N, L = codes.shape
+    M = vpos.shape[0]
+    if N == 0 or M == 0 or L % 128 != 0:
+        return assign_alleles_device(codes, quals, refpos, vpos, ind_codes,
+                                     n_ind, baseq)
+    R = min(block_rows, max(N, 1))
+    rp = refpos.cpu().numpy() if refpos_host is None else refpos_host
+    vp = vpos.cpu().numpy() if vpos_host is None else vpos_host
+    ws = plan_windows_plane(rp, vp, R)
+    if ws is None:
+        return assign_alleles_device(codes, quals, refpos, vpos, ind_codes,
+                                     n_ind, baseq)
+    ws = torch.from_numpy(ws).to(codes.device)
+    if algo == "cmp":
+        if not _on_cuda(codes.device):
+            return planes_cmp_plain(codes, quals, refpos, baseq, ws, R, table)
+        return _launch_planes("planes_cmp_launch", "planes_cmp", codes, quals,
+                              refpos, baseq, ws, (R,), table)
+    if not _on_cuda(codes.device):
+        return planes_plain(codes, quals, refpos, baseq, ws, _WIN, R, table)
+    return _launch_planes("planes_launch", "planes", codes, quals, refpos,
+                          baseq, ws, (_WIN, R), table, (0,))
+
+
+def assign_alleles_pallas(codes: torch.Tensor, quals: torch.Tensor,
+                          refpos: torch.Tensor, vpos: torch.Tensor,
+                          ind_codes: torch.Tensor, n_ind: torch.Tensor,
+                          baseq: int, block_rows: int = 256
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """assign_alleles_device with the whole table resident (phaser_tpu
+    kernels/alleles.py:1062-1118): when next_pow2(M) <= L the planes kernel
+    stages the table in shared memory; wider tables go to
+    assign_alleles_pallas_windowed, as in phaser_tpu."""
+    table = _entry_table(codes, quals, refpos, vpos, ind_codes, n_ind)
+    N, L = codes.shape
+    M = vpos.shape[0]
+    if _next_pow2(M) > L:
+        return assign_alleles_pallas_windowed(codes, quals, refpos, vpos,
+                                              ind_codes, n_ind, baseq,
+                                              block_rows=block_rows)
+    ws = torch.zeros(1, dtype=torch.int32, device=codes.device)
+    if not _on_cuda(codes.device) or M == 0 or N == 0:
+        return planes_plain(codes, quals, refpos, baseq, ws, M, max(N, 1),
+                            table)
+    if M > _MAX_RESIDENT:
+        raise ValueError("a resident table of %d entries exceeds shared "
+                         "memory (%d entries)" % (M, _MAX_RESIDENT))
+    return _launch_planes("planes_launch", "planes_resident", codes, quals,
+                          refpos, baseq, ws, (M, max(N, 1)), table, (1,))

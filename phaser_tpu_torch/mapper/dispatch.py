@@ -2,9 +2,11 @@
 phaser_tpu/mapper/dispatch.py).
 
 The GPU kernels (kernels.alleles) take the common cases: affine reads as a
-nibble-packed masked plane with refpos rebuilt on the device, deletion /
-split-M reads as nibble plane + int16 delta, and N-spliced reads (or delta
-overflow) as an explicit refpos plane.  The exact host mapper
+nibble-packed masked plane with refpos rebuilt on the device (a 1 B/base
+masked plane when the native nibble packer is missing), deletion / split-M
+reads as nibble plane + int16 delta, and N-spliced reads (or delta overflow,
+or every non-affine read when the delta packer is missing) as an explicit
+refpos plane.  The exact host mapper
 (phaser_tpu.mapper.host) keeps the remainder: insertion reads, multi-base
 alleles and duplicate-position table entries.  Row union and order equal
 the pure host path.
@@ -28,7 +30,8 @@ import torch
 
 from phaser_tpu.engine.varmap import VariantTable
 from phaser_tpu.io.bam import BamData
-from phaser_tpu.mapper.dispatch import _next_pow2, _read_op_masks
+from phaser_tpu.mapper.dispatch import (_affine_params, _next_pow2,
+                                        _read_op_masks)
 from phaser_tpu.mapper.host import ContigHits, assign_alleles
 
 _SUB_ROWS = 1 << 18          # max reads per kernel launch
@@ -245,15 +248,25 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
     from phaser_tpu.utils.trace import add_device_time
     _t_dev = time.perf_counter()
     if dev_vidx.size and dev_read.any():
+        # packer order of phaser_tpu (mapper/dispatch.py:308-332): the
+        # nibble plane, else the 1 B/base masked plane, else the numpy
+        # affine classifier with codes/quals planes masked here
         nibble = K.pack_affine_nibble(bd, baseq, reuse=reuse)
-        if nibble is None:
-            raise RuntimeError(
-                "the native packer (phaser_tpu.io.native) is unavailable, "
-                "so reads cannot be packed for the GPU kernels; build it or "
-                "run with --device host")
-        mcodes, is_aff, a_start, a_lo, a_hi = nibble
+        if nibble is not None:
+            mcodes, is_aff, a_start, a_lo, a_hi = nibble
+        else:
+            masked = K.pack_affine_masked(bd, baseq, reuse=reuse)
+            if masked is not None:
+                mcodes, is_aff, a_start, a_lo, a_hi = masked
+            else:
+                is_aff, a_start, a_lo, a_hi = _affine_params(bd)
+                codes, quals = K.pack_codes_quals(bd, reuse=reuse)
+                mcodes = np.where(quals >= baseq, codes,
+                                  np.uint8(15)).astype(np.uint8)
         aff = dev_read & is_aff
-        N, Lh = mcodes.shape
+        N, Lw = mcodes.shape
+        # bases per row: the nibble plane packs two per byte
+        L_bases = 2 * Lw if nibble is not None else Lw
         st_k = np.where(aff, a_start, 0).astype(np.int32)
         lo_k = np.where(aff, a_lo, 0).astype(np.int32)
         hi_k = np.where(aff, a_hi, 0).astype(np.int32)
@@ -264,7 +277,7 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
             vpos = K.padded_table(vt, tab_vidx)[0]  # host copy: planners
             table = K.device_table(vt, tab_vidx, dev)
 
-            # affine fast path: nibble plane (BASEQ pre-applied), refpos
+            # affine fast path: masked plane (BASEQ pre-applied), refpos
             # rebuilt on the device, in <= _SUB_ROWS-row launches
             for s in range(0, N if aff.any() else 0, _SUB_ROWS):
                 e = min(s + _SUB_ROWS, N)
@@ -274,24 +287,36 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
                 ss, ls, hs = st_k[s:e], lo_k[s:e], hi_k[s:e]
                 ws = K.plan_windows_affine(ss, ls, hs, hs > ls, vpos, n_sub,
                                            min(256, n_sub))
-                kind = "affine_win" if ws is not None else "affine_nib"
-                fb_key = (kind, _next_pow2(max(n_sub, 8)), Lh)
-                cap = _adaptive_cap(fb_key, n_sub * Lh * 2)
-                packed = K.assign_compact_affine_nibble(
-                    _upload(mcodes[s:e], dev), _upload(ss, dev),
-                    _upload(ls, dev), _upload(hs, dev), table, cap,
-                    ws=None if ws is None else _upload(ws, dev))
+                ws_t = None if ws is None else _upload(ws, dev)
+                args = (_upload(mcodes[s:e], dev), _upload(ss, dev),
+                        _upload(ls, dev), _upload(hs, dev))
+                if nibble is not None:
+                    kind = "affine_win" if ws is not None else "affine_nib"
+                    fb_key = (kind, _next_pow2(max(n_sub, 8)), Lw)
+                    cap = _adaptive_cap(fb_key, n_sub * L_bases)
+                    packed = K.assign_compact_affine_nibble(
+                        *args, table, cap, ws=ws_t)
+                else:
+                    kind = "affine_mwin" if ws is not None else "affine"
+                    fb_key = (kind, _next_pow2(max(n_sub, 8)), Lw)
+                    cap = _adaptive_cap(fb_key, n_sub * L_bases)
+                    packed = K.assign_compact_affine_masked(
+                        *args, table, cap, ws=ws_t)
                 dev_parts.append((packed, cap, None, tab_vidx, s, fb_key))
 
             for s in range(0, plane_all.size, _SUB_ROWS):
                 # non-affine remainder: delta-nibble format for D/split-M
                 # reads, refpos plane only for what delta can't carry
-                # (N-spliced reads, delta overflow)
+                # (N-spliced reads, delta overflow) or for every read when
+                # the delta packer is missing
                 plane_sel = plane_all[s:s + _SUB_ROWS]
                 sub = bd.select(plane_sel)
-                ncd, dlt, okm, dst, rmn, rmx = K.pack_delta_nibble(
-                    sub, baseq, reuse=reuse)
-                ok_idx = np.flatnonzero(okm)
+                dn = K.pack_delta_nibble(sub, baseq, reuse=reuse)
+                if dn is not None:
+                    ncd, dlt, okm, dst, rmn, rmx = dn
+                    ok_idx = np.flatnonzero(okm)
+                else:
+                    ok_idx = np.zeros(0, np.int64)
                 if ok_idx.size:
                     Nd = ok_idx.size
                     Ld = dlt.shape[1]
@@ -307,11 +332,12 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
                         ws=None if ws_d is None else _upload(ws_d, dev))
                     dev_parts.append((packed_d, cap_d, plane_sel[ok_idx],
                                       tab_vidx, 0, fb_key))
-                rest_idx = np.flatnonzero(~okm)
-                if rest_idx.size == 0:
-                    continue
-                plane_sel = plane_sel[rest_idx]
-                sub = sub.select(rest_idx)
+                if dn is not None:
+                    rest_idx = np.flatnonzero(~okm)
+                    if rest_idx.size == 0:
+                        continue
+                    plane_sel = plane_sel[rest_idx]
+                    sub = sub.select(rest_idx)
                 codes2, quals2, refpos2 = K.pack_reads(sub)
                 N2, L2 = codes2.shape
                 ws2 = K.plan_windows_plane(refpos2, vpos, min(256, N2))

@@ -1,4 +1,6 @@
-"""phaser_tpu_torch allele kernels against phaser_tpu's three fused programs.
+"""phaser_tpu_torch allele kernels against phaser_tpu's fused programs and
+its kernel-level entries (assign_alleles_device, compact_hits,
+assign_alleles_pallas_windowed with gather and cmp, assign_alleles_pallas).
 
 Every comparison is of integers, tolerance 0.  On the CPU the port's
 wrappers run their plain PyTorch versions; the JAX side runs the windowed
@@ -287,6 +289,173 @@ def test_wrappers_check_their_inputs():
     assert K.LAUNCHES == before
 
 
+def _affine_masked_case(tmp_path):
+    chunk, vt = _fixture(tmp_path, 13, n_reads_per_contig=220)
+    am = K.pack_affine_masked(chunk, 10)
+    mcodes, ia, st, lo, hi = am
+    st, lo, hi = (np.where(ia, x, 0).astype(np.int32) for x in (st, lo, hi))
+    N = mcodes.shape[0]
+    vpos, (jv, ji, jn), table = _tables(vt)
+    ws = K.plan_windows_affine(st, lo, hi, hi > lo, vpos, N, min(256, N))
+    assert ws is not None
+
+    def jax_plain(cap):
+        return J.assign_compact_affine_masked(
+            *[jnp.asarray(x) for x in (mcodes, st, lo, hi)], jv, ji, jn, cap)
+
+    def port(cap, planned=True, device="cpu"):
+        return K.assign_compact_affine_masked(
+            *[_t(x, device) for x in (mcodes, st, lo, hi)],
+            _on(table, device), cap, ws=_t(ws, device) if planned else None)
+    return N, jax_plain, port
+
+
+def test_affine_masked_matches_jax(tmp_path):
+    """The masked-affine plain version == phaser_tpu's jnp
+    assign_compact_affine_masked, word for word, planned and whole table,
+    and past capacity."""
+    N, jax_plain, port = _affine_masked_case(tmp_path)
+    for cap in (1 << 13, 4):
+        want = np.asarray(jax_plain(cap))
+        assert want[0, 0] > 5
+        for planned in (True, False):
+            np.testing.assert_array_equal(port(cap, planned).numpy(), want)
+
+
+def _entry_inputs(seed, M, N, L, contig, regions=None, holes=0.05):
+    """tests/test_kernels.py:509-520's layout: reads uniformly over the
+    contig or, with `regions`, in block-aligned narrow regions so that
+    every 256-row block's band fits the window (tests/test_tpu_hw.py)."""
+    rng = np.random.default_rng(seed)
+    vpos = np.sort(rng.choice(np.arange(1, contig, dtype=np.int32), size=M,
+                              replace=False)).astype(np.int32)
+    ind = rng.integers(1, 9, size=(M, 2)).astype(np.uint8)
+    ni = np.full(M, 2, np.int8)
+    if regions is None:
+        starts = np.sort(rng.integers(1, contig - contig // 30, size=N))
+    else:
+        region_lo = rng.integers(1, contig - 20_000 - L, size=regions)
+        starts = np.sort(np.concatenate([
+            rng.integers(lo, lo + 20_000, size=N // regions)
+            for lo in region_lo]))
+    refpos = starts.astype(np.int32)[:, None] + \
+        np.arange(L, dtype=np.int32)[None, :]
+    refpos[rng.random((N, L)) < holes] = 0
+    codes = rng.integers(1, 16, size=(N, L)).astype(np.uint8)
+    quals = rng.integers(0, 40, size=(N, L)).astype(np.uint8)
+    return codes, quals, refpos, vpos, ind, ni
+
+
+@pytest.mark.parametrize("layout", ["uniform", "regions"])
+def test_windowed_entry_matches_jax(layout):
+    """assign_alleles_pallas_windowed, gather and cmp, == JAX's (Pallas in
+    interpret mode) == assign_alleles_device.  The uniform layout is
+    tests/test_kernels.py:509-520's, whose bands overflow the window; the
+    regions layout is planned (asserted, so the comparison is not
+    vacuous)."""
+    if layout == "uniform":
+        arrays = _entry_inputs(5, 4000, 700, 128, 3_000_000)
+    else:
+        arrays = _entry_inputs(5, 4000, 768, 128, 3_000_000, regions=3)
+    planned = K.plan_windows_plane(arrays[2], arrays[3], 256) is not None
+    assert planned == (layout == "regions")
+    jx = [jnp.asarray(x) for x in arrays]
+    tx = [_t(x) for x in arrays]
+    want_v, want_a = (np.asarray(x) for x in J.assign_alleles_device(*jx, 10))
+    assert int((want_v >= 0).sum()) > 50
+    got_v, got_a = K.assign_alleles_device(*tx, 10)
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    np.testing.assert_array_equal(got_a.numpy(), want_a)
+    for algo in ("gather", "cmp"):
+        jv, ja = J.assign_alleles_pallas_windowed(*jx, 10, interpret=True,
+                                                  algo=algo)
+        np.testing.assert_array_equal(np.asarray(jv), want_v)
+        np.testing.assert_array_equal(np.asarray(ja), want_a)
+        for host in (False, True):
+            kw = dict(refpos_host=arrays[2], vpos_host=arrays[3]) if host \
+                else {}
+            gv, ga = K.assign_alleles_pallas_windowed(*tx, 10, algo=algo,
+                                                      **kw)
+            assert gv.dtype == ga.dtype == torch.int32
+            np.testing.assert_array_equal(gv.numpy(), want_v)
+            np.testing.assert_array_equal(ga.numpy(), want_a)
+
+
+def test_windowed_entry_band_overflow():
+    """tests/test_kernels.py:541-552: a block spanning more than the window
+    takes assign_alleles_device, in JAX and in the port."""
+    rng = np.random.default_rng(6)
+    M = 2000
+    vpos = np.arange(1, M + 1, dtype=np.int32) * 7
+    ind = rng.integers(1, 9, size=(M, 2)).astype(np.uint8)
+    ni = np.full(M, 2, np.int8)
+    N, L = 300, 128
+    starts = np.sort(rng.integers(1, M * 7 - L, size=N)).astype(np.int32)
+    refpos = starts[:, None] + np.arange(L, dtype=np.int32)[None, :]
+    codes = rng.integers(1, 16, size=(N, L)).astype(np.uint8)
+    quals = np.full((N, L), 30, np.uint8)
+    arrays = (codes, quals, refpos, vpos, ind, ni)
+    assert K.plan_windows_plane(refpos, vpos, 256) is None
+    jx = [jnp.asarray(x) for x in arrays]
+    want = J.assign_alleles_pallas_windowed(*jx, 10, interpret=True)
+    got = K.assign_alleles_pallas_windowed(*[_t(x) for x in arrays], 10)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int((got[0] >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("M", [100, 300])
+def test_resident_entry_matches_jax(M):
+    """assign_alleles_pallas == JAX's under force_tpu_interpret_mode: the
+    resident table when next_pow2(M) <= L, the windowed entry when M > L."""
+    from jax.experimental.pallas import tpu as pltpu
+    arrays = _entry_inputs(11, M, 300, 128, 20_000, holes=0.1)
+    jx = [jnp.asarray(x) for x in arrays]
+    with pltpu.force_tpu_interpret_mode():
+        want = J.assign_alleles_pallas(*jx, 10)
+    want = [np.asarray(w) for w in want]
+    assert int((want[0] >= 0).sum()) > 50
+    np.testing.assert_array_equal(
+        want[0], np.asarray(J.assign_alleles_device(*jx, 10)[0]))
+    got = K.assign_alleles_pallas(*[_t(x) for x in arrays], 10)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    r, v, a, n = K.compact_hits(*got, 1 << 14)
+    jr, jv, ja, jn = J.compact_hits(*[jnp.asarray(w) for w in want], 1 << 14)
+    assert n == int(jn) > 50
+    for g, w in zip((r, v, a), (jr, jv, ja)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_compact_hits_past_capacity():
+    arrays = _entry_inputs(12, 500, 64, 128, 40_000)
+    vidx, allele = K.assign_alleles_device(*[_t(x) for x in arrays], 10)
+    jr, jv, ja, jn = J.compact_hits(jnp.asarray(vidx.numpy()),
+                                    jnp.asarray(allele.numpy()), 16)
+    r, v, a, n = K.compact_hits(vidx, allele, 16)
+    assert n == int(jn) > 16
+    for g, w in zip((r, v, a), (jr, jv, ja)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_cmp_takes_the_last_duplicate():
+    """On duplicate positions cmp keeps the last equal entry of the window
+    and gather the first: why cmp is held to unique positions."""
+    vpos = np.array([5, 9, 9, 12] + list(range(20, 148)), np.int32)
+    M = len(vpos)
+    ind = np.tile(np.array([[1, 2]], np.uint8), (M, 1))
+    ni = np.full(M, 2, np.int8)
+    refpos = np.zeros((1, 128), np.int32)
+    refpos[0, :3] = (9, 12, 4)
+    codes = np.full((1, 128), 1, np.uint8)
+    quals = np.full((1, 128), 30, np.uint8)
+    tx = [_t(x) for x in (codes, quals, refpos, vpos, ind, ni)]
+    gv, _ = K.assign_alleles_pallas_windowed(*tx, 10)
+    cv, _ = K.assign_alleles_pallas_windowed(*tx, 10, algo="cmp")
+    assert gv[0, :3].tolist() == [1, 3, -1]
+    assert cv[0, :3].tolist() == [2, 3, -1]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -309,3 +478,41 @@ def test_cuda_kernel_matches_plain(tmp_path, cuda, program):
     for got in outs:
         assert got.device.type == "cuda"
         _assert_same_hits(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+def test_cuda_affine_masked_matches_plain(tmp_path, cuda):
+    N, jax_plain, port = _affine_masked_case(tmp_path)
+    cap = 1 << 13
+    want = np.asarray(jax_plain(cap))
+    before = K.LAUNCHES["affine_masked"]
+    outs = [port(cap, planned, cuda) for planned in (True, False)]
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["affine_masked"] == before + 2
+    for got in outs:
+        _assert_same_hits(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["gather", "cmp", "resident"])
+def test_cuda_planes_match_plain(cuda, entry):
+    """The planes kernels on the card == their plain versions on the CPU."""
+    if entry == "resident":
+        arrays = _entry_inputs(11, 100, 300, 128, 20_000, holes=0.1)
+    else:
+        arrays = _entry_inputs(5, 4000, 768, 128, 3_000_000, regions=3)
+    counter = {"gather": "planes", "cmp": "planes_cmp",
+               "resident": "planes_resident"}[entry]
+
+    def run(device):
+        tx = [_t(x, device) for x in arrays]
+        if entry == "resident":
+            return K.assign_alleles_pallas(*tx, 10)
+        return K.assign_alleles_pallas_windowed(*tx, 10, algo=entry)
+    want = run("cpu")
+    before = K.LAUNCHES[counter]
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[counter] == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

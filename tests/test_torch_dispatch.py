@@ -55,7 +55,8 @@ def _assert_equal_hits(got, want):
 @pytest.fixture
 def spy(monkeypatch):
     """Counts plain-version runs per program."""
-    calls = {"affine_nibble": 0, "delta_nibble": 0, "plane": 0}
+    calls = {"affine_nibble": 0, "delta_nibble": 0, "plane": 0,
+             "affine_masked": 0}
     for name in calls:
         orig = getattr(K, name + "_plain")
 
@@ -79,7 +80,8 @@ def test_dispatch_cpu_matches_host(tmp_path, spy, fixture, kw):
     if fixture == "indel_multiallelic":
         assert want.allele_strs  # multi-base alleles went to the host path
     if not kw:
-        # all three programs carried reads
+        # the three programs of the nibble packer carried reads
+        assert spy.pop("affine_masked") == 0
         assert min(spy.values()) > 0, spy
 
 
@@ -111,6 +113,7 @@ def test_whole_table_and_overflow_paths(tmp_path, monkeypatch, spy):
     assert D.RELAUNCHES["capacity"] == before + 1
     # the relaunch ran every program again and sent the host mapper only
     # the remainders it sent the first time
+    assert spy.pop("affine_masked") == base.pop("affine_masked") == 0
     assert all(spy[k] - base[k] == 2 * launched[k] > 0 for k in spy), \
         (spy, base, launched)
     assert host_rows == host_launch + host_launch
@@ -152,12 +155,73 @@ def test_cap_file_is_the_ports_own(tmp_path, monkeypatch):
         os.path.join(".cache", "phaser_tpu_torch", "hit_caps.json"))
 
 
-def test_fails_loud_without_gpu_or_native_packer(tmp_path, monkeypatch):
+def test_fails_loud_without_gpu_or_native_packer(tmp_path, monkeypatch, spy):
+    """No GPU: cuda raises.  No nibble packer: the masked-affine program
+    takes the affine reads, as in phaser_tpu, with hits equal the host's."""
     bd, vt = _load(tmp_path, "spliced")
     if not torch.cuda.is_available():
         for dev in ("cuda", "auto"):
             with pytest.raises(RuntimeError, match="CUDA"):
                 D.assign_alleles_auto(bd, vt, baseq=10, device=dev)
+    want = jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="host")
     monkeypatch.setattr(K, "pack_affine_nibble", lambda *a, **k: None)
-    with pytest.raises(RuntimeError, match="native packer"):
-        D.assign_alleles_auto(bd, vt, baseq=10, device="cpu")
+    _assert_equal_hits(D.assign_alleles_auto(bd, vt, baseq=10, device="cpu"),
+                       want)
+    assert spy["affine_nibble"] == 0 and spy["affine_masked"] > 0, spy
+
+
+class _NoDeltaLib:
+    """The native library without pack_delta_nibble_native."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        if name == "pack_delta_nibble_native":
+            raise AttributeError(name)
+        return getattr(self._lib, name)
+
+
+@pytest.mark.parametrize("fixture", sorted(FIXTURES))
+@pytest.mark.parametrize("lib", ["none", "no_delta"])
+def test_dispatch_without_native_packers(tmp_path, monkeypatch, spy, fixture,
+                                         lib):
+    """Without the native library (numpy packers, masked-affine program,
+    refpos plane for every non-affine read) and without only its delta
+    packer (non-affine reads to the plane program), the port's hits equal
+    the host mapper's and phaser_tpu's dispatcher's."""
+    from phaser_tpu.io import native
+    bd, vt = _load(tmp_path, fixture)
+    want = jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="host")
+    real = native.get_lib()
+    assert real is not None
+    stub = None if lib == "none" else _NoDeltaLib(real)
+    monkeypatch.setattr(native, "get_lib", lambda: stub)
+    assert K.pack_delta_nibble(bd, 10) is None
+    got = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu")
+    _assert_equal_hits(got, want)
+    _assert_equal_hits(
+        jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="auto"),
+        want)
+    assert spy["delta_nibble"] == 0 and spy["plane"] > 0, spy
+    if lib == "none":
+        assert spy["affine_nibble"] == 0 and spy["affine_masked"] > 0, spy
+    else:
+        assert spy["affine_nibble"] > 0 and spy["affine_masked"] == 0, spy
+
+
+def test_pack_reads_numpy_matches_native(tmp_path, monkeypatch):
+    from phaser_tpu.io import native
+    from phaser_tpu.kernels import alleles as J
+    bd, _ = _load(tmp_path, "spliced")
+    want = K.pack_reads(bd)
+    cq = K.pack_codes_quals(bd)
+    am = K.pack_affine_masked(bd, 10)
+    for a, b in zip(am, J.pack_affine_masked(bd, 10)):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    for a, b in zip(K.pack_reads(bd), want):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(K.pack_codes_quals(bd), cq):
+        np.testing.assert_array_equal(a, b)
+    assert K.pack_affine_masked(bd, 10) is None

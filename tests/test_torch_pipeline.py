@@ -82,6 +82,35 @@ def test_cli_cpu_matches_without_importing_jax(tmp_path, gen_kw):
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert re.search(r"kernel launches: affine_nibble=0 delta_nibble=0 "
                      r"plane=0", proc.stdout)
+    assert re.search(r"device stage calls: pair_counts=0 components=0 "
+                     r"phase_scores=0", proc.stdout)
+    _assert_same_outputs(out, ref)
+
+
+@pytest.mark.parametrize("gen_kw", GEN_KW)
+def test_cli_cpu_gates_down_matches_phaser_tpu_host(tmp_path, monkeypatch,
+                                                    capsys, gen_kw):
+    """The port's CLI with --device cpu and the pair, edge and scorer gates
+    forced down: stages #3, #4 and #5 run their device code, and the six
+    outputs stay byte-identical to phaser_tpu's host run."""
+    from phaser_tpu_torch.engine import blocks, connections, phasing
+    vcf, bam, sample, ref = _reference(tmp_path, gen_kw, PhaserOptions())
+    monkeypatch.setattr(connections, "DEVICE_PAIR_GATE", 0)
+    monkeypatch.setattr(blocks, "_DEVICE_EDGE_GATE", 0)
+    monkeypatch.setattr(phasing, "DEVICE_SCORE_GATE", 2)
+    for counts in (connections.COUNTS, blocks.COUNTS, phasing.COUNTS):
+        monkeypatch.setitem(counts, "device_calls", 0)
+    out = str(tmp_path / "cli")
+    rc = phaser_main.main(
+        ["--vcf", vcf, "--bam", bam, "--sample", sample, "--mapq", "10",
+         "--baseq", "10", "--paired_end", "1", "--o", out, "--device", "cpu"])
+    assert rc == 0, capsys.readouterr().out[-2000:]
+    calls = [c["device_calls"] for c in
+             (connections.COUNTS, blocks.COUNTS, phasing.COUNTS)]
+    assert min(calls) > 0, calls
+    assert re.search(r"device stage calls: pair_counts=%d components=%d "
+                     r"phase_scores=%d" % tuple(calls),
+                     capsys.readouterr().out)
     _assert_same_outputs(out, ref)
 
 
@@ -132,7 +161,14 @@ def test_port_sources_never_import_jax():
 
 def test_kernel_module_imports_without_nvcc_or_triton(tmp_path):
     code = ("import sys\n"
+            "import phaser_tpu_torch.cli.phaser_main\n"
+            "import phaser_tpu_torch.engine.blocks\n"
+            "import phaser_tpu_torch.engine.connections\n"
+            "import phaser_tpu_torch.engine.phasing\n"
             "import phaser_tpu_torch.kernels.alleles\n"
+            "import phaser_tpu_torch.kernels.components\n"
+            "import phaser_tpu_torch.kernels.paircount\n"
+            "import phaser_tpu_torch.kernels.phasescore\n"
             "import phaser_tpu_torch.mapper.dispatch\n"
             "from phaser_tpu_torch.utils import build\n"
             "assert build._lib is None\n"
