@@ -32,7 +32,17 @@ Phases (any failure exits non-zero; nothing here imports jax):
      60/25/15% of 1M input reads); the six output files must be
      byte-identical, and every fused kernel (default run) and every stage's
      device hook (gates-down run) must have run (counts zeroed just before
-     each run, read just after).
+     each run, read just after);
+  7. sharded runners on phase 6's fixture, each through its entry point and
+     against a single-process --device host reference: --threads 4 (four
+     position-shard engine threads sharing the card; every fused kernel
+     launched), the same with the stage gates forced down (every device
+     stage called), --threads 2 --device host (two processes over Gloo), two
+     `python -m phaser_tpu_torch.dist.engine_multihost --device cuda`
+     processes sharing the card (each reports device time), and
+     --process_slow 1 without and with --threads 2 against the host's
+     --process_slow 1 run.  Each run's wall is printed beside the card's
+     name and power limit.
 
 Each kernel's `launches` comes from the run of its own path: the e2e cuda
 run for the three nibble/plane kernels, the no-nibble-packer dispatcher run
@@ -683,10 +693,36 @@ def run_cli(argv):
     return rc, buf.getvalue(), time.perf_counter() - t0
 
 
-def e2e_phase(tmp, device):
-    import datagen
+def counted_cli_run(argv, gates_down=False):
+    """run_cli with every kernel launch, capacity relaunch and device stage
+    call counted from 0 just before the run and read just after; with
+    `gates_down` the three stage gates are forced down for the run.
+    Returns (exit code, stdout, wall s, launches, relaunches, stage calls)."""
+    import contextlib
+
+    from phaser_tpu_torch.engine import blocks, connections, phasing
     from phaser_tpu_torch.kernels import alleles as K
     from phaser_tpu_torch.mapper import dispatch as D
+    gates = ((connections, "DEVICE_PAIR_GATE", 0),
+             (blocks, "_DEVICE_EDGE_GATE", 0),
+             (phasing, "DEVICE_SCORE_GATE", 2))
+    K.reset_launches()
+    D.RELAUNCHES["capacity"] = 0
+    for m, _, _ in gates:
+        m.COUNTS["device_calls"] = 0
+    with contextlib.ExitStack() as stack:
+        if gates_down:
+            for gate in gates:
+                stack.enter_context(forced_gate(*gate))
+        rc, stdout, wall = run_cli(argv)
+    calls = {m.__name__.rsplit(".", 1)[1]: m.COUNTS["device_calls"]
+             for m, _, _ in gates}
+    return (rc, stdout, wall, dict(K.LAUNCHES), D.RELAUNCHES["capacity"],
+            calls)
+
+
+def e2e_phase(tmp, device):
+    import datagen
 
     shares = (0.6, 0.25, 0.15)
     pairs = [int(E2E_READS // 2 * s) for s in shares]
@@ -702,13 +738,7 @@ def e2e_phase(tmp, device):
     print("   fixture: %d input reads, %d variants, %.1f s"
           % (2 * sum(pairs), sum(nvar), time.perf_counter() - t0),
           flush=True)
-    import contextlib
-
-    from phaser_tpu_torch.engine import blocks, connections, phasing
-    gates = [(connections, "DEVICE_PAIR_GATE", 0),
-             (blocks, "_DEVICE_EDGE_GATE", 0),
-             (phasing, "DEVICE_SCORE_GATE", 2)]
-    stage_counts = (connections.COUNTS, blocks.COUNTS, phasing.COUNTS)
+    from phaser_tpu_torch.engine import connections
     walls = {}
     launches, relaunches, stage_calls = None, 0, {}
     for run in (device, "host", "gates_down"):
@@ -716,20 +746,10 @@ def e2e_phase(tmp, device):
         argv = ["--vcf", vcf, "--bam", bam, "--sample", data.sample,
                 "--mapq", "10", "--baseq", "10", "--paired_end", "1",
                 "--o", os.path.join(d, run), "--device", dv]
-        K.reset_launches()
-        D.RELAUNCHES["capacity"] = 0
-        for c in stage_counts:
-            c["device_calls"] = 0
-        with contextlib.ExitStack() as stack:
-            if run == "gates_down":
-                for gate in gates:
-                    stack.enter_context(forced_gate(*gate))
-            rc, stdout, walls[run] = run_cli(argv)
-        calls = {m.__name__.rsplit(".", 1)[1]: c["device_calls"]
-                 for (m, _, _), c in zip(gates, stage_counts)}
+        rc, stdout, walls[run], run_launches, run_relaunches, calls = \
+            counted_cli_run(argv, gates_down=run == "gates_down")
         if run == device:
-            launches = dict(K.LAUNCHES)
-            relaunches = D.RELAUNCHES["capacity"]
+            launches, relaunches = run_launches, run_relaunches
         stage_calls[run] = calls
         check(rc == 0, "CLI %s failed:\n%s" % (run, stdout[-3000:]))
         lines = stdout.splitlines()
@@ -741,11 +761,8 @@ def e2e_phase(tmp, device):
         print("   [%s] device stage calls %s, reads over the pair K cap %d"
               % (run, calls, connections.COUNTS["host_reads"]), flush=True)
     for run in (device, "gates_down"):
-        for sfx in SUFFIXES:
-            a = open(os.path.join(d, run) + sfx, "rb").read()
-            b = open(os.path.join(d, "host") + sfx, "rb").read()
-            check(a == b, "end-to-end output %s differs between %s and host"
-                  % (sfx, run))
+        same_outputs(os.path.join(d, run), os.path.join(d, "host"),
+                     "e2e run %s" % run, vcf_text=False)
     print("   outputs byte-identical to host in both cuda runs (%s)"
           % ", ".join(SUFFIXES), flush=True)
     print("   e2e wall (CLI main, in process): %s %.3f s, host %.3f s, "
@@ -757,7 +774,139 @@ def e2e_phase(tmp, device):
     check(min(stage_calls["gates_down"].values()) > 0,
           "gates-down run skipped a device stage: %s"
           % stage_calls["gates_down"])
-    return launches, walls
+    return launches, dict(vcf=vcf, bam=bam, sample=data.sample, dir=d)
+
+
+def same_outputs(got, want, what, vcf_text):
+    """The six outputs of `got` against those of `want`, byte for byte;
+    with `vcf_text` the .vcf.gz after BGZF decompression, since a shard
+    merge re-blocks the VCF body (in phaser_tpu as here)."""
+    from phaser_tpu.io import bgzf
+    for sfx in SUFFIXES:
+        if vcf_text and sfx == ".vcf.gz":
+            same = bgzf.read_text_auto(got + sfx) == \
+                bgzf.read_text_auto(want + sfx)
+        else:
+            with open(got + sfx, "rb") as a, open(want + sfx, "rb") as b:
+                same = a.read() == b.read()
+        check(same, "%s: output %s differs from its host reference"
+              % (what, sfx))
+
+
+def multihost_run(fx, prefix, device, n_procs=2, timeout=600):
+    """n_procs `python -m phaser_tpu_torch.dist.engine_multihost` engine
+    processes with position shards over one Gloo group, all on this
+    machine's card.  Returns (wall s, [device_s of each process])."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for pid in range(n_procs):
+            # output to files: a full pipe would stall a rank in a collective
+            logs.append(tempfile.TemporaryFile("w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "phaser_tpu_torch.dist.engine_multihost",
+                 "--vcf", fx["vcf"], "--bam", fx["bam"], "--sample",
+                 fx["sample"], "--o", prefix, "--num-processes", str(n_procs),
+                 "--process-id", str(pid), "--position-shards", "--device",
+                 device, "--coordinator", "localhost:%d" % port,
+                 "--timeout", "300"],
+                cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
+        rcs = [p.wait(timeout=timeout) for p in procs]
+        wall = time.perf_counter() - t0
+        outs = []
+        for fh in logs:
+            fh.seek(0)
+            outs.append(fh.read())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+    check(rcs == [0] * n_procs, "engine processes exited %s:\n%s"
+          % (rcs, "\n".join(o[-2000:] for o in outs)))
+    device_s = []
+    for out in outs:
+        done = [l for l in out.splitlines()
+                if l.startswith("MULTIHOST_ENGINE_DONE")]
+        check(done, "an engine process printed no result:\n" + out[-2000:])
+        device_s.append(float(done[0].split("device_s=")[1].split()[0]))
+    return wall, device_s
+
+
+def sharded_phase(fx, device, smi):
+    """The sharded runners on phase 6's fixture, each through its user entry
+    point, against a single-process --device host reference:
+      a. --threads 4: four position-shard engine threads sharing the card;
+      b. the same with the three stage gates forced down;
+      c. --threads 2 --device host: two engine processes over Gloo;
+      d. two `python -m phaser_tpu_torch.dist.engine_multihost` processes
+         on the card;
+      e. --process_slow 1, and f. --process_slow 1 --threads 2, against
+         --process_slow 1 --device host (slow mode estimates noise per
+         contig, so its reference is its own host run).
+    Counts are zeroed just before each run and read just after."""
+    d = fx["dir"]
+    base = ["--vcf", fx["vcf"], "--bam", fx["bam"], "--sample", fx["sample"],
+            "--mapq", "10", "--baseq", "10", "--paired_end", "1"]
+    host = os.path.join(d, "host")
+    runs = (  # name, CLI flags, gates down, reference
+        ("a", ["--threads", "4", "--device", device], False, host),
+        ("b", ["--threads", "4", "--device", device], True, host),
+        ("c", ["--threads", "2", "--device", "host"], False, host),
+        ("slow_host", ["--process_slow", "1", "--device", "host"], False,
+         None),
+        ("e", ["--process_slow", "1", "--device", device], False,
+         os.path.join(d, "slow_host")),
+        ("f", ["--process_slow", "1", "--threads", "2", "--device", device],
+         False, os.path.join(d, "slow_host")))
+    record = {}
+    for name, flags, gates_down, ref in runs:
+        out = os.path.join(d, name)
+        rc, stdout, wall, launches, _, calls = counted_cli_run(
+            base + ["--o", out] + flags, gates_down=gates_down)
+        check(rc == 0, "run %s (%s) failed:\n%s"
+              % (name, " ".join(flags), stdout[-3000:]))
+        shards = [l.split(":", 1)[1].strip() for l in stdout.splitlines()
+                  if "shard device/wall seconds:" in l]
+        print("   [%s] %-38s wall %.3f s on %s; launches %s; stage calls %s; "
+              "shard device/wall s: %s"
+              % (name, " ".join(flags), wall, smi,
+                 {k: launches[k] for k in MAIN_PATH}, calls,
+                 shards[0] if shards else "-"), flush=True)
+        if ref is not None:
+            same_outputs(out, ref, "run %s" % name,
+                         vcf_text=ref == host)
+        record[name] = dict(launches=launches, calls=calls)
+    check(min(record["a"]["launches"][k] for k in MAIN_PATH) > 0,
+          "run a (--threads 4) skipped a main-path kernel: %s"
+          % record["a"]["launches"])
+    check(min(record["b"]["calls"].values()) > 0,
+          "run b (gates down) skipped a device stage: %s"
+          % record["b"]["calls"])
+    for name in ("e", "f"):
+        check(sum(record[name]["launches"].values()) > 0,
+              "run %s launched no kernel" % name)
+    for name in ("c", "slow_host"):
+        check(sum(record[name]["launches"].values()) == 0,
+              "host run %s launched a kernel" % name)
+
+    wall, device_s = multihost_run(fx, os.path.join(d, "d"), device)
+    print("   [d] %-38s wall %.3f s on %s; device_s per process %s"
+          % ("2 x engine_multihost --device " + device, wall, smi,
+             ["%.3f" % x for x in device_s]), flush=True)
+    same_outputs(os.path.join(d, "d"), host, "run d", vcf_text=True)
+    check(min(device_s) > 0, "an engine process reported no device time: %s"
+          % device_s)
+    print("   outputs of a-d equal the single-process host run (text files "
+          "byte for byte, the VCF decompressed); e-f equal the "
+          "--process_slow 1 host run byte for byte", flush=True)
 
 
 def main() -> int:
@@ -807,9 +956,13 @@ def main() -> int:
         torch.cuda.synchronize()
 
         phase(6, "end to end, --device cuda vs --device host")
-        launches, _ = e2e_phase(tmp, "cuda")
+        launches, fixture = e2e_phase(tmp, "cuda")
         launches["affine_masked"] = masked_launches
         launches.update(entry_launches)
+        torch.cuda.synchronize()
+
+        phase(7, "sharded runners")
+        sharded_phase(fixture, "cuda", smi)
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

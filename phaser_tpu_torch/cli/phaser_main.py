@@ -6,13 +6,21 @@ GPU and fails without one: #2 allele assignment through the CUDA kernels,
 and, above their size gates, #3 pair counting, #4 components and the #5 2^n
 scorer as torch code.  cpu runs the same stages with the kernels' plain
 PyTorch versions on CPU tensors; host runs every stage on the host.
---process_slow 1 and --threads > 1 are not ported yet and exit 1.
+
+Runners, as phaser_tpu routes them (phaser_tpu/cli/phaser_main.py:105-138):
+--process_slow 1 runs one engine per contig (engine.slow_mode), each
+through N position-shard threads with --threads N; --threads N with
+--device host spawns N engine processes over a Gloo group
+(dist.engine_multihost.run_phaser_multiproc); --threads N with --device
+cuda|auto|cpu runs N position-shard engine threads in this process, which
+share the one card (run_phaser_sharded_threads).
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
+import functools
 import sys
 import time
 
@@ -49,8 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gw_phase_vcf", type=int, default=0)
     p.add_argument("--gw_phase_vcf_min_confidence", type=float, default=0.90)
     p.add_argument("--threads", type=int, default=1,
-                   help="Thread the per-contig host stages (mapper, "
-                        "accumulate, connections); reference semantics "
+                   help="Position-sharded engines: N threads sharing the "
+                        "device (--device cuda|auto|cpu) or N processes "
+                        "(--device host); reference semantics "
                         "phaser.py:2077-2094.")
     p.add_argument("--max_block_size", type=int, default=15)
     p.add_argument("--temp_dir", default="")
@@ -61,7 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--unique_ids", type=int, default=0)
     p.add_argument("--id_separator", default="_")
     p.add_argument("--output_network", default="")
-    p.add_argument("--process_slow", type=int, default=0)         # accepted; engine streams
+    p.add_argument("--process_slow", type=int, default=0,
+                   help="1: one engine run per contig, outputs merged "
+                        "(reference phaser.py:264-372).")
     p.add_argument("--resume", type=int, default=0,
                    help="Reuse completed work from a failed previous run: "
                         "with --process_slow 1, skip contigs whose outputs "
@@ -113,19 +124,28 @@ def main(argv=None) -> int:
         isize=args.isize, blacklist=args.blacklist,
         haplo_count_blacklist=args.haplo_count_blacklist,
         haplo_count_bam_exclude=args.haplo_count_bam_exclude)
+    threads = max(1, args.threads)
+    if args.process_slow == 1:
+        from ..engine.slow_mode import run_phaser_slow
+        _run = functools.partial(run_phaser_slow, resume=bool(args.resume),
+                                 chrom=args.chr, opts=opts, threads=threads,
+                                 device=device)
+    elif threads > 1 and device == "host":
+        from ..dist.engine_multihost import run_phaser_multiproc
+        _run = functools.partial(run_phaser_multiproc, threads,
+                                 chrom=args.chr, opts=opts, device=device,
+                                 resume=bool(args.resume))
+    elif threads > 1:
+        from ..dist.engine_multihost import run_phaser_sharded_threads
+        _run = functools.partial(run_phaser_sharded_threads,
+                                 n_shards=threads, chrom=args.chr,
+                                 opts=opts, device=device,
+                                 position_shards=True)
+    else:
+        _run = functools.partial(run_phaser, chrom=args.chr, opts=opts,
+                                 threads=1, device=device)
     try:
-        if args.process_slow == 1:
-            raise RuntimeError(
-                "--process_slow 1 is not ported to phaser_tpu_torch yet "
-                "(ROADMAP.md, queue 1: slow_mode and the threads and "
-                "multihost runners); run phaser_tpu for it")
-        if args.threads > 1:
-            raise RuntimeError(
-                "--threads > 1 is not ported to phaser_tpu_torch yet "
-                "(ROADMAP.md, queue 1: slow_mode and the threads and "
-                "multihost runners); run phaser_tpu for it")
-        run_phaser(chrom=args.chr, opts=opts, threads=1,
-                   device=device, **kwargs)
+        res = _run(**kwargs)
     except (ValueError, RuntimeError, FileNotFoundError) as e:
         from phaser_tpu.utils.failures import write_failure_record
         record = write_failure_record(args.o, "phaser", e, argv)
@@ -135,6 +155,9 @@ def main(argv=None) -> int:
         return 1
     from phaser_tpu.utils.failures import clear_failure_record
     clear_failure_record(args.o)
+    if res.shard_device:
+        print("     shard device/wall seconds: %s"
+              % " ".join("%.3f/%.3f" % dw for dw in res.shard_device))
     if device != "host":
         from ..engine import blocks, connections, phasing
         from ..kernels.alleles import LAUNCHES

@@ -15,6 +15,8 @@ import numpy as np
 from phaser_tpu.engine.blocks import _host_blocks
 from phaser_tpu.engine.connections import ContigConnections
 
+from ..utils.counters import bump
+
 # device label propagation pays off only on big graphs
 # (phaser_tpu engine/blocks.py:20)
 _DEVICE_EDGE_GATE = 100_000
@@ -56,7 +58,7 @@ def _device_blocks(adj: Dict[int, Set[int]], device) -> List[List[int]]:
     from ..mapper.dispatch import resolve_device
 
     dev = resolve_device(device)
-    COUNTS["device_calls"] += 1
+    bump(COUNTS, "device_calls")
     ea = []
     eb = []
     for a, nbrs in adj.items():

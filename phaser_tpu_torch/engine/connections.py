@@ -19,6 +19,8 @@ from phaser_tpu.engine.connections import (ContigConnections, _pair_combos,
                                            compute_overlap_ranks)
 from phaser_tpu.engine.hits import VariantReads
 
+from ..utils.counters import bump
+
 # device pair counting pays off only for large pair universes
 # (phaser_tpu engine/connections.py:200)
 DEVICE_PAIR_GATE = 200_000
@@ -41,7 +43,7 @@ def _device_pair_counts(vr: VariantReads, uniq_pk: np.ndarray, n_vars: int,
     from ..mapper.dispatch import resolve_device
 
     dev = resolve_device(device)
-    COUNTS["device_calls"] += 1
+    bump(COUNTS, "device_calls")
     # bucket K to the true per-read hit maximum (pow2, capped): emit_pairs
     # materializes (R, K*(K-1)/2) pair planes, so K drives device memory
     if len(vr.h_uid):
@@ -67,7 +69,7 @@ def _device_pair_counts(vr: VariantReads, uniq_pk: np.ndarray, n_vars: int,
         ok = (pidx < P) & (uniq_pk[np.minimum(pidx, P - 1)] == keys)
         np.add.at(counts, pidx[ok], dev_counts[ok])
     if len(overflow):
-        COUNTS["host_reads"] += len(overflow)
+        bump(COUNTS, "host_reads", len(overflow))
         sel = np.isin(vr.h_uid, overflow)
         order = np.argsort(vr.h_uid[sel], kind="stable")
         ci, cj, cai, caj = _pair_combos(vr.h_uid[sel][order],

@@ -20,6 +20,8 @@ from phaser_tpu.engine.phasing import (AlleleConn, _enumerate_phase_host,
                                        _score_configs, inverse_config,
                                        resolve_phase, split_by_weak)
 
+from ..utils.counters import bump
+
 # sub-blocks of at least this many variants are scored on the device
 # (phaser_tpu engine/phasing.py:152)
 DEVICE_SCORE_GATE = 16
@@ -38,7 +40,7 @@ def _device_full_enumeration(variants: Sequence[int], ac: AlleleConn,
     from ..mapper.dispatch import resolve_device
 
     dev = resolve_device(device)
-    COUNTS["device_calls"] += 1
+    bump(COUNTS, "device_calls")
     local = {v: i for i, v in enumerate(variants)}
     M = np.zeros((2 * n, 2 * n), np.float32)
     for i, v in enumerate(variants):

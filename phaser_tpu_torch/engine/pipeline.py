@@ -12,7 +12,10 @@ assignment and hit resolution use this package's dispatcher (CUDA kernels),
 the JAX compile-cache setup is gone, and connections (#3 pair counting),
 blocks (#4 components) and phasing (#5 2^n scorer) are this package's
 copies, which take `device` and run their torch device paths above their
-size gates.  Everything else is kept line for line.
+size gates.  The two "nothing to phase" failures raise their own
+RuntimeError subclasses (NoHetSites, NoReadsMatched), so that slow mode
+can skip such a contig and let every other failure through.  Everything
+else is kept line for line.
 
 No subprocesses, no external genomics tools.
 """
@@ -39,6 +42,14 @@ from phaser_tpu.engine.varmap import build_variant_table
 from ..mapper.dispatch import assign_alleles_auto
 from phaser_tpu.utils.trace import Tracer
 from phaser_tpu.engine.vcf_writer import write_phased_vcf
+
+
+class NoHetSites(RuntimeError):
+    """No heterozygous site of the run passed the filters."""
+
+
+class NoReadsMatched(RuntimeError):
+    """No read of the run matched a heterozygous site."""
 
 
 @dataclass
@@ -107,13 +118,6 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
     dist_reduce.  The reference caps parallelism at one worker per contig
     (phaser.py:62); the plan removes that cap."""
     opts = opts or PhaserOptions()
-    if shard_plan is not None or dist_reduce is not None or threads > 1:
-        # the threads and multihost runners are not ported yet (ROADMAP.md,
-        # queue 1); the branches below that serve them are kept line for
-        # line with phaser_tpu's pipeline and are unreachable until then
-        raise NotImplementedError(
-            "shard_plan, dist_reduce and threads > 1 need the threads and "
-            "multihost runners, which phaser_tpu_torch does not port yet")
     if shard_plan is not None:
         if dist_reduce is None:
             raise ValueError("shard_plan requires dist_reduce")
@@ -214,8 +218,8 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
         # a multi-shard run must keep going: every shard has to reach the
         # dist_reduce collectives in order or its peers would block; a
         # globally-empty run still fails at the noise reduction below
-        raise RuntimeError("No heterozygous sites that passed all filters "
-                           "were included in the analysis")
+        raise NoHetSites("No heterozygous sites that passed all filters "
+                         "were included in the analysis")
 
     contig_order = list(hs.pool.keys())
     if shard_plan is not None:
@@ -564,7 +568,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
             # parent-side merge before edge testing (phaser.py:610-632)
             bm, bmm = dist_reduce.noise(bm, bmm)
         if bm == 0:
-            raise RuntimeError("No reads could be matched to variants.")
+            raise NoReadsMatched("No reads could be matched to variants.")
         noise_e = float(bmm) / (float(bm + bmm) * 2)
         res.noise_e = noise_e
         log("     sequencing noise level estimated at %f" % noise_e)

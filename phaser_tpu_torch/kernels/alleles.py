@@ -42,6 +42,8 @@ import torch
 
 from phaser_tpu.mapper.dispatch import _next_pow2
 
+from ..utils.counters import bump
+
 OTHER = 2
 NO_HIT = 3
 _WIN = 256  # table window entries per read block
@@ -643,7 +645,7 @@ def assign_compact_affine_nibble(ncodes: torch.Tensor, start: torch.Tensor,
         N, Lh, ws.data_ptr(), win, R, vpos.data_ptr(), a0.data_ptr(),
         a1.data_ptr(), ni.data_ptr(), vpos.shape[0], out.data_ptr(),
         capacity, _stream(dev)))
-    LAUNCHES["affine_nibble"] += 1
+    bump(LAUNCHES, "affine_nibble")
     return out
 
 
@@ -671,7 +673,7 @@ def assign_compact_delta_nibble(ncodes: torch.Tensor, start: torch.Tensor,
         ncodes.data_ptr(), start.data_ptr(), delta.data_ptr(), N, Lh,
         ws.data_ptr(), win, R, vpos.data_ptr(), a0.data_ptr(), a1.data_ptr(),
         ni.data_ptr(), vpos.shape[0], out.data_ptr(), capacity, _stream(dev)))
-    LAUNCHES["delta_nibble"] += 1
+    bump(LAUNCHES, "delta_nibble")
     return out
 
 
@@ -698,7 +700,7 @@ def assign_compact_plane(codes: torch.Tensor, quals: torch.Tensor,
         int(baseq), ws.data_ptr(), win, R, vpos.data_ptr(), a0.data_ptr(),
         a1.data_ptr(), ni.data_ptr(), vpos.shape[0], out.data_ptr(),
         capacity, _stream(dev)))
-    LAUNCHES["plane"] += 1
+    bump(LAUNCHES, "plane")
     return out
 
 
@@ -730,7 +732,7 @@ def assign_compact_affine_masked(mcodes: torch.Tensor, start: torch.Tensor,
         N, L, ws.data_ptr(), win, R, vpos.data_ptr(), a0.data_ptr(),
         a1.data_ptr(), ni.data_ptr(), vpos.shape[0], out.data_ptr(),
         capacity, _stream(dev)))
-    LAUNCHES["affine_masked"] += 1
+    bump(LAUNCHES, "affine_masked")
     return out
 
 
@@ -777,7 +779,7 @@ def _launch_planes(fn_name: str, counter: str, codes, quals, refpos,
             (vpos.data_ptr(), a0.data_ptr(), a1.data_ptr(), ni.data_ptr(),
              vpos.shape[0]) + mode +
             (vidx.data_ptr(), allele.data_ptr(), _stream(dev)))
-    LAUNCHES[counter] += 1
+    bump(LAUNCHES, counter)
     return vidx, allele
 
 

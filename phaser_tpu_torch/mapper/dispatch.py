@@ -22,6 +22,7 @@ tensors, the test path), or a torch.device.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, List, Optional, Tuple
 
@@ -34,6 +35,8 @@ from phaser_tpu.mapper.dispatch import (_affine_params, _next_pow2,
                                         _read_op_masks)
 from phaser_tpu.mapper.host import ContigHits, assign_alleles
 
+from ..utils.counters import bump
+
 _SUB_ROWS = 1 << 18          # max reads per kernel launch
 # max table entries per launch: the packed-hit word holds a table index
 # below 2^23 and the table pads to a power of two; larger tables launch
@@ -41,6 +44,7 @@ _SUB_ROWS = 1 << 18          # max reads per kernel launch
 _MAX_TABLE = 1 << 22
 _cap_feedback: dict = {}     # (kind, pow2 row bucket, L) -> max hits observed
 _cap_loaded = False
+_cap_lock = threading.Lock()  # guards the table, its load and the cap file
 # chunks relaunched on their device after a hit-capacity overflow
 RELAUNCHES = {"capacity": 0}
 
@@ -68,18 +72,22 @@ def _cap_path() -> str:
 
 
 def _cap_load() -> None:
+    """Fills the feedback table from the cap file once per process.  The
+    flag is set only after the table is filled, under the lock, so a shard
+    thread never sizes its launches from a half-read table."""
     global _cap_loaded
-    if _cap_loaded:
-        return
-    _cap_loaded = True
-    import json
-    try:
-        with open(_cap_path()) as f:
-            for k, v in json.load(f).items():
-                kind, np_, l_ = k.rsplit(":", 2)
-                _cap_feedback[(kind, int(np_), int(l_))] = int(v)
-    except (OSError, ValueError):
-        pass
+    with _cap_lock:
+        if _cap_loaded:
+            return
+        import json
+        try:
+            with open(_cap_path()) as f:
+                for k, v in json.load(f).items():
+                    kind, np_, l_ = k.rsplit(":", 2)
+                    _cap_feedback[(kind, int(np_), int(l_))] = int(v)
+        except (OSError, ValueError):
+            pass
+        _cap_loaded = True
 
 
 def _cap_save() -> None:
@@ -164,9 +172,10 @@ class PendingHits:
                 with device_section():
                     full = packed.cpu().numpy()
             r, v, a, mc, nh = decode_packed_hits(full)
-            if nh > _cap_feedback.get(fb_key, 0):
-                _cap_feedback[fb_key] = nh
-                _cap_save()
+            with _cap_lock:
+                if nh > _cap_feedback.get(fb_key, 0):
+                    _cap_feedback[fb_key] = nh
+                    _cap_save()
             overflow |= nh > cap
             vfull = dev_vidx[v]
             codes_out = mc  # the observed masked nibble IS the allele code
@@ -180,7 +189,7 @@ class PendingHits:
             # the relaunch's capacities hold every launch's hits (rare)
             if self._relaunch is None:
                 raise RuntimeError("hit capacity overflowed again on relaunch")
-            RELAUNCHES["capacity"] += 1
+            bump(RELAUNCHES, "capacity")
             return self._relaunch()
 
         if not rows_parts:

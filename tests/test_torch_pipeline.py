@@ -124,8 +124,8 @@ def _cli_args(tmp_path, *extra):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (("--process_slow", "1", "--device", "host"), "--process_slow 1 is not"),
-    (("--threads", "2", "--device", "host"), "--threads > 1 is not"),
+    (("--process_slow", "1", "--device", "cuda"), "CUDA GPU"),
+    (("--threads", "2", "--device", "cuda"), "CUDA GPU"),
     (("--device", "cuda"), "CUDA GPU"),
     (("--device", "auto"), "CUDA GPU"),
 ])
@@ -142,9 +142,18 @@ def test_cli_fails_loud(tmp_path, capsys, extra, message):
 @pytest.mark.parametrize("kw", [dict(threads=2), dict(shard_plan=object()),
                                 dict(dist_reduce=object())])
 def test_run_phaser_rejects_unported_runners(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="not port"):
+    """The runners' arguments are served now (tests/test_torch_threads.py);
+    what run_phaser still rejects before any work: a shard plan without a
+    reducer, and --device cuda without a card, whatever the runner."""
+    if "shard_plan" in kw:
+        err, match = ValueError, "shard_plan requires dist_reduce"
+    elif torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    else:
+        err, match = RuntimeError, "needs a CUDA GPU"
+    with pytest.raises(err, match=match):
         run_phaser(vcf="", bam="", sample="", o=str(tmp_path / "out"),
-                   mapq="10", baseq=10, paired_end="1", device="cpu",
+                   mapq="10", baseq=10, paired_end="1", device="cuda",
                    log=lambda *x: None, **kw)
 
 
