@@ -6,17 +6,28 @@
 Phases (any failure exits non-zero; nothing here imports jax):
   1. environment: torch / CUDA versions, the card, nvidia-smi's name and
      power limit;
-  2. build: compiles phaser_tpu_torch/csrc/*.cu with nvcc (timed) and checks
-     that phaser_tpu's native IO library loaded;
-  3. kernel parity at chromosome scale (tests/benchdata.py: 5M reads, 100k
+  2. build: compiles phaser_tpu_torch/csrc/*.cu with nvcc and
+     csrc/phaser_io.cc (the native IO library) with g++, both started
+     together and timed, into phaser_tpu_torch/_build/;
+  3. kernel parity at chromosome scale (testing/benchdata.py: 5M reads, 100k
      hets, 200 Mbp, 10% N-spliced): assign_alleles_auto on the GPU == the
      exact host mapper, also with every launch's hit capacity forced to
      overflow (the chunk must be relaunched on the card, never rerun on the
      host) and without the native nibble packer (the masked-affine path);
-     then one 262,144-row launch of each fused kernel, planned windows and
-     whole table, against its plain PyTorch version on the card (hits
-     compared after a (read, var) sort; timed with CUDA events); then a
-     small tests/datagen.py fixture with deletion reads;
+     the dispatcher's wall with its host items (cProfile) and its device
+     share (torch.profiler); then one 262,144-row launch of each fused
+     kernel against its plain PyTorch version on the card (the range joins
+     affine_nibble and plane take no window; delta_nibble and affine_masked
+     run with planned windows and with the whole table; hits compared after
+     a (read, var) sort; timed with CUDA events); then the two range-join
+     kernels on the layouts of testing/layouts.py that reach every branch
+     (rows in random order, a table too dense for the shared-memory slice,
+     L of 256 and 384, lo > 0, empty rows, variants on first and last
+     bases, a one-entry table, the second and the first (2^22 entries)
+     slice of a table above the dispatcher's slice size, duplicate
+     positions), each also with a capacity of 4 (exact count past
+     capacity); then a small testing/datagen.py fixture with deletion
+     reads;
   4. the kernel-level entries (assign_alleles_pallas_windowed with gather
      and cmp, assign_alleles_pallas with a resident table) on
      tests/test_tpu_hw.py's layout (M = 100k, N = 2^15, narrow regions, the
@@ -28,7 +39,7 @@ Phases (any failure exits non-zero; nothing here imports jax):
   6. end to end: the CLI's entry point (phaser_main.main, what `python -m
      phaser_tpu_torch.cli.phaser_main` runs) with --device cuda, --device
      host, and --device cuda with the stage gates forced down, on a
-     tests/datagen.py fixture shaped like bench_engine.py (3 contigs,
+     testing/datagen.py fixture shaped like bench_engine.py (3 contigs,
      60/25/15% of 1M input reads); the six output files must be
      byte-identical, and every fused kernel (default run) and every stage's
      device hook (gates-down run) must have run (counts zeroed just before
@@ -47,6 +58,24 @@ Phases (any failure exits non-zero; nothing here imports jax):
 Each kernel's `launches` comes from the run of its own path: the e2e cuda
 run for the three nibble/plane kernels, the no-nibble-packer dispatcher run
 for affine_masked, and phase 4's entry calls for the planes kernels.
+
+Each kernel's `ms` is the wrapper call timed with CUDA events over 20 calls
+(the packed buffer's fill included, and host overhead where the host cannot
+enqueue as fast as the card runs), as in every earlier record.  `device_ms`
+is what one call keeps the card busy (torch.profiler's device time of the
+__global__ function plus the launcher's buffer fills), `kernel_ms` the
+__global__ function alone.  `plain_ms` is event-timed.  The share of bound
+is taken against `ms`.
+
+Each kernel's `bound_ms` is the larger of the bytes this run's inputs need
+moved over 3.35 TB/s and its integer operations over 67 T/s (the card's
+non-tensor rate); for the range joins the bytes are what the data needs
+(row parameters or the refpos plane, the table entries between the lowest
+and the highest position of the launch's rows, one 32-byte sector of a
+code plane per hit, 8 B per hit written), and the line printed before
+the record also gives the "every input byte once" figure.  `library_ms` is
+null throughout: no single PyTorch call classifies bases against the table
+and compacts the hits (`torch.searchsorted` is only the lookup).
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -77,14 +106,27 @@ SUFFIXES = (".allelic_counts.txt", ".variant_connections.txt",
             ".allele_config.txt", ".haplotypes.txt",
             ".haplotypic_counts.txt", ".vcf.gz")
 SUB_ROWS = 1 << 18
-CHROM_READS = 5_000_000      # tests/benchdata.py chromosome-scale workload
+CHROM_READS = 5_000_000      # testing/benchdata.py chromosome-scale workload
 CHROM_HETS = 100_000
 E2E_READS = 1_000_000        # bench_engine.py's input-read count
 MAIN_PATH = ("affine_nibble", "delta_nibble", "plane")  # the dispatcher's
 
 
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+INT_OPS_PER_S = 67e12        # non-tensor rate (compares, index arithmetic)
+TABLE_ROW_BYTES = 16         # vpos, a0, a1, n_ind: 4 x int32 per entry
+
+
 class SmokeError(Exception):
     pass
+
+
+def bound_of(n_bytes, n_ops):
+    """(bound ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and the operations over the non-tensor rate."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = n_ops / INT_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def check(cond, msg):
@@ -137,36 +179,110 @@ def time_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
-def kernel_vs_plain(name, kernel, plain, n_rows, can_plan):
-    """Kernel wrapper vs its plain version on the same CUDA tensors, with
-    planned windows (when the planner found them) and with the whole table.
-    Returns (max_abs_err, ms, plain_ms), timed as the dispatcher would
-    launch."""
+KERNEL_FN = {  # the __global__ function behind each kernel entry
+    "affine_nibble": "affine_nibble_kernel",
+    "delta_nibble": "delta_nibble_kernel", "plane": "plane_kernel",
+    "affine_masked": "affine_masked_kernel",
+    "planes": "planes_kernel<false>", "planes_resident": "planes_kernel<true>",
+    "planes_cmp": "planes_cmp_kernel"}
+
+
+def device_ms(name, fn, iters=20):
+    """(device ms, kernel ms) per call from torch.profiler: the device time
+    of the kernel's __global__ function plus the launcher's memsets, and of
+    the function alone; None when the profiler reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernel_us = fill_us = 0.0
+    for e in prof.key_averages():
+        d = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if KERNEL_FN[name] in e.key:
+            kernel_us += d
+        elif "memset" in e.key.lower():
+            fill_us += d
+    if not kernel_us:
+        return None
+    return (kernel_us + fill_us) / iters / 1e3, kernel_us / iters / 1e3
+
+
+def kernel_vs_plain(name, kernel, plain, n_rows, modes):
+    """Kernel wrapper vs its plain version on the same CUDA tensors, once
+    per mode ("range-join" for the kernels that find their own table
+    ranges; "planned" / "whole-table" for the windowed ones).  Returns
+    (max_abs_err, ms, plain_ms, hits, (device_ms, kernel_ms)), timed in the
+    first mode, as the dispatcher would launch: ms is the wrapper call by
+    CUDA events (buffer fill and, where the host cannot enqueue faster than
+    the card runs, host overhead included); the pair is device_ms()'s."""
     import numpy as np
     import torch
-    err = 0
-    for planned in (True, False)[0 if can_plan else 1:]:
-        nk, hk = sorted_hits(kernel(planned))
-        npl, hp = sorted_hits(plain(planned))
+    err, hits = 0, 0
+    for mode in modes:
+        nk, hk = sorted_hits(kernel(mode))
+        npl, hp = sorted_hits(plain(mode))
         torch.cuda.synchronize()
         check(nk == npl, "%s (%s): kernel found %d hits, plain %d"
-              % (name, "planned" if planned else "whole table", nk, npl))
+              % (name, mode, nk, npl))
         if hk.size:
             err = max(err, int(np.abs(hk - hp).max()))
+        hits = nk
         print("   %-13s %-11s rows=%d hits=%d max_abs_err=%d"
-              % (name, "planned" if planned else "whole-table", n_rows, nk,
-                 err), flush=True)
+              % (name, mode, n_rows, nk, err), flush=True)
     check(err == 0, "%s: kernel disagrees with plain version" % name)
     # in turns (plain, kernel, kernel, plain); each number is the mean of two
-    p1 = time_ms(lambda: plain(can_plan), 5)
-    k1 = time_ms(lambda: kernel(can_plan), 20)
-    k2 = time_ms(lambda: kernel(can_plan), 20)
-    p2 = time_ms(lambda: plain(can_plan), 5)
+    first = modes[0]
+    p1 = time_ms(lambda: plain(first), 5)
+    k1 = time_ms(lambda: kernel(first), 20)
+    k2 = time_ms(lambda: kernel(first), 20)
+    p2 = time_ms(lambda: plain(first), 5)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print("   %-13s kernel %.4f ms (%.4f, %.4f)   plain %.4f ms (%.4f, %.4f)"
-          "   (%d rows)" % (name, ms, k1, k2, plain_ms, p1, p2, n_rows),
+    dev = device_ms(name, lambda: kernel(first))
+    check(dev is not None, "%s: the profiler saw no launch of %s"
+          % (name, KERNEL_FN[name]))
+    print("   %-13s wrapper call %.4f ms (%.4f, %.4f); on the card %.4f ms, "
+          "kernel alone %.4f ms   plain %.4f ms (%.4f, %.4f)   (%d rows, %s)"
+          % (name, ms, k1, k2, dev[0], dev[1], plain_ms, p1, p2, n_rows,
+             first), flush=True)
+    return err, ms, plain_ms, hits, dev
+
+
+def host_items(fn):
+    """Wall of one dispatcher call under cProfile, with the cumulative
+    seconds of its host items (packers, planners, selects, uploads)."""
+    import cProfile
+    import pstats
+
+    import torch
+    names = ("plan_windows_affine", "plan_windows_plane",
+             "plan_windows_minmax", "_plan_from_bounds", "_read_op_masks",
+             "select", "pack_affine_nibble", "pack_delta_nibble",
+             "pack_reads", "padded_table", "_upload", "assign_alleles",
+             "resolve", "decode_packed_hits")
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    wall = time.perf_counter() - t0
+    items = {}
+    for (_, _, fname), (_, ncalls, _, cum, _) in \
+            pstats.Stats(pr).stats.items():
+        if fname in names:
+            n0, c0 = items.get(fname, (0, 0.0))
+            items[fname] = (n0 + ncalls, c0 + cum)
+    print("   dispatcher under cProfile: wall %.3f s; host items (calls, "
+          "cumulative s): %s"
+          % (wall, ", ".join("%s x%d %.3f" % (k, n, c) for k, (n, c) in
+                             sorted(items.items(), key=lambda kv: -kv[1][1]))),
           flush=True)
-    return err, ms, plain_ms
+    return wall, items
 
 
 def profile_dispatch(fn):
@@ -205,12 +321,12 @@ def chromosome_phase(tmp, device):
     import numpy as np
     import torch
 
-    import benchdata
-    from phaser_tpu.engine.varmap import build_variant_table
-    from phaser_tpu.io import bam as bamio
+    from phaser_tpu_torch.engine.varmap import build_variant_table
+    from phaser_tpu_torch.io import bam as bamio
     from phaser_tpu_torch.kernels import alleles as K
     from phaser_tpu_torch.mapper import dispatch as D
     from phaser_tpu_torch.mapper.dispatch import assign_alleles_auto
+    from phaser_tpu_torch.testing import benchdata
 
     dev = torch.device(device)
     contig_len = 200_000_000
@@ -235,9 +351,10 @@ def chromosome_phase(tmp, device):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         same_hits(got, want, "chromosome-scale assign_alleles_auto")
+    chrom_launches = dict(K.LAUNCHES)
     print("   assign_alleles_auto: %d hits; host %.3f s, cuda %.3f s "
           "(first call) / %.3f s; launches %s"
-          % (len(want), t_host, walls[0], walls[1], dict(K.LAUNCHES)),
+          % (len(want), t_host, walls[0], walls[1], chrom_launches),
           flush=True)
     check(K.LAUNCHES["affine_nibble"] > 0 and K.LAUNCHES["plane"] > 0,
           "chromosome-scale run skipped a kernel: %s" % K.LAUNCHES)
@@ -269,6 +386,8 @@ def chromosome_phase(tmp, device):
     if dev.type == "cuda":
         profile_dispatch(lambda: assign_alleles_auto(bd, vt, baseq=10,
                                                      device=device))
+        host_items(lambda: assign_alleles_auto(bd, vt, baseq=10,
+                                               device=device))
 
     # the dispatcher without the native nibble packer: affine reads take
     # the 1 B/base masked plane and the affine_masked kernel
@@ -304,17 +423,13 @@ def chromosome_phase(tmp, device):
     nc = np.where(ia[:, None], ncodes[:n], 0xFF).astype(np.uint8)
     st, lo, hi = (np.where(ia, x[:n], 0).astype(np.int32)
                   for x in (st, lo, hi))
-    ws = K.plan_windows_affine(st, lo, hi, hi > lo, vpos, n, min(256, n))
     a_in = [T(x) for x in (nc, st, lo, hi)]
-    ws_t = None if ws is None else T(ws)
 
-    def affine(planned):
-        return K.assign_compact_affine_nibble(
-            *a_in, table, cap, ws=ws_t if planned else None)
+    def affine(mode):
+        return K.assign_compact_affine_nibble(*a_in, table, cap)
 
-    def affine_plain(planned):
-        w, win, R = K.window_args(ws_t if planned else None, n, table, dev)
-        return K.affine_nibble_plain(*a_in, w, win, R, table, cap)
+    def affine_plain(mode):
+        return K.affine_nibble_plain(*a_in, table, cap)
 
     # delta inputs from the same reads: start - lo with zero deltas gives
     # the affine positions; every 4th read gets a 2-base deletion after
@@ -331,12 +446,13 @@ def chromosome_phase(tmp, device):
     d_in = [T(x) for x in (nc, dstart, delta)]
     ws_dt = None if ws_d is None else T(ws_d)
 
-    def delta_k(planned):
+    def delta_k(mode):
         return K.assign_compact_delta_nibble(
-            *d_in, table, cap, ws=ws_dt if planned else None)
+            *d_in, table, cap, ws=ws_dt if mode == "planned" else None)
 
-    def delta_plain(planned):
-        w, win, R = K.window_args(ws_dt if planned else None, n, table, dev)
+    def delta_plain(mode):
+        w, win, R = K.window_args(ws_dt if mode == "planned" else None, n,
+                                  table, dev)
         return K.delta_nibble_plain(*d_in, w, win, R, table, cap)
 
     mcodes, aff_m, st_m, lo_m, hi_m = K.pack_affine_masked(bd, 10)
@@ -348,55 +464,140 @@ def chromosome_phase(tmp, device):
                                  ia_m, vpos, n, min(256, n))
     ws_mt = None if ws_m is None else T(ws_m)
 
-    def masked_k(planned):
+    def masked_k(mode):
         return K.assign_compact_affine_masked(
-            *m_in, table, cap, ws=ws_mt if planned else None)
+            *m_in, table, cap, ws=ws_mt if mode == "planned" else None)
 
-    def masked_plain(planned):
-        w, win, R = K.window_args(ws_mt if planned else None, n, table, dev)
+    def masked_plain(mode):
+        w, win, R = K.window_args(ws_mt if mode == "planned" else None, n,
+                                  table, dev)
         return K.affine_masked_plain(*m_in, w, win, R, table, cap)
 
     sub = bd.select(np.flatnonzero(~aff_all)[:SUB_ROWS])
     codes, quals, refpos = K.pack_reads(sub)
     n_p = codes.shape[0]
-    ws_p = K.plan_windows_plane(refpos, vpos, min(256, n_p))
     p_in = [T(x) for x in (codes, quals, refpos)]
-    ws_pt = None if ws_p is None else T(ws_p)
+    L_p = codes.shape[1]
 
-    def plane(planned):
-        return K.assign_compact_plane(*p_in, 10, table, cap,
-                                      ws=ws_pt if planned else None)
+    def plane(mode):
+        return K.assign_compact_plane(*p_in, 10, table, cap)
 
-    def plane_plain(planned):
-        w, win, R = K.window_args(ws_pt if planned else None, n_p, table,
-                                  dev)
-        return K.plane_plain(*p_in, 10, w, win, R, table, cap)
+    def plane_plain(mode):
+        return K.plane_plain(*p_in, 10, table, cap)
 
     print("   table: %d entries (Mp), L=%d" % (table[0].shape[0], L),
           flush=True)
-    results = {}
-    for name, k, p, rows, w in (
-            ("affine_nibble", affine, affine_plain, n, ws),
-            ("delta_nibble", delta_k, delta_plain, n, ws_d),
-            ("plane", plane, plane_plain, n_p, ws_p),
-            ("affine_masked", masked_k, masked_plain, n, ws_m)):
-        if w is None:
+    mp = int(table[0].shape[0])
+    tab_bytes = mp * TABLE_ROW_BYTES
+    # the range joins read only the table entries under their rows: those
+    # between the launch's lowest and highest position
+    live = hi > lo
+    a_tab_bytes = TABLE_ROW_BYTES * max(int(
+        np.searchsorted(vpos, (st + hi - lo)[live].max()) -
+        np.searchsorted(vpos, st[live].min())), 0)
+    Lh = nc.shape[1]
+    steps = max(mp.bit_length() - 1, 1)          # binary-search depth
+    # entries under each plane row: what its per-lane matching loops over
+    k0 = np.searchsorted(vpos, np.where(refpos > 0, refpos,
+                                        np.iinfo(np.int32).max).min(1))
+    k1 = np.searchsorted(vpos, refpos.max(1), side="right")
+    mean_range = float(np.maximum(k1 - k0, 0).mean())
+    has_pos = refpos.max(1) > 0
+    p_tab_bytes = TABLE_ROW_BYTES * max(int(k1[has_pos].max() -
+                                            k0[has_pos].min()), 0)
+    print("   table entries under the launch's rows: affine_nibble %d, "
+          "plane %d of %d" % (a_tab_bytes // TABLE_ROW_BYTES,
+                              p_tab_bytes // TABLE_ROW_BYTES, mp), flush=True)
+    windowed = lambda w: ("planned", "whole-table") if w is not None \
+        else ("whole-table",)  # noqa: E731
+    results, bounds = {}, {}
+    for name, k, p, rows, modes in (
+            ("affine_nibble", affine, affine_plain, n, ("range-join",)),
+            ("delta_nibble", delta_k, delta_plain, n, windowed(ws_d)),
+            ("plane", plane, plane_plain, n_p, ("range-join",)),
+            # the dispatcher launches affine_masked on the whole table
+            ("affine_masked", masked_k, masked_plain, n,
+             windowed(ws_m)[::-1])):
+        if modes == ("whole-table",):  # no plan found
             print("   %s: a row block overflows the 256-entry window; "
                   "whole-table launch only" % name, flush=True)
-        results[name] = kernel_vs_plain(name, k, p, rows, w is not None)
+        err, ms, plain_ms, hits, on_card = kernel_vs_plain(name, k, p, rows,
+                                                           modes)
+        results[name] = (err, ms, plain_ms, on_card)
+        out_bytes = 8 * hits + 4
+        win_steps = 8 if modes[0] == "planned" else steps
+        if name == "affine_nibble":
+            need = rows * 12 + a_tab_bytes + 32 * hits + out_bytes
+            every = rows * (12 + Lh) + tab_bytes + out_bytes
+            ops = rows * 2 * steps + 12 * hits
+        elif name == "plane":
+            need = rows * L_p * 4 + p_tab_bytes + 64 * hits + out_bytes
+            every = rows * L_p * 6 + tab_bytes + out_bytes
+            ops = rows * L_p * (2 + mean_range) + rows * 2 * 4 * 32
+        elif name == "delta_nibble":
+            need = every = rows * (Lh + 2 * L + 4) + tab_bytes + out_bytes
+            ops = rows * L * 2 * win_steps
+        else:  # affine_masked
+            need = every = rows * (L + 12) + tab_bytes + out_bytes
+            ops = rows * L * 2 * win_steps
+        bounds[name] = bound_of(need, ops) + (bound_of(every, ops)[0],)
     torch.cuda.synchronize()
-    return results, masked_launches["affine_masked"]
+    return results, bounds, masked_launches["affine_masked"], chrom_launches
+
+
+def branch_shapes_phase(device):
+    """The two range-join kernels against their plain versions on the
+    layouts that reach every branch (testing/layouts.py), 20,000 rows each,
+    with room for every hit and with a capacity of 4."""
+    import numpy as np
+    import torch
+    from phaser_tpu_torch.kernels import alleles as K
+    from phaser_tpu_torch.testing import layouts
+
+    dev = torch.device(device)
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    for name in layouts.NAMES + ["big_table"]:
+        d = layouts.make(name, n_rows=20_000, n_vars=16_000,
+                         contig=4_000_000)
+        table = tuple(T(x) for x in layouts.padded_table(d))
+        a_in = [T(x) for x in layouts.affine_inputs(d)]
+        p_in = [T(x) for x in layouts.plane_inputs(d)]
+        line = []
+        for prog, kernel, plain in (
+                ("affine_nibble",
+                 lambda c: K.assign_compact_affine_nibble(*a_in, table, c),
+                 lambda c: K.affine_nibble_plain(*a_in, table, c)),
+                ("plane",
+                 lambda c: K.assign_compact_plane(*p_in, 10, table, c),
+                 lambda c: K.plane_plain(*p_in, 10, table, c))):
+            got, want = kernel(1 << 22), plain(1 << 22)
+            torch.cuda.synchronize()
+            (nk, hk), (npl, hp) = sorted_hits(got), sorted_hits(want)
+            check(nk == npl and np.array_equal(hk, hp) and nk > 0,
+                  "%s on layout %s: kernel %d hits, plain %d, or they differ"
+                  % (prog, name, nk, npl))
+            small = kernel(4)
+            torch.cuda.synchronize()
+            small = small.cpu().numpy()
+            check(int(small[0, 0]) == nk and
+                  int((small[0, 1:] >= 0).sum()) == min(4, nk),
+                  "%s on layout %s: capacity 4 reported %d of %d hits"
+                  % (prog, name, int(small[0, 0]), nk))
+            line.append("%s %d hits" % (prog, nk))
+        print("   %-12s L=%-3d Mp=%-8d %s; max_abs_err 0, exact count past "
+              "capacity" % (name, d["codes"].shape[1], table[0].shape[0],
+                            ", ".join(line)), flush=True)
 
 
 def small_delta_phase(tmp, device):
     import torch
 
-    import datagen
-    from phaser_tpu.engine.varmap import build_variant_table
-    from phaser_tpu.io import bam as bamio
-    from phaser_tpu.io import vcf as vcfio
+    from phaser_tpu_torch.engine.varmap import build_variant_table
+    from phaser_tpu_torch.io import bam as bamio
+    from phaser_tpu_torch.io import vcf as vcfio
     from phaser_tpu_torch.kernels import alleles as K
     from phaser_tpu_torch.mapper.dispatch import assign_alleles_auto
+    from phaser_tpu_torch.testing import datagen
 
     d = os.path.join(tmp, "small")
     os.makedirs(d)
@@ -424,7 +625,8 @@ def small_delta_phase(tmp, device):
 def planes_vs_plain(name, path_out, kernel, plain):
     """A planes kernel's (vidx, allele) against its plain version on the
     same CUDA tensors: the path's output and one timed launch of each.
-    Returns (max_abs_err, ms, plain_ms)."""
+    Returns (max_abs_err, ms, plain_ms, (device_ms, kernel_ms)) as
+    kernel_vs_plain."""
     import torch
     want = plain()
     err = 0
@@ -440,10 +642,14 @@ def planes_vs_plain(name, path_out, kernel, plain):
     k2 = time_ms(kernel, 20)
     p2 = time_ms(plain, 5)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print("   %-15s hits=%d max_abs_err=%d  kernel %.4f ms (%.4f, %.4f)   "
-          "plain %.4f ms (%.4f, %.4f)"
-          % (name, hits, err, ms, k1, k2, plain_ms, p1, p2), flush=True)
-    return err, ms, plain_ms
+    dev = device_ms(name, kernel)
+    check(dev is not None, "%s: the profiler saw no launch of %s"
+          % (name, KERNEL_FN[name]))
+    print("   %-15s hits=%d max_abs_err=%d  wrapper call %.4f ms (%.4f, %.4f); "
+          "on the card %.4f ms, kernel alone %.4f ms   plain %.4f ms (%.4f, "
+          "%.4f)" % (name, hits, err, ms, k1, k2, dev[0], dev[1], plain_ms,
+                     p1, p2), flush=True)
+    return err, ms, plain_ms, dev
 
 
 def entries_phase(device):
@@ -519,13 +725,27 @@ def entries_phase(device):
     }
     results = {name: planes_vs_plain(name, outs[name], *runs[name])
                for name in outs}
+    # 6 B read and 8 B written per base, the windows and the table once;
+    # the search depth in a 256-entry window or the resident table, or 256
+    # compare-selects per base for cmp
+    plane_bytes = N * L * (6 + 8)
+    n_blocks = -(-N // R)
+    bounds = {
+        "planes": bound_of(plane_bytes + 4 * n_blocks + M * TABLE_ROW_BYTES,
+                           N * L * 2 * 8),
+        "planes_cmp": bound_of(
+            plane_bytes + 4 * n_blocks + M * TABLE_ROW_BYTES,
+            N * L * 2 * K._WIN),
+        "planes_resident": bound_of(plane_bytes + R_res * TABLE_ROW_BYTES,
+                                    N * L * 2 * 7),
+    }
     # the windowed entry equals the whole-table classifier, as on the TPU
     whole = K.assign_alleles_device(*big, 10)
     torch.cuda.synchronize()
     for g, w in zip(outs["planes"], whole):
         check(torch.equal(g, w), "windowed planes differ from the whole "
               "table's")
-    return results, launches
+    return results, bounds, launches
 
 
 class _FakeVT:
@@ -722,7 +942,7 @@ def counted_cli_run(argv, gates_down=False):
 
 
 def e2e_phase(tmp, device):
-    import datagen
+    from phaser_tpu_torch.testing import datagen
 
     shares = (0.6, 0.25, 0.15)
     pairs = [int(E2E_READS // 2 * s) for s in shares]
@@ -781,7 +1001,7 @@ def same_outputs(got, want, what, vcf_text):
     """The six outputs of `got` against those of `want`, byte for byte;
     with `vcf_text` the .vcf.gz after BGZF decompression, since a shard
     merge re-blocks the VCF body (in phaser_tpu as here)."""
-    from phaser_tpu.io import bgzf
+    from phaser_tpu_torch.io import bgzf
     for sfx in SUFFIXES:
         if vcf_text and sfx == ".vcf.gz":
             same = bgzf.read_text_auto(got + sfx) == \
@@ -910,13 +1130,12 @@ def sharded_phase(fx, device, smi):
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(REPO, "phaser_tpu_torch")) or \
-            not os.path.isdir(os.path.join(REPO, "tests")):
+    if not os.path.isdir(os.path.join(REPO, "phaser_tpu_torch")):
         raise SmokeError("run chip_smoke.py from a checkout of the repository")
     import torch
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: no GPU")
-    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    sys.path.insert(0, REPO)
 
     phase(1, "environment")
     print("   python %s, torch %s, CUDA %s" % (
@@ -927,28 +1146,49 @@ def main() -> int:
     print("   nvidia-smi: %s" % smi, flush=True)
 
     phase(2, "build")
-    from phaser_tpu.io import native
+    import threading
+
+    from phaser_tpu_torch.io import native
     from phaser_tpu_torch.kernels import alleles as K
     from phaser_tpu_torch.utils import build
+    # one compiler per source, both started together
+    failed = []
+
+    def build_io():
+        try:
+            build.get_io_lib()
+        except Exception as e:  # reported below, in the main thread
+            failed.append(e)
+    io_thread = threading.Thread(target=build_io)
+    io_thread.start()
     build.build(force=True)
+    io_thread.join()
+    check(not failed, "the native IO library failed to build or load: %s"
+          % (failed[0] if failed else ""))
     print("   nvcc build: %.2f s -> %s"
           % (build.last_build_seconds, os.path.relpath(build.LIB_PATH, REPO)))
     K._kernels()
-    check(native.get_lib() is not None,
-          "phaser_tpu's native IO library failed to build or load")
-    print("   native IO library: loaded", flush=True)
+    check(build.last_io_build_seconds is not None and
+          native.get_lib() is not None,
+          "the native IO library was not built here")
+    print("   g++ build of the native IO library: %.2f s -> %s, loaded"
+          % (build.last_io_build_seconds,
+             os.path.relpath(build.IO_LIB_PATH, REPO)), flush=True)
 
     tmp = tempfile.mkdtemp(prefix="phaser_smoke_")
     os.environ["PHASER_TPU_TORCH_CACHE"] = os.path.join(tmp, "cache")
     try:
         phase(3, "kernel parity at chromosome scale")
-        results, masked_launches = chromosome_phase(tmp, "cuda")
+        results, bounds, masked_launches, chrom_launches = \
+            chromosome_phase(tmp, "cuda")
+        branch_shapes_phase("cuda")
         small_delta_phase(tmp, "cuda")
         torch.cuda.synchronize()
 
         phase(4, "kernel-level entries (planes kernels)")
-        entry_results, entry_launches = entries_phase("cuda")
+        entry_results, entry_bounds, entry_launches = entries_phase("cuda")
         results.update(entry_results)
+        bounds.update(entry_bounds)
         torch.cuda.synchronize()
 
         phase(5, "engine stages #3-#5 below, at and above their gates")
@@ -957,6 +1197,7 @@ def main() -> int:
 
         phase(6, "end to end, --device cuda vs --device host")
         launches, fixture = e2e_phase(tmp, "cuda")
+        e2e_launches = dict(launches)
         launches["affine_masked"] = masked_launches
         launches.update(entry_launches)
         torch.cuda.synchronize()
@@ -967,11 +1208,30 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    check("jax" not in sys.modules, "jax was imported")
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-               for name, (err, ms, plain_ms) in results.items()]
+    check("jax" not in sys.modules and "phaser_tpu" not in sys.modules,
+          "jax or the JAX package was imported")
+    kernels = []
+    print("   kernel            ms (on the card, kernel alone)  plain ms  "
+          "bound ms (by)  share of bound (of the time on the card)  "
+          "launches: 5M-read call / 1M-read e2e   [%s]" % smi)
+    for name, (err, ms, plain_ms, (dev_ms, kernel_ms)) in results.items():
+        bound_ms, bound_by = bounds[name][:2]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms": dev_ms, "kernel_ms": kernel_ms})
+        line = ("   %-15s %.4f (%.4f, %.4f)  %.4f  %.4f (%s)  %.1f%% (%.1f%%)  "
+                "%d / %d") % (
+            name, ms, dev_ms, kernel_ms, plain_ms, bound_ms, bound_by,
+            100.0 * bound_ms / ms, 100.0 * bound_ms / dev_ms,
+            chrom_launches.get(name, 0), e2e_launches.get(name, 0))
+        if len(bounds[name]) > 2 and bounds[name][2] != bound_ms:
+            kernels[-1]["bound_every_input_byte_ms"] = bounds[name][2]
+            line += "   (every input byte once: %.4f ms, %.1f%%)" % (
+                bounds[name][2], 100.0 * bounds[name][2] / ms)
+        print(line)
     check(len(kernels) == len(REPLACES) and
           min(k["launches"] for k in kernels) > 0,
           "a kernel was not launched on its path: %s" % kernels)

@@ -2,12 +2,14 @@
 
 Runs phaser_tpu's `phaser` engine with allele assignment on an NVIDIA
 Hopper GPU (H100): the Pallas TPU classifier becomes hand-written CUDA
-kernels (csrc/alleles.cu), built with nvcc at first use.  The JAX-free
-modules of phaser_tpu (io, host engine stages, writers, host mapper) are
-imported, not copied; this package never imports jax.
+kernels (csrc/alleles.cu), built with nvcc at first use.  The package stands
+on its own: it keeps its own copies of phaser_tpu's JAX-free modules (io and
+its native library, host engine stages, writers, host mapper, shard
+planning) and imports neither jax nor phaser_tpu.
 
 Entry point: `python -m phaser_tpu_torch.cli.phaser_main` (the flags of
-`phaser`, with --device cuda|cpu|host).
+`phaser`, with --device cuda|cpu|host).  The library entry points run on the
+card unless the caller passes device="cpu" or "host".
 """
 
-from phaser_tpu.version import __version__  # noqa: F401
+from .version import __version__  # noqa: F401

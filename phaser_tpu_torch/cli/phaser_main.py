@@ -24,8 +24,8 @@ import functools
 import sys
 import time
 
-from phaser_tpu.engine.output_stage import PhaserOptions
-from phaser_tpu.version import PHASER_COMPAT_VERSION, __version__
+from ..engine.output_stage import PhaserOptions
+from ..version import PHASER_COMPAT_VERSION, __version__
 
 from ..engine.pipeline import run_phaser
 
@@ -147,13 +147,13 @@ def main(argv=None) -> int:
     try:
         res = _run(**kwargs)
     except (ValueError, RuntimeError, FileNotFoundError) as e:
-        from phaser_tpu.utils.failures import write_failure_record
+        from ..utils.failures import write_failure_record
         record = write_failure_record(args.o, "phaser", e, argv)
         print("     FATAL ERROR: %s" % e)
         if record:
             print("     failure record: %s" % record)
         return 1
-    from phaser_tpu.utils.failures import clear_failure_record
+    from ..utils.failures import clear_failure_record
     clear_failure_record(args.o)
     if res.shard_device:
         print("     shard device/wall seconds: %s"

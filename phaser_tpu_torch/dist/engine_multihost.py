@@ -8,11 +8,10 @@ merge points (AS quantile, row exchange, row offsets, noise, block base),
 and the per-shard outputs merge into files byte-identical to the
 single-process run.
 
-From phaser_tpu, whose module top is JAX-free, this module imports the
-reducer logic (`_ReducerBase`, `_ThreadGroup`, `ThreadReducer`,
-`RecordingReducer`), the shard split and the output merge.  It copies
-`replay_journal` and `_merge_results`, which build the port's
-`PhaserResult`, and ports the runners:
+The reducer logic (`_ReducerBase`, `_ThreadGroup`, `ThreadReducer`,
+`RecordingReducer`), the shard split, `replay_journal`, `_merge_results`
+and the output merge are unchanged copies of phaser_tpu's; its jax
+collectives are replaced by the ported runners:
 
   run_phaser_sharded_threads  N engine threads in one process; on
                               --device cuda they share the one card
@@ -28,25 +27,270 @@ objects, and several ranks may share one GPU, which NCCL does not allow.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import os
 import pickle
 import threading
 import time
 from datetime import timedelta
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
-from phaser_tpu.dist.engine_multihost import (  # noqa: F401 (re-exported)
-    EMPTY_SHARD, RecordingReducer, ThreadReducer, _ReducerBase, _ThreadGroup,
-    _shard_chrom, _shard_outputs_complete, merge_shard_outputs,
-    split_contigs)
-from phaser_tpu.engine.output_stage import PhaserOptions
-from phaser_tpu.engine.slow_mode import list_contigs
+import numpy as np
 
+from ..engine.output_stage import PhaserOptions
 from ..engine.pipeline import NoReadsMatched, PhaserResult, run_phaser
+from ..engine.slow_mode import _stream_vcf_body, list_contigs
 
 # seconds a process waits in one collective (and to join the group) before
 # the run fails: a peer that hangs fails the run instead of holding it
 DEFAULT_TIMEOUT_S = 3600.0
+
+
+# chrom sentinel for a shard with no contigs (more processes than contigs):
+# matches no contig but keeps the shard participating in every collective
+EMPTY_SHARD = "\x00none"
+
+
+ALLELIC_COUNTS_HEADER = ("contig\tposition\tvariantID\trefAllele\taltAllele"
+                         "\trefCount\taltCount\ttotalCount\n")
+
+
+def split_contigs(contigs: Sequence[str], n_shards: int) -> List[List[str]]:
+    """Contiguous contig ranges (global order preserved), sizes balanced."""
+    base, rem = divmod(len(contigs), n_shards)
+    out, i = [], 0
+    for s in range(n_shards):
+        k = base + (1 if s < rem else 0)
+        out.append(list(contigs[i:i + k]))
+        i += k
+    return out
+
+
+class _ReducerBase:
+    """The four engine merge points in terms of one allgather primitive.
+
+    Subclasses provide `_allgather(payload) -> List[payload]` (per-shard
+    payloads in shard order), `shard_id`, `n_shards`, and `rank_of`
+    (contig name -> global contig rank).
+    """
+
+    shard_id: int
+    n_shards: int
+    rank_of: Dict[str, int]
+
+    def _allgather(self, payload):
+        raise NotImplementedError
+
+    def noise(self, bm: int, bmm: int) -> Tuple[int, int]:
+        parts = self._allgather(("noise", int(bm), int(bmm)))
+        return (sum(p[1] for p in parts), sum(p[2] for p in parts))
+
+    # distributed exact quantile: O(bins + boundary bucket) traffic instead
+    # of allgathering every shard's full per-read score vector (at WGS
+    # scale that is GBs per BAM through the collective)
+    _AS_SMALL = 8192      # below this total count, one full gather is fine
+    _AS_BINS = 4096
+
+    def as_percentile(self, scores, q: float) -> Optional[float]:
+        """Exact distributed percentile, BIT-IDENTICAL to
+        np.percentile(concat(all shards' scores), q) (linear method):
+
+          1. allgather (count, min, max);
+          2. allgather fixed-edge histograms; locate the bucket(s) holding
+             the two order statistics numpy's linear interpolation reads;
+          3. allgather only those buckets' values and reproduce numpy's
+             lerp arithmetic (including its t >= 0.5 reformulation) on the
+             exact order statistics.
+
+        The reference concatenates all mapper outputs in the parent and
+        takes numpy.percentile (reference phaser/phaser.py:540-553);
+        every shard returns the same float here."""
+        v = np.asarray(scores, np.float64)
+        stats = self._allgather((
+            "as_stats", int(v.size),
+            float(v.min()) if v.size else np.inf,
+            float(v.max()) if v.size else -np.inf))
+        n = sum(p[1] for p in stats)
+        if n == 0:
+            return None
+        gmin = min(p[2] for p in stats)
+        gmax = max(p[3] for p in stats)
+        if n <= self._AS_SMALL:
+            parts = self._allgather(("as_all", v))
+            allv = np.concatenate([p[1] for p in parts])
+            return float(np.percentile(allv, q))
+        # numpy's virtual index for the default 'linear' method, replicated
+        # expression-for-expression ((n - 1) * q — NOT the algebraically
+        # equal _compute_virtual_index form, which rounds differently)
+        qf = np.true_divide(q, 100)
+        pos = (n - 1) * qf
+        if pos >= n - 1:
+            k0 = k1 = n - 1
+            gamma = 0.0
+        elif pos < 0:
+            k0 = k1 = 0
+            gamma = 0.0
+        else:
+            k0 = int(np.floor(pos))
+            k1 = k0 + 1
+            gamma = pos - np.floor(pos)
+        if gmin == gmax:
+            # degenerate span: every value is identical — all shards agree
+            # on (n, gmin, gmax), so every shard takes this branch together
+            return float(gmin)
+        B = self._AS_BINS
+        edges = np.linspace(gmin, gmax, B + 1)
+        if v.size:
+            idx = np.clip(np.searchsorted(edges, v, side="right") - 1,
+                          0, B - 1)
+            hist = np.bincount(idx, minlength=B)
+        else:
+            idx = np.zeros(0, np.int64)
+            hist = np.zeros(B, np.int64)
+        parts = self._allgather(("as_hist", hist.astype(np.int64)))
+        total = np.sum([p[1] for p in parts], axis=0)
+        cum = np.cumsum(total)
+        b0 = int(np.searchsorted(cum, k0, side="right"))
+        b1 = int(np.searchsorted(cum, k1, side="right"))
+        below = int(cum[b0 - 1]) if b0 > 0 else 0
+        mine = v[(idx >= b0) & (idx <= b1)] if v.size else v
+        parts = self._allgather(("as_vals", mine))
+        pool = np.sort(np.concatenate([p[1] for p in parts]))
+        a = pool[k0 - below]
+        b = pool[k1 - below]
+        # numpy _lerp: a + (b-a)*t, recomputed as b - (b-a)*(1-t) when
+        # t >= 0.5 — replicated so the result is bit-identical
+        diff = b - a
+        if gamma >= 0.5:
+            r = b - diff * (1.0 - gamma)
+        else:
+            r = a + diff * gamma
+        return float(r)
+
+    def row_offsets(self, entries) -> List[int]:
+        """entries: [(bam_i, contig, entry_i, n_rows)] in this shard's scan
+        order. Returns the global row-sequence start offset per entry —
+        identical to the offsets the single-process bam-major scan
+        (engine.pipeline) would have assigned."""
+        local = [(b, self.rank_of[c], e, int(n)) for b, c, e, n in entries]
+        parts = self._allgather(("rows", local))
+        tagged = []
+        for sid, p in enumerate(parts):
+            for k, (b, r, e, n) in enumerate(p[1]):
+                tagged.append(((b, r, e), sid, k, n))
+        tagged.sort(key=lambda t: t[0])
+        seq = 0
+        mine: Dict[int, int] = {}
+        for _, sid, k, n in tagged:
+            if sid == self.shard_id:
+                mine[k] = seq
+            seq += n
+        return [mine[k] for k in range(len(entries))]
+
+    def exchange_rows(self, outgoing, owned) -> list:
+        """Position-sharded runs: move mapper-row bundles of
+        decoded-but-not-owned contigs to their owner shard.
+
+        outgoing: [(contig, bam_i, range_rank, bundle)] produced by this
+        shard for contigs it does not own; returns the same-shaped list of
+        every shard's entries whose contig is in `owned` (shard-order
+        iteration keeps duplicates impossible: each (contig, bam, rank)
+        is produced by exactly one decoder).  Implemented over the one
+        allgather primitive; at 2-8 shards the all-to-all overhead over a
+        true point-to-point is a small constant factor on row bundles
+        (hits are ~1-2% of read bytes)."""
+        parts = self._allgather(("rows_x", outgoing))
+        mine = []
+        for p in parts:
+            for t in p[1]:
+                if t[0] in owned:
+                    mine.append(t)
+        return mine
+
+    def block_base(self, n_blocks: int) -> int:
+        parts = self._allgather(("blocks", int(n_blocks)))
+        return sum(p[1] for p in parts[: self.shard_id])
+
+    def exchange_blocks(self, outgoing) -> list:
+        """outgoing: [(block_index, delegate_sid, bundle)] produced by
+        this shard (the owner of those blocks). Returns [(block_index,
+        bundle)] assigned to THIS shard, sorted by block index — the
+        ownership-balanced #6 path (dist.block_exchange)."""
+        parts = self._allgather(("blocks_x6", outgoing))
+        mine = [(bi, bundle) for p in parts for (bi, d, bundle) in p[1]
+                if d == self.shard_id]
+        mine.sort(key=lambda t: t[0])
+        return mine
+
+    def exchange_state(self, piece: dict) -> list:
+        """Allgather the per-shard OutputState pieces so every shard can
+        format VCF body rows for its decode ranges (ownership-balanced #7;
+        pickle preserves the shared variants-list identities the writer's
+        per-block cache keys on)."""
+        parts = self._allgather(("state", piece))
+        return [p[1] for p in parts]
+
+    def barrier(self) -> None:
+        self._allgather(("barrier",))
+
+
+class _ThreadGroup:
+    """Shared state for in-process shard threads: one reusable allgather
+    slot guarded by a double barrier (write-all, read-all)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.barrier = threading.Barrier(n)
+        self.data: List = [None] * n
+
+    def allgather(self, shard_id: int, payload):
+        self.data[shard_id] = payload
+        self.barrier.wait()
+        out = list(self.data)
+        self.barrier.wait()   # everyone has read before the slot is reused
+        return out
+
+    def abort(self) -> None:
+        self.barrier.abort()
+
+
+class ThreadReducer(_ReducerBase):
+    def __init__(self, group: _ThreadGroup, shard_id: int,
+                 rank_of: Dict[str, int]):
+        self.group = group
+        self.shard_id = shard_id
+        self.n_shards = group.n
+        self.rank_of = rank_of
+
+    def _allgather(self, payload):
+        return self.group.allgather(self.shard_id, payload)
+
+
+class RecordingReducer(_ReducerBase):
+    """Wrap a reducer and journal every collective payload this shard
+    sends.  A shard whose engine run completes dumps the journal next to
+    its outputs (`<o>.shardK.ckpt`); a later resume REPLAYS the journal —
+    re-emitting bit-identical collective contributions so re-running
+    peers see exactly the values of the original run — instead of
+    recomputing the shard (shard-failure recovery)."""
+
+    def __init__(self, base: _ReducerBase):
+        self.base = base
+        self.shard_id = base.shard_id
+        self.n_shards = base.n_shards
+        self.rank_of = base.rank_of
+        self.payloads: List = []
+
+    def _allgather(self, payload):
+        self.payloads.append(payload)
+        return self.base._allgather(payload)
+
+    def dump(self, path: str, res: PhaserResult) -> None:
+        tmp = "%s.tmp.%d" % (path, os.getpid())
+        with open(tmp, "wb") as fh:
+            pickle.dump({"payloads": self.payloads,
+                         "result": dataclasses.asdict(res)}, fh)
+        os.replace(tmp, path)
 
 
 def replay_journal(base: _ReducerBase, path: str) -> PhaserResult:
@@ -63,6 +307,137 @@ def replay_journal(base: _ReducerBase, path: str) -> PhaserResult:
     d = dict(data["result"])
     d["shard_device"] = [tuple(x) for x in d.get("shard_device", [])]
     return PhaserResult(**d)
+
+
+def _shard_outputs_complete(prefix: str, opts: PhaserOptions,
+                            delegated: bool = False) -> bool:
+    need = ["haplotypes.txt", "haplotypic_counts.txt",
+            "variant_connections.txt", "allele_config.txt",
+            "singletons.haplotypes.part",
+            "singletons.haplotypic_counts.part", "allelic_counts.part"]
+    if delegated:
+        # position-sharded multi-shard runs emit block rows as keyed parts
+        need += ["blocks.haplotypes.part", "blocks.haplotypic_counts.part",
+                 "blocks.allele_config.part"]
+    ok = all(os.path.isfile(prefix + "." + s) for s in need)
+    if ok and opts.write_vcf == 1:
+        # position-sharded runs write body-only pieces; contig-sharded
+        # runs write whole per-shard VCFs
+        ok = os.path.isfile(prefix + ".vcfbody.gz") or \
+            os.path.isfile(prefix + ".vcf.gz")
+    return ok
+
+
+def _keyed_iter(path: str):
+    with open(path) as f:
+        for ln in f:
+            k, rest = ln.split("\t", 1)
+            yield int(k), rest
+
+
+def _merge_keyed(paths: List[str], out) -> None:
+    """k-way merge of per-shard key-sorted '.part' files; stable for equal
+    keys (multi-bam rows of one singleton share a first_seen key)."""
+    streams = [_keyed_iter(p) for p in paths if os.path.isfile(p)]
+    for _, line in heapq.merge(*streams, key=lambda t: t[0]):
+        out.write(line)
+
+
+def _concat_with_header(paths: List[str], out_path: str) -> None:
+    import shutil
+    with open(out_path, "w") as out:
+        wrote_header = False
+        for p in paths:
+            if not os.path.isfile(p):
+                continue
+            with open(p) as fh:
+                first = fh.readline()
+                if first and not wrote_header:
+                    out.write(first)
+                    wrote_header = True
+                shutil.copyfileobj(fh, out)
+
+
+def merge_shard_outputs(o: str, n_shards: int, opts: PhaserOptions,
+                        cleanup: bool = True) -> None:
+    """Assemble per-shard outputs into the final files, matching the
+    single-process run byte-for-byte (section order per
+    engine.output_stage: block rows in global contig order, then singleton
+    rows in global first_seen order)."""
+    from ..io import bgzf, tabix
+
+    pre = [o + ".shard%d" % s for s in range(n_shards)]
+
+    # block sections: either whole per-shard sections concatenate
+    # (contig-sharded runs) or delegated keyed `.blocks.*.part` rows merge
+    # back into global block order (position-sharded ownership-balanced
+    # #6); singleton sections always merge by first_seen key
+    for sfx, blk_sfx, part_sfx in (
+            ("haplotypes.txt", "blocks.haplotypes.part",
+             "singletons.haplotypes.part"),
+            ("haplotypic_counts.txt", "blocks.haplotypic_counts.part",
+             "singletons.haplotypic_counts.part")):
+        _concat_with_header([p + "." + sfx for p in pre], o + "." + sfx)
+        with open(o + "." + sfx, "a") as out:
+            _merge_keyed([p + "." + blk_sfx for p in pre], out)
+            _merge_keyed([p + "." + part_sfx for p in pre], out)
+
+    _concat_with_header([p + ".variant_connections.txt" for p in pre],
+                        o + ".variant_connections.txt")
+    _concat_with_header([p + ".allele_config.txt" for p in pre],
+                        o + ".allele_config.txt")
+    with open(o + ".allele_config.txt", "a") as out:
+        _merge_keyed([p + ".blocks.allele_config.part" for p in pre], out)
+
+    with open(o + ".allelic_counts.txt", "w") as out:
+        out.write(ALLELIC_COUNTS_HEADER)
+        _merge_keyed([p + ".allelic_counts.part" for p in pre], out)
+
+    # --output_network targets one variant: at most one shard produced them
+    for sfx in ("network.links.txt", "network.nodes.txt"):
+        for p in pre:
+            if os.path.isfile(p + "." + sfx):
+                os.replace(p + "." + sfx, o + "." + sfx)
+                break
+
+    if opts.write_vcf == 1:
+        gz = o + ".vcf.gz"
+        hdr = pre[0] + ".vcfhdr.gz"
+        if os.path.isfile(hdr):
+            # ownership-balanced parts: header (shard 0) + body pieces in
+            # shard order (shards hold contiguous global position spans,
+            # so plain concatenation reproduces the single-process bytes)
+            with bgzf.BgzfWriter(gz) as w:
+                _stream_vcf_body(hdr, w, include_header=True)
+                for p in pre:
+                    path = p + ".vcfbody.gz"
+                    if os.path.isfile(path):
+                        _stream_vcf_body(path, w, include_header=False)
+        else:
+            with bgzf.BgzfWriter(gz) as w:
+                emitted = False
+                for p in pre:
+                    path = p + ".vcf.gz"
+                    if not os.path.isfile(path):
+                        continue
+                    _stream_vcf_body(path, w, include_header=not emitted)
+                    emitted = True
+        tabix.build_vcf_index(gz)
+
+    if cleanup:
+        for p in pre:
+            for sfx in ("haplotypes.txt", "haplotypic_counts.txt",
+                        "variant_connections.txt", "allele_config.txt",
+                        "singletons.haplotypes.part",
+                        "singletons.haplotypic_counts.part",
+                        "allelic_counts.part", "vcf.gz", "vcf.gz.tbi",
+                        "vcf.gz.csi", "vcfbody.gz", "vcfhdr.gz", "ckpt",
+                        "blocks.haplotypes.part",
+                        "blocks.haplotypic_counts.part",
+                        "blocks.allele_config.part"):
+                path = p + "." + sfx
+                if os.path.isfile(path):
+                    os.remove(path)
 
 
 def _merge_results(per_shard: List[PhaserResult]) -> PhaserResult:
@@ -85,6 +460,11 @@ def _merge_results(per_shard: List[PhaserResult]) -> PhaserResult:
     total.device_s = sum(r.device_s for r in per_shard)
     total.wall_s = max((r.wall_s for r in per_shard), default=0.0)
     return total
+
+
+def _shard_chrom(assign: List[List[str]], sid: int) -> str:
+    my = assign[sid] if sid < len(assign) else []
+    return ",".join(my) if my else EMPTY_SHARD
 
 
 def _warm_up(device) -> None:
@@ -137,7 +517,7 @@ def run_phaser_sharded_threads(*, n_shards: int, vcf: str, bam: str,
                                sample: str, o: str, mapq: str, baseq: int,
                                paired_end: str, chrom: str = "",
                                opts: Optional[PhaserOptions] = None,
-                               device: str = "host",
+                               device: str = "cuda",
                                position_shards: bool = False, log=print,
                                **kw) -> PhaserResult:
     """In-process sharded run: n_shards engine threads + ThreadReducer
@@ -156,7 +536,7 @@ def run_phaser_sharded_threads(*, n_shards: int, vcf: str, bam: str,
     if position_shards:
         # weight-balanced (contig, position-range) shards: n_shards may
         # exceed n_contigs, skewed contigs split at window granularity
-        from phaser_tpu.dist.shard_plan import plan_shards
+        from .shard_plan import plan_shards
         n_shards = max(1, n_shards)
         plans = plan_shards(bam, contigs, n_shards)
     else:
@@ -210,7 +590,7 @@ def run_phaser_multihost(*, vcf: str, bam: str, sample: str, o: str,
                          coordinator: str = "localhost:9711",
                          chrom: str = "",
                          opts: Optional[PhaserOptions] = None,
-                         device: str = "host",
+                         device: str = "cuda",
                          position_shards: bool = False,
                          resume: bool = False,
                          timeout_s: float = DEFAULT_TIMEOUT_S, log=print,
@@ -229,11 +609,9 @@ def run_phaser_multihost(*, vcf: str, bam: str, sample: str, o: str,
     recomputed."""
     import torch.distributed as dist
 
-    if device not in ("host", "off"):
-        # fail before joining the group when the card is asked for and
-        # absent
-        from ..mapper.dispatch import resolve_device
-        resolve_device(device)
+    # fail before joining the group when the card is asked for and absent
+    from ..mapper.dispatch import require_device
+    require_device(device)
     if num_processes > 1:
         dist.init_process_group(
             "gloo", init_method="tcp://" + coordinator, rank=process_id,
@@ -243,7 +621,7 @@ def run_phaser_multihost(*, vcf: str, bam: str, sample: str, o: str,
         contigs = chrom.split(",") if chrom else list_contigs(vcf)
         plans = None
         if position_shards:
-            from phaser_tpu.dist.shard_plan import plan_shards
+            from .shard_plan import plan_shards
             plans = plan_shards(bam, contigs, num_processes)
         assign = split_contigs(contigs, min(num_processes, len(contigs)))
         rank_of = {c: i for i, c in enumerate(contigs)}
@@ -252,7 +630,7 @@ def run_phaser_multihost(*, vcf: str, bam: str, sample: str, o: str,
         red.barrier()
         prefix = o + ".shard%d" % process_id
         jpath = prefix + ".ckpt"
-        from phaser_tpu.dist.block_exchange import balance_blocks_enabled
+        from .block_exchange import balance_blocks_enabled
         delegated = plans is not None and num_processes > 1 \
             and balance_blocks_enabled()
         if resume and os.path.isfile(jpath) and \
@@ -302,11 +680,12 @@ def _wait_all(procs) -> List[int]:
 
 def run_phaser_multiproc(n_procs: int, *, vcf: str, bam: str, sample: str,
                          o: str, mapq: str, baseq: int, paired_end: str,
-                         opts: PhaserOptions, device: str = "host",
+                         opts: PhaserOptions, device: str = "cuda",
                          resume: bool = False,
                          timeout_s: float = DEFAULT_TIMEOUT_S, log=print,
                          **kw) -> PhaserResult:
-    """The CLI's --threads N --device host: spawn n_procs position-sharded
+    """The CLI's --threads N --device host (the library default is the
+    card, like every entry point): spawn n_procs position-sharded
     engine processes (the fork-free equivalent of the reference's
     `--threads` pool, phaser.py:2077-2094) and merge on rank 0, outputs
     byte-identical to a single-process run (phaser_tpu
@@ -322,7 +701,7 @@ def run_phaser_multiproc(n_procs: int, *, vcf: str, bam: str, sample: str,
 
     # build any missing BAM index, and the kernels for --device cuda, ONCE
     # before spawning: the workers would otherwise race to the same builds
-    from phaser_tpu.io.bam_index import ensure_bai
+    from ..io.bam_index import ensure_bai
     for b in bam.split(","):
         if b:
             ensure_bai(b)
@@ -431,7 +810,7 @@ def _mp_main(argv=None) -> int:
     ap.add_argument("--timeout", type=float, default=DEFAULT_TIMEOUT_S,
                     help="seconds a collective may wait for a peer")
     ap.add_argument("--chr", default="")
-    ap.add_argument("--device", default="host",
+    ap.add_argument("--device", default="cuda",
                     choices=("cuda", "cpu", "host"),
                     help="cuda drives this process's GPU (processes may "
                          "share one) through mapper.dispatch, exactly like "

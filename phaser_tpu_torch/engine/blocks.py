@@ -3,7 +3,7 @@
 `find_blocks` and `_device_blocks` are copies whose device path is this
 package's torch label propagation (kernels.components) on a CUDA or CPU
 device: at or above the edge gate the components come from the device, or
-the call raises.  `_host_blocks` is imported unchanged.
+the call raises.  `_host_blocks` is an unchanged copy.
 """
 
 from __future__ import annotations
@@ -12,10 +12,8 @@ from typing import Dict, List, Set
 
 import numpy as np
 
-from phaser_tpu.engine.blocks import _host_blocks
-from phaser_tpu.engine.connections import ContigConnections
-
 from ..utils.counters import bump
+from .connections import ContigConnections
 
 # device label propagation pays off only on big graphs
 # (phaser_tpu engine/blocks.py:20)
@@ -25,18 +23,20 @@ COUNTS = {"device_calls": 0}
 
 
 def find_blocks(conn: ContigConnections, vt,
-                device: str = "host") -> List[List[int]]:
+                device: str = "cuda") -> List[List[int]]:
     """Blocks as lists of table indices (phaser_tpu engine/blocks.py:23-51).
 
     Order: by first overlap-key rank among members (reference seed order).
     Within a block: (int(pos), table index)."""
+    from ..mapper.dispatch import require_device
+    require_device(device)
     adj = conn.adj
     if not adj:
         return []
 
     n_edges = sum(len(nbrs) for nbrs in adj.values())  # 2x undirected count
     if device not in ("host", "off") and n_edges >= _DEVICE_EDGE_GATE:
-        from phaser_tpu.utils.trace import device_section
+        from ..utils.trace import device_section
         with device_section():
             blocks = _device_blocks(adj, device)
     else:
@@ -49,6 +49,27 @@ def find_blocks(conn: ContigConnections, vt,
         mem = sorted(mem, key=lambda v: (int(vt.pos[v]), v))
         out.append(mem)
     return out
+
+
+def _host_blocks(adj: Dict[int, Set[int]]) -> List[List[int]]:
+    parent: Dict[int, int] = {v: v for v in adj}
+
+    def find(x: int) -> int:
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for a, nbrs in adj.items():
+        for b in nbrs:
+            ra, rb = find(a), find(b)
+            if ra != rb:
+                parent[ra] = rb
+
+    comps: Dict[int, List[int]] = {}
+    for v in adj:
+        comps.setdefault(find(v), []).append(v)
+    return list(comps.values())
 
 
 def _device_blocks(adj: Dict[int, Set[int]], device) -> List[List[int]]:

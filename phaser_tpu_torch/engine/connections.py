@@ -5,21 +5,19 @@ is this package's torch pair counting (kernels.paircount) on a CUDA or CPU
 device.  On a non-host device at or above the pair gate the counts come
 from the device, or the call raises; nothing retreats to the host except the
 reads with more hits than the K cap, as in phaser_tpu.  The helpers and
-`ContigConnections` are imported unchanged.
+`ContigConnections` are unchanged copies.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Set, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 from scipy.stats import binom
 
-from phaser_tpu.engine.connections import (ContigConnections, _pair_combos,
-                                           compute_overlap_ranks)
-from phaser_tpu.engine.hits import VariantReads
-
 from ..utils.counters import bump
+from .hits import VariantReads
 
 # device pair counting pays off only for large pair universes
 # (phaser_tpu engine/connections.py:200)
@@ -29,6 +27,101 @@ DEVICE_PAIR_GATE = 200_000
 MAX_K = 24
 # device calls, and reads sent to the host combos for exceeding K
 COUNTS = {"device_calls": 0, "host_reads": 0}
+
+
+@dataclass
+class ContigConnections:
+    """All tested pairs for one contig, canonically ordered."""
+
+    # per pair, oriented (a, b) = (earlier, later) overlap-key rank:
+    var_a: np.ndarray
+    var_b: np.ndarray
+    c_supporting: np.ndarray       # int64
+    c_total: np.ndarray
+    p_value: np.ndarray            # float64 conflicting_config_p
+    p_display: List = None         # int 0/1 or float, reference typing
+    phase_concordant: List = None  # 1, 0, or "."
+    chosen_config: np.ndarray = None  # int8: 0, 1, -1
+    pruned: np.ndarray = None      # bool (p < cc_threshold)
+    var_rank: np.ndarray = None    # overlap-key rank per variant (-1 = no key)
+    # post-prune adjacency (variant -> set of neighbors), insertion order
+    # irrelevant (consumers use ranks):
+    adj: Dict[int, Set[int]] = field(default_factory=dict)
+    # allele edges: (v, a) -> set of (w, b); keys exist (possibly empty) for
+    # every endpoint of every surviving pair:
+    allele_conn: Dict[Tuple[int, int], Set[Tuple[int, int]]] = field(default_factory=dict)
+
+    @property
+    def n_pairs(self) -> int:
+        return len(self.var_a)
+
+
+def _pair_combos(uid: np.ndarray, var: np.ndarray, allele: Optional[np.ndarray]):
+    """Enumerate within-read pairs. Input sorted by uid. Returns
+    (vi, vj, ai, aj) with vi<vj (table order), one tuple per (read, hit-pair).
+    With allele=None returns only (vi, vj)."""
+    if len(uid) == 0:
+        z = np.zeros(0, np.int64)
+        return (z, z, z, z) if allele is not None else (z, z)
+    starts = np.flatnonzero(np.concatenate(([True], uid[1:] != uid[:-1])))
+    counts = np.diff(np.concatenate((starts, [len(uid)])))
+    vi_l, vj_l, ai_l, aj_l = [], [], [], []
+    for k in np.unique(counts):
+        if k < 2:
+            continue
+        sel = starts[counts == k]
+        # index templates for combinations(k, 2)
+        ii, jj = np.triu_indices(k, 1)
+        base = sel[:, None]
+        I = (base + ii[None, :]).ravel()
+        J = (base + jj[None, :]).ravel()
+        v1, v2 = var[I], var[J]
+        if allele is not None:
+            a1, a2 = allele[I], allele[J]
+        swap = v1 > v2
+        lo = np.where(swap, v2, v1)
+        hi = np.where(swap, v1, v2)
+        keep = lo != hi
+        vi_l.append(lo[keep])
+        vj_l.append(hi[keep])
+        if allele is not None:
+            al = np.where(swap, a2, a1)
+            ah = np.where(swap, a1, a2)
+            ai_l.append(al[keep])
+            aj_l.append(ah[keep])
+    if not vi_l:
+        z = np.zeros(0, np.int64)
+        return (z, z, z, z) if allele is not None else (z, z)
+    vi = np.concatenate(vi_l)
+    vj = np.concatenate(vj_l)
+    if allele is None:
+        return vi, vj
+    return vi, vj, np.concatenate(ai_l), np.concatenate(aj_l)
+
+
+def compute_overlap_ranks(vr: VariantReads) -> np.ndarray:
+    """dict_variant_overlap key order: first appearance of a variant in a
+    multi-distinct-variant read, over reads in read_vars key order."""
+    n = len(vr.vt)
+    rank = np.full(n, -1, np.int64)
+    uid, var = vr.rv_uid, vr.rv_var
+    if len(uid) == 0:
+        return rank
+    # distinct var count per read
+    order = np.lexsort((var, uid))
+    u_s, v_s = uid[order], var[order]
+    new_pair = np.concatenate(([True], (u_s[1:] != u_s[:-1]) | (v_s[1:] != v_s[:-1])))
+    distinct = np.zeros(int(uid.max()) + 1, np.int64)
+    np.add.at(distinct, u_s[new_pair], 1)
+    multi = distinct[uid] >= 2
+    mv = var[multi]
+    # rv rows are already in (read_rank, file order); first occurrence wins
+    seen_first = np.full(n, np.iinfo(np.int64).max, np.int64)
+    np.minimum.at(seen_first, mv, np.arange(len(mv), dtype=np.int64))
+    keyed = np.flatnonzero(seen_first < np.iinfo(np.int64).max)
+    order2 = np.argsort(seen_first[keyed], kind="stable")
+    rank[keyed[order2]] = np.arange(len(keyed))
+    return rank
 
 
 def _device_pair_counts(vr: VariantReads, uniq_pk: np.ndarray, n_vars: int,
@@ -85,10 +178,12 @@ def _device_pair_counts(vr: VariantReads, uniq_pk: np.ndarray, n_vars: int,
 
 def build_connections(vr: VariantReads, noise_e: float,
                       cc_threshold: float,
-                      device: str = "host") -> ContigConnections:
+                      device: str = "cuda") -> ContigConnections:
     """phaser_tpu engine/connections.py:175-308.  `device` "host" counts
     pairs on the host; "cpu" or "cuda" count them with torch on that device
     when the contig has at least DEVICE_PAIR_GATE pairs."""
+    from ..mapper.dispatch import require_device
+    require_device(device)
     vt = vr.vt
     var_rank = compute_overlap_ranks(vr)
 
@@ -107,7 +202,7 @@ def build_connections(vr: VariantReads, noise_e: float,
 
     # ---- counts over deduplicated hits (all allele classes)
     if P >= DEVICE_PAIR_GATE and device not in ("host", "off"):
-        from phaser_tpu.utils.trace import device_section
+        from ..utils.trace import device_section
         with device_section():
             counts = _device_pair_counts(vr, uniq_pk, len(vt), device)
     else:

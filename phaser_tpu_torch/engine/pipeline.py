@@ -29,19 +29,19 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from phaser_tpu.io import bam as bamio
-from phaser_tpu.io import vcf as vcfio
-from phaser_tpu.io.bed import IntervalSet
+from ..io import bam as bamio
+from ..io import vcf as vcfio
+from ..io.bed import IntervalSet
 from .blocks import find_blocks
 from .connections import build_connections
-from phaser_tpu.engine.hits import build_contig_rows, build_variant_reads, noise_terms
-from phaser_tpu.engine.output_stage import (BlockOutputWriter, PhaserOptions,
+from .hits import build_contig_rows, build_variant_reads, noise_terms
+from .output_stage import (BlockOutputWriter, PhaserOptions,
                            write_allelic_counts, write_variant_connections)
 from .phasing import phase_v3
-from phaser_tpu.engine.varmap import build_variant_table
+from .varmap import build_variant_table
 from ..mapper.dispatch import assign_alleles_auto
-from phaser_tpu.utils.trace import Tracer
-from phaser_tpu.engine.vcf_writer import write_phased_vcf
+from ..utils.trace import Tracer
+from .vcf_writer import write_phased_vcf
 
 
 class NoHetSites(RuntimeError):
@@ -85,7 +85,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
                baseq: int, paired_end: str, isize: str = "0",
                blacklist: str = "", haplo_count_blacklist: str = "",
                haplo_count_bam_exclude: str = "", chrom: str = "",
-               opts: Optional[PhaserOptions] = None, device: str = "host",
+               opts: Optional[PhaserOptions] = None, device: str = "cuda",
                pi_block_value: int = 0, threads: int = 1,
                dist_reduce=None, split_outputs: bool = False,
                shard_plan=None, log=print) -> PhaserResult:
@@ -131,11 +131,10 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
 
     # tune the allocator + pre-fault the working set (lazily-backed VMs
     # serve first-touch faults remotely; see utils/memtune)
-    if device not in ("host", "off"):
-        # fail before any work when the GPU is asked for and absent
-        from ..mapper.dispatch import resolve_device
-        resolve_device(device)
-    from phaser_tpu.utils import memtune
+    # fail before any work when the GPU is asked for and absent
+    from ..mapper.dispatch import require_device
+    require_device(device)
+    from ..utils import memtune
     bam_bytes = 0
     for x in bam.split(","):
         if x and os.path.isfile(x):
@@ -297,7 +296,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
             (contig, range) spans are inflated, via the BAI linear index
             (io.bam_index.read_bam_starts); reads classify against the
             FULL contig table so boundary-spanning reads lose nothing."""
-            from phaser_tpu.io.bam_index import (BaiIndex, ensure_bai,
+            from ..io.bam_index import (BaiIndex, ensure_bai,
                                         read_bam_header_meta, read_bam_starts)
             meta = read_bam_header_meta(xbam)
             ref_names = meta[0]
@@ -364,15 +363,15 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
             skip_mode = os.environ.get("PHASER_TPU_INDEX_SKIP", "auto")
             skip_ranges = None
             skip_meta = None
-            from phaser_tpu.io import native as _native_mod
+            from ..io import native as _native_mod
             # without the native inflater, read_bam_voffset_ranges falls
             # back to a full pure-Python decode — the slowest path; use the
             # normal streaming decode (and log no "skip" line) instead
-            from phaser_tpu.io.bam_index import find_bam_index
+            from ..io.bam_index import find_bam_index
             if skip_mode != "0" and find_bam_index(xbam) is not None and \
                     _native_mod.get_lib() is not None:
                 try:
-                    from phaser_tpu.io.bam_index import (
+                    from ..io.bam_index import (
                         BaiIndex, merge_voffset_ranges, plan_site_ranges,
                         ranges_compressed_bytes, read_bam_header_meta)
                     skip_meta = read_bam_header_meta(xbam)
@@ -401,19 +400,19 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
                     log("          index decode skip unavailable (%s)" % e)
                     skip_ranges = None
             if skip_ranges is not None:
-                from phaser_tpu.io.bam_index import read_bam_voffset_ranges
+                from ..io.bam_index import read_bam_voffset_ranges
                 with tracer.stage("#2 bam decode", "reads"):
                     bd = read_bam_voffset_ranges(xbam, skip_ranges,
                                                  header_meta=skip_meta)
                 tracer.add("#2 bam decode", len(bd), "reads")
                 _process_chunk(bam_i, bd, mq, isz, excl_flag, req_flag)
             else:
-                from phaser_tpu.utils.memtune import bgzf_uncompressed_size
+                from ..utils.memtune import bgzf_uncompressed_size
                 usize = bgzf_uncompressed_size(xbam)
                 if usize > stream_threshold:
                     log("          streaming decode (%.1f GB uncompressed)"
                         % (usize / 1e9))
-                    from phaser_tpu.utils.prefetch import iter_prefetch
+                    from ..utils.prefetch import iter_prefetch
                     for bd in iter_prefetch(bamio.iter_bam_stream(xbam),
                                             depth=2):
                         tracer.add("#2 bam decode", len(bd), "reads")
@@ -478,7 +477,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
         # into global (bam, range_rank) order — identical to the
         # single-process (bam, position) scan order
         if shard_plan is not None:
-            from phaser_tpu.engine.row_exchange import bundle_entry, unbundle_entry
+            from .row_exchange import bundle_entry, unbundle_entry
             owned = set(own_order)
             outgoing = []
             for c in decode_order:
@@ -621,7 +620,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
         log("#6. Outputting haplotypes...")
         tracer_stage_out = tracer.stage("#6 outputs", "blocks")
         tracer_stage_out.__enter__()
-        from phaser_tpu.dist.block_exchange import balance_blocks_enabled
+        from ..dist.block_exchange import balance_blocks_enabled
         delegate6 = (shard_plan is not None and dist_reduce is not None
                      and dist_reduce.n_shards > 1
                      and balance_blocks_enabled())
@@ -641,7 +640,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
             # global index across shards through one collective; rows land
             # in keyed parts the merge interleaves back into global block
             # order (round-4 verdict #3; dist.block_exchange)
-            from phaser_tpu.dist.block_exchange import (bundle_block, delegate_of,
+            from ..dist.block_exchange import (bundle_block, delegate_of,
                                                unbundle_block)
             first_bi = pi_block_value + base
             n_sh = dist_reduce.n_shards
@@ -693,7 +692,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
                          "ind_alleles": st.ind_alleles}
                 with tracer.stage("#7 state exchange", "entries"):
                     parts = dist_reduce.exchange_state(piece)
-                from phaser_tpu.engine.output_stage import OutputState
+                from .output_stage import OutputState
                 merged = OutputState()
                 for pc in parts:
                     merged.haplotype_lookup.update(pc["haplotype_lookup"])

@@ -2,7 +2,7 @@
 phaser_tpu/engine/slow_mode.py's `run_phaser_slow` (per-contig engine
 runs, globally unique block indices, streamed merges of the per-contig
 outputs; reference phaser.py:264-372).  The contig listing and the merge
-helpers are JAX-free and imported.
+helpers are unchanged copies.
 
 It differs from phaser_tpu's in one place: a contig is skipped only when it
 has nothing to phase (`NoHetSites`, `NoReadsMatched`).  phaser_tpu skips a
@@ -17,19 +17,102 @@ import os
 import shutil
 from typing import List, Optional
 
-from phaser_tpu.engine.output_stage import PhaserOptions
-from phaser_tpu.engine.slow_mode import (OPTIONAL_TEXT_SUFFIXES,
-                                         TEXT_SUFFIXES, _existing_block_count,
-                                         _stream_vcf_body, list_contigs)
-from phaser_tpu.io import bgzf, tabix
-
+from ..io import bgzf, tabix
+from .output_stage import PhaserOptions
 from .pipeline import NoHetSites, NoReadsMatched, PhaserResult, run_phaser
+
+TEXT_SUFFIXES = ["variant_connections.txt", "allelic_counts.txt",
+                 "haplotypes.txt", "haplotypic_counts.txt",
+                 "allele_config.txt"]
+
+
+# merged when present (--output_network)
+OPTIONAL_TEXT_SUFFIXES = ["network.links.txt", "network.nodes.txt"]
+
+
+def list_contigs(vcf_path: str) -> List[str]:
+    """Distinct body contigs in appearance order (`tabix -l` equivalent)."""
+    seen: List[str] = []
+    data = bgzf.read_text_auto(vcf_path).decode()
+    for line in data.splitlines():
+        if line.startswith("#") or not line:
+            continue
+        c = line.split("\t", 1)[0]
+        if c not in seen:
+            seen.append(c)
+    return seen
+
+
+def _existing_block_count(prefix: str) -> int:
+    """Blocks already written by a finished per-contig run (gw_confidence
+    != 'nan' rows of its haplotypes file) — lets --resume keep PI unique."""
+    path = prefix + ".haplotypes.txt"
+    n = 0
+    with open(path) as fh:
+        next(fh, None)
+        for line in fh:
+            cols = line.rstrip("\n").split("\t")
+            if len(cols) > 15 and cols[15] != "nan":
+                n += 1
+    return n
+
+
+def _stream_vcf_body(path: str, w: "bgzf.BgzfWriter",
+                     include_header: bool) -> None:
+    """Forward a per-contig bgzipped VCF into `w` block-by-block, dropping
+    its header lines unless include_header. Memory: one block + line carry
+    (header lines always precede the body, so once the body starts whole
+    blocks pass through unscanned)."""
+    import mmap
+    with open(path, "rb") as fh, \
+            mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        off = 0
+        carry = b""
+        in_header = True
+        while off < len(mm):
+            payload, bsize = bgzf.decompress_block(mm, off)
+            off += bsize
+            if not payload:
+                continue
+            if not in_header:
+                w.write(payload)
+                continue
+            data = carry + payload
+            nl = data.rfind(b"\n")
+            if nl < 0:
+                carry = data
+                continue
+            chunk, carry = data[:nl + 1], data[nl + 1:]
+            pos = 0
+            while in_header and pos < len(chunk):
+                end = chunk.find(b"\n", pos) + 1
+                if chunk[pos:pos + 1] == b"#":
+                    if include_header:
+                        w.write(chunk[pos:end])
+                    pos = end
+                else:
+                    in_header = False
+            if pos < len(chunk):
+                w.write(chunk[pos:])
+            if not in_header:
+                # header scan just ended: flush the pending partial line in
+                # place so later blocks can pass through unscanned (the
+                # carry would otherwise be orphaned until EOF, corrupting
+                # one record mid-file on any >1-block VCF)
+                w.write(carry)
+                carry = b""
+        if carry:
+            if carry[:1] == b"#":
+                if include_header:
+                    w.write(carry + b"\n")
+            else:
+                w.write(carry + b"\n")
 
 
 def run_phaser_slow(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
                     baseq: int, paired_end: str, chrom: str = "",
                     opts: Optional[PhaserOptions] = None,
-                    device: str = "host", resume: bool = False,
+                    device: str = "cuda", resume: bool = False,
                     threads: int = 1, log=print, **kw) -> PhaserResult:
     """threads > 1 composes memory-efficient mode with POSITION SHARDS:
     each contig runs through the sharded engine
@@ -39,6 +122,8 @@ def run_phaser_slow(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
     noise/AS scope is per-contig either way (reference composes its memory
     mode with its thread pool, phaser.py:264-321, 2077-2094)."""
     opts = opts or PhaserOptions()
+    from ..mapper.dispatch import require_device
+    require_device(device)
     contigs = chrom.split(",") if chrom else list_contigs(vcf)
     log("    Memory efficient mode is activated... ")
     log("    WARNING: this may produce slightly different results since the "

@@ -9,9 +9,12 @@ hand-written CUDA kernel in csrc/alleles.cu beside a plain PyTorch version:
   assign_compact_delta_nibble   D / split-M reads, nibble plane + int16 delta
   assign_compact_plane          N-spliced reads / delta overflow, refpos plane
 
-Each takes `ws` (per-256-row-block table offsets from a planner) or None for
-a search over the whole table, and returns the packed-hit buffer of
-phaser_tpu's `_pack_hits`: int32 (2, capacity + 1), out[0, 0] = n_hits (exact
+The affine-nibble and plane programs are range joins: they find each row's
+table range themselves (on the card, in the CUDA kernels) and take no window.
+The delta-nibble and masked-affine programs take `ws` (per-256-row-block
+table offsets from a planner) or None for a search over the whole table.
+Each returns the packed-hit buffer of phaser_tpu's `_pack_hits`:
+int32 (2, capacity + 1), out[0, 0] = n_hits (exact
 even past capacity), row 0 = read index within the launch, row 1 =
 (var << 8) | (masked base << 4) | allele.  The CUDA kernels compact with
 atomics, so hit order is free; callers sort.
@@ -26,8 +29,8 @@ resident in shared memory), plus compact_hits.
 A wrapper runs the plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises.
 
-The numpy packers and planners below are copies of phaser_tpu's (that module
-imports jax at load time), without the options no caller here uses.
+The numpy packers and planners below are copies of phaser_tpu's, without the
+options no caller here uses.
 """
 
 from __future__ import annotations
@@ -40,8 +43,6 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from phaser_tpu.mapper.dispatch import _next_pow2
-
 from ..utils.counters import bump
 
 OTHER = 2
@@ -53,6 +54,14 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 LAUNCHES = {"affine_nibble": 0, "delta_nibble": 0, "plane": 0,
             "affine_masked": 0, "planes": 0, "planes_resident": 0,
             "planes_cmp": 0}
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
 
 Table = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -85,7 +94,7 @@ def _reuse_buf(tag: str, n: int, L: int, dtype) -> np.ndarray:
 
 
 def _native_lib():
-    from phaser_tpu.io import native as native_mod
+    from ..io import native as native_mod
     return native_mod.get_lib()
 
 
@@ -113,7 +122,7 @@ def _plane_width(bd) -> int:
 def _pack_reads_numpy(bd, codes, quals, refpos) -> None:
     """Fills the zeroed (N, L) planes from the BamData (phaser_tpu
     kernels/alleles.py:161-169)."""
-    from phaser_tpu.mapper.host import expand_refpos
+    from ..mapper.host import expand_refpos
 
     n = len(bd)
     lens = np.diff(bd.seq_off)
@@ -368,6 +377,16 @@ def device_table(vt, dev_vidx: np.ndarray, device) -> Table:
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
+def _allele_plain(masked: torch.Tensor, k: torch.Tensor,
+                  table: Table) -> torch.Tensor:
+    """Allele class of observed codes `masked` against table entries k:
+    0 / 1 = the individual's allele index, else OTHER."""
+    _, a0, a1, ni = table
+    return torch.where(
+        (masked == a0[k]) & (ni[k] > 0), 0,
+        torch.where((masked == a1[k]) & (ni[k] > 1), 1, OTHER))
+
+
 def _lookup_plain(masked: torch.Tensor, refpos: torch.Tensor,
                   ws: torch.Tensor, win: int, block_rows: int,
                   table: Table) -> Tuple[torch.Tensor, torch.Tensor,
@@ -386,9 +405,7 @@ def _lookup_plain(masked: torch.Tensor, refpos: torch.Tensor,
     w0 = ws.long()[rows // block_rows][:, None]
     hit = ((refpos > 0) & (masked != 15) & (cand >= w0) &
            (cand < torch.clamp(w0 + win, max=mp)) & (vpos[safe] == refpos))
-    allele = torch.where(
-        (masked == a0[safe]) & (ni[safe] > 0), 0,
-        torch.where((masked == a1[safe]) & (ni[safe] > 1), 1, OTHER))
+    allele = _allele_plain(masked, safe, table)
     return hit, safe, allele
 
 
@@ -402,19 +419,25 @@ def _classify_plain(masked: torch.Tensor, refpos: torch.Tensor,
     return hit, word
 
 
-def _pack_plain(hit: torch.Tensor, word: torch.Tensor,
-                capacity: int) -> torch.Tensor:
-    """_pack_hits: hits in row-major order, n_hits exact past capacity."""
-    L = hit.shape[1]
-    flat = torch.nonzero(hit.reshape(-1)).squeeze(1)
-    n = int(flat.numel())
-    out = torch.full((2, capacity + 1), -1, dtype=torch.int32,
-                     device=hit.device)
+def _pack_pairs(rows: torch.Tensor, words: torch.Tensor, capacity: int,
+                device) -> torch.Tensor:
+    """_pack_hits from (row, word) pairs already in row-major order: n_hits
+    exact past capacity."""
+    n = int(rows.numel())
+    out = torch.full((2, capacity + 1), -1, dtype=torch.int32, device=device)
     out[0, 0] = n
     k = min(n, capacity)
-    out[0, 1:1 + k] = (flat[:k] // L).to(torch.int32)
-    out[1, 1:1 + k] = word.reshape(-1)[flat[:k]].to(torch.int32)
+    out[0, 1:1 + k] = rows[:k].to(torch.int32)
+    out[1, 1:1 + k] = words[:k].to(torch.int32)
     return out
+
+
+def _pack_plain(hit: torch.Tensor, word: torch.Tensor,
+                capacity: int) -> torch.Tensor:
+    """_pack_hits of (hit, word) planes: hits in row-major order."""
+    flat = torch.nonzero(hit.reshape(-1)).squeeze(1)
+    return _pack_pairs(flat // hit.shape[1], word.reshape(-1)[flat], capacity,
+                       hit.device)
 
 
 def _unpack_nibbles(ncodes: torch.Tensor) -> torch.Tensor:
@@ -427,27 +450,68 @@ def _base_index(L: int, device) -> torch.Tensor:
     return torch.arange(L, dtype=torch.int32, device=device)[None, :]
 
 
-def _affine_refpos(start, lo, hi, L: int) -> torch.Tensor:
-    """refpos = start + (i - lo) on [lo, hi), else 0."""
-    i = _base_index(L, start.device)
-    lo_ = lo[:, None]
-    aligned = (i >= lo_) & (i < hi[:, None])
-    return torch.where(aligned, start[:, None] + (i - lo_), 0)
+def _ragged(k0: torch.Tensor, k1: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expands per-row index ranges [k0, k1) into (row, k) candidate pairs,
+    rows ascending and k ascending within a row."""
+    cnt = (k1 - k0).clamp_min(0)
+    rows = torch.repeat_interleave(
+        torch.arange(cnt.shape[0], device=cnt.device), cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    k = k0[rows] + (torch.arange(rows.shape[0], device=cnt.device) -
+                    first[rows])
+    return rows, k
 
 
-def affine_nibble_plain(ncodes, start, lo, hi, ws, win: int, block_rows: int,
-                        table: Table, capacity: int) -> torch.Tensor:
-    masked = _unpack_nibbles(ncodes)
-    refpos = _affine_refpos(start, lo, hi, masked.shape[1])
-    hit, word = _classify_plain(masked, refpos, ws, win, block_rows, table)
-    return _pack_plain(hit, word, capacity)
+def _first_of_equal(k: torch.Tensor, k0_of: torch.Tensor,
+                    vpos: torch.Tensor) -> torch.Tensor:
+    """Of table entries at one position only the first is a hit (what a
+    per-base lower-bound search finds)."""
+    return (k == k0_of) | (vpos[k] != vpos[(k - 1).clamp_min(0)])
+
+
+def _classify_entries(k: torch.Tensor, masked: torch.Tensor,
+                      table: Table) -> torch.Tensor:
+    """Packed hit words of candidates: table index k, observed code."""
+    return (k << 8) | (masked.long() << 4) | \
+        _allele_plain(masked, k, table).long()
+
+
+def affine_nibble_plain(ncodes, start, lo, hi, table: Table,
+                        capacity: int) -> torch.Tensor:
+    """The range join of the affine_nibble kernel: row r covers positions
+    [p0, p0 + span), so its candidates are the table entries in that range;
+    the base under entry k is i0 + vpos[k] - p0 and its code is one nibble
+    of one byte."""
+    vpos = table[0]
+    L = 2 * ncodes.shape[1]
+    lo_, hi_ = lo.long(), hi.long()
+    i0 = lo_.clamp_min(0)
+    span = (hi_.clamp_max(L) - i0).clamp_min(0)
+    p0 = start.long() + (i0 - lo_)
+    k0 = torch.searchsorted(vpos, p0.to(torch.int32).contiguous())
+    k1 = torch.searchsorted(vpos, (p0 + span).clamp_max(_INT32_MAX)
+                            .to(torch.int32).contiguous())
+    rows, k = _ragged(k0, torch.where(span > 0, k1, k0))
+    p = vpos[k].long()
+    i = i0[rows] + (p - p0[rows])
+    byte = ncodes[rows, i >> 1].to(torch.int32)
+    nib = torch.where((i & 1) == 1, byte >> 4, byte & 0xF)
+    keep = (nib != 15) & (p > 0) & _first_of_equal(k, k0[rows], vpos)
+    rows, k, nib = rows[keep], k[keep], nib[keep]
+    return _pack_pairs(rows, _classify_entries(k, nib, table), capacity,
+                       ncodes.device)
 
 
 def affine_masked_plain(mcodes, start, lo, hi, ws, win: int,
                         block_rows: int, table: Table,
                         capacity: int) -> torch.Tensor:
     masked = mcodes.to(torch.int32)
-    refpos = _affine_refpos(start, lo, hi, masked.shape[1])
+    i = _base_index(masked.shape[1], start.device)
+    lo_ = lo[:, None]
+    aligned = (i >= lo_) & (i < hi[:, None])
+    # refpos = start + (i - lo) on [lo, hi), else 0
+    refpos = torch.where(aligned, start[:, None] + (i - lo_), 0)
     hit, word = _classify_plain(masked, refpos, ws, win, block_rows, table)
     return _pack_plain(hit, word, capacity)
 
@@ -467,12 +531,46 @@ def _masked_plane(codes, quals, baseq: int) -> torch.Tensor:
                        15)
 
 
-def plane_plain(codes, quals, refpos, baseq: int, ws, win: int,
-                block_rows: int, table: Table, capacity: int) -> torch.Tensor:
-    masked = _masked_plane(codes, quals, baseq)
-    hit, word = _classify_plain(masked, refpos.to(torch.int32), ws, win,
-                                block_rows, table)
-    return _pack_plain(hit, word, capacity)
+_PLAIN_CAND_CHUNK = 1 << 19  # candidates compared with their rows at once
+
+
+def plane_plain(codes, quals, refpos, baseq: int, table: Table,
+                capacity: int) -> torch.Tensor:
+    """The range join of the plane kernel: a row's candidates are the table
+    entries between its smallest positive and its largest position; a
+    candidate hits every base of the row at its position, and codes / quals
+    are read only there."""
+    vpos = table[0]
+    N, L = refpos.shape
+    has = refpos > 0
+    pmin = torch.where(has, refpos, _INT32_MAX).amin(dim=1)
+    pmax = torch.where(has, refpos, 0).amax(dim=1)
+    k0 = torch.searchsorted(vpos, pmin.contiguous())
+    k1 = torch.searchsorted(vpos, pmax.contiguous(), right=True)
+    rows, k = _ragged(k0, torch.where(pmax > 0, k1, k0))
+    first = _first_of_equal(k, k0[rows], vpos)
+    rows, k = rows[first], k[first]
+    hit_rows, hit_base, hit_k = [], [], []
+    for s in range(0, int(rows.numel()), _PLAIN_CAND_CHUNK):
+        r, kk = rows[s:s + _PLAIN_CAND_CHUNK], k[s:s + _PLAIN_CAND_CHUNK]
+        c, i = torch.nonzero(refpos[r] == vpos[kk][:, None], as_tuple=True)
+        hit_rows.append(r[c])
+        hit_base.append(i)
+        hit_k.append(kk[c])
+    if hit_rows:
+        rows, base, k = (torch.cat(hit_rows), torch.cat(hit_base),
+                         torch.cat(hit_k))
+    else:
+        rows = base = k = torch.zeros(0, dtype=torch.long,
+                                      device=refpos.device)
+    masked = torch.where(quals[rows, base].to(torch.int32) >= baseq,
+                         codes[rows, base].to(torch.int32), 15)
+    keep = masked != 15
+    rows, base, k, masked = rows[keep], base[keep], k[keep], masked[keep]
+    order = torch.argsort(rows * max(L, 1) + base)  # row-major, as _pack_hits
+    rows, k, masked = rows[order], k[order], masked[order]
+    return _pack_pairs(rows, _classify_entries(k, masked, table), capacity,
+                       refpos.device)
 
 
 def planes_plain(codes, quals, refpos, baseq: int, ws, win: int,
@@ -507,9 +605,7 @@ def planes_cmp_plain(codes, quals, refpos, baseq: int, ws, block_rows: int,
     safe = k.clamp_min(0)
     hit = ((refpos > 0) & (masked != 15) & (k >= w0) &
            (vpos[safe] == refpos))
-    allele = torch.where(
-        (masked == a0[safe]) & (ni[safe] > 0), 0,
-        torch.where((masked == a1[safe]) & (ni[safe] > 1), 1, OTHER))
+    allele = _allele_plain(masked, safe, table)
     return (torch.where(hit, safe, -1).to(torch.int32),
             torch.where(hit, allele, NO_HIT).to(torch.int32))
 
@@ -529,11 +625,11 @@ def _kernels() -> ctypes.CDLL:
     lib = build.get_lib()
     if not _declared:
         lib.affine_nibble_launch.argtypes = (
-            [_P] * 4 + [_I, _I, _P, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
+            [_P] * 4 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P])
         lib.delta_nibble_launch.argtypes = (
             [_P] * 3 + [_I, _I, _P, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
         lib.plane_launch.argtypes = (
-            [_P] * 3 + [_I, _I, _I, _P, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
+            [_P] * 3 + [_I, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
         lib.affine_masked_launch.argtypes = (
             [_P] * 4 + [_I, _I, _P, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
         lib.planes_launch.argtypes = (
@@ -573,10 +669,9 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Sequence[int],
         raise ValueError("%s must be contiguous" % name)
 
 
-def window_args(ws: Optional[torch.Tensor], n_rows: int, table: Table,
-                 dev: torch.device) -> Tuple[torch.Tensor, int, int]:
-    """(ws, win, block_rows): planned 256-entry windows per min(256, N)-row
-    block, or one whole-table window."""
+def _check_table(table: Table, dev: torch.device) -> torch.device:
+    """Checks the four int32 (mp,) table columns; returns `dev` with its
+    index filled in."""
     dev = torch.device(dev)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -586,6 +681,28 @@ def window_args(ws: Optional[torch.Tensor], n_rows: int, table: Table,
     if mp >= (1 << 23):
         raise ValueError("table of %d entries exceeds the packed-hit "
                          "layout's 2^23 variant limit" % mp)
+    return dev
+
+
+def _check_join_table(table: Table) -> None:
+    """What the range-join kernels' 16-byte loads need of a CUDA table: a
+    length that is a multiple of 4 (padded_table gives a power of two) and
+    16-byte aligned columns."""
+    mp = int(table[0].shape[0])
+    if mp == 0 or mp % 4:
+        raise ValueError("table of %d entries: the range-join kernels need "
+                         "a padded table (a non-zero multiple of 4)" % mp)
+    for k, t in zip(("vpos", "a0", "a1", "n_ind"), table):
+        if t.data_ptr() % 16:
+            raise ValueError("table column %s is not 16-byte aligned" % k)
+
+
+def window_args(ws: Optional[torch.Tensor], n_rows: int, table: Table,
+                 dev: torch.device) -> Tuple[torch.Tensor, int, int]:
+    """(ws, win, block_rows): planned 256-entry windows per min(256, N)-row
+    block, or one whole-table window."""
+    dev = _check_table(table, dev)
+    mp = int(table[0].shape[0])
     if ws is None:
         return torch.zeros(1, dtype=torch.int32, device=dev), mp, max(n_rows, 1)
     R = max(min(_WIN, n_rows), 1)
@@ -603,9 +720,9 @@ def _check_size(n_rows: int, L: int, capacity: int) -> None:
 
 
 def _new_packed(capacity: int, dev: torch.device) -> torch.Tensor:
-    out = torch.full((2, capacity + 1), -1, dtype=torch.int32, device=dev)
-    out[0, 0] = 0  # the kernel's hit counter
-    return out
+    """The packed-hit buffer of a launch; its launcher fills it with -1 and
+    zeroes the hit counter on the kernel's stream."""
+    return torch.empty((2, capacity + 1), dtype=torch.int32, device=dev)
 
 
 def _launch(fn_name: str, args) -> None:
@@ -623,28 +740,28 @@ def _stream(dev: torch.device) -> int:
 
 def assign_compact_affine_nibble(ncodes: torch.Tensor, start: torch.Tensor,
                                  lo: torch.Tensor, hi: torch.Tensor,
-                                 table: Table, capacity: int,
-                                 ws: Optional[torch.Tensor] = None
+                                 table: Table, capacity: int
                                  ) -> torch.Tensor:
     """Affine reads: ncodes (N, L/2) uint8 nibble plane (pad 0xFF);
-    start/lo/hi (N,) int32 with refpos = start + (i - lo) on [lo, hi)."""
+    start/lo/hi (N,) int32 with refpos = start + (i - lo) on [lo, hi).
+    The table must be position-sorted; each row's table range is found by
+    the program itself."""
     dev = ncodes.device
     N, Lh = ncodes.shape
     _check("ncodes", ncodes, torch.uint8, (N, Lh), dev)
     for k, t in (("start", start), ("lo", lo), ("hi", hi)):
         _check(k, t, torch.int32, (N,), dev)
-    ws, win, R = window_args(ws, N, table, dev)
+    _check_table(table, dev)
     _check_size(N, 2 * Lh, capacity)
     if not _on_cuda(dev):
-        return affine_nibble_plain(ncodes, start, lo, hi, ws, win, R, table,
-                                   capacity)
+        return affine_nibble_plain(ncodes, start, lo, hi, table, capacity)
+    _check_join_table(table)
     out = _new_packed(capacity, dev)
     vpos, a0, a1, ni = table
     _launch("affine_nibble_launch", (
         ncodes.data_ptr(), start.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        N, Lh, ws.data_ptr(), win, R, vpos.data_ptr(), a0.data_ptr(),
-        a1.data_ptr(), ni.data_ptr(), vpos.shape[0], out.data_ptr(),
-        capacity, _stream(dev)))
+        N, Lh, vpos.data_ptr(), a0.data_ptr(), a1.data_ptr(), ni.data_ptr(),
+        vpos.shape[0], out.data_ptr(), capacity, _stream(dev)))
     bump(LAUNCHES, "affine_nibble")
     return out
 
@@ -679,27 +796,32 @@ def assign_compact_delta_nibble(ncodes: torch.Tensor, start: torch.Tensor,
 
 def assign_compact_plane(codes: torch.Tensor, quals: torch.Tensor,
                          refpos: torch.Tensor, baseq: int, table: Table,
-                         capacity: int, ws: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         capacity: int) -> torch.Tensor:
     """Refpos-plane reads: codes/quals (N, L) uint8, refpos (N, L) int32
-    (0 = unaligned); masked = code where qual >= baseq, else 15."""
+    (0 = unaligned), L a non-zero multiple of 4; masked = code where
+    qual >= baseq, else 15.  The table must be position-sorted; each row's
+    table range is found by the program itself."""
     dev = codes.device
     N, L = codes.shape
     _check("codes", codes, torch.uint8, (N, L), dev)
     _check("quals", quals, torch.uint8, (N, L), dev)
     _check("refpos", refpos, torch.int32, (N, L), dev)
-    ws, win, R = window_args(ws, N, table, dev)
+    if L == 0 or L % 4:
+        raise ValueError("plane width %d is not a non-zero multiple of 4" % L)
+    _check_table(table, dev)
     _check_size(N, L, capacity)
     if not _on_cuda(dev):
-        return plane_plain(codes, quals, refpos, baseq, ws, win, R, table,
-                           capacity)
+        return plane_plain(codes, quals, refpos, baseq, table, capacity)
+    _check_join_table(table)
+    if refpos.data_ptr() % 16:
+        raise ValueError("refpos is not 16-byte aligned")
     out = _new_packed(capacity, dev)
     vpos, a0, a1, ni = table
     _launch("plane_launch", (
         codes.data_ptr(), quals.data_ptr(), refpos.data_ptr(), N, L,
-        int(baseq), ws.data_ptr(), win, R, vpos.data_ptr(), a0.data_ptr(),
-        a1.data_ptr(), ni.data_ptr(), vpos.shape[0], out.data_ptr(),
-        capacity, _stream(dev)))
+        int(baseq), vpos.data_ptr(), a0.data_ptr(), a1.data_ptr(),
+        ni.data_ptr(), vpos.shape[0], out.data_ptr(), capacity,
+        _stream(dev)))
     bump(LAUNCHES, "plane")
     return out
 

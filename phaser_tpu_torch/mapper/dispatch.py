@@ -6,8 +6,9 @@ nibble-packed masked plane with refpos rebuilt on the device (a 1 B/base
 masked plane when the native nibble packer is missing), deletion / split-M
 reads as nibble plane + int16 delta, and N-spliced reads (or delta overflow,
 or every non-affine read when the delta packer is missing) as an explicit
-refpos plane.  The exact host mapper
-(phaser_tpu.mapper.host) keeps the remainder: insertion reads, multi-base
+refpos plane.  The affine-nibble and plane kernels find each row's table
+range on the card; only the delta-nibble path still plans table windows on
+the host.  The exact host mapper (mapper.host) keeps the remainder: insertion reads, multi-base
 alleles and duplicate-position table entries.  Row union and order equal
 the pure host path.
 
@@ -29,11 +30,10 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from phaser_tpu.engine.varmap import VariantTable
-from phaser_tpu.io.bam import BamData
-from phaser_tpu.mapper.dispatch import (_affine_params, _next_pow2,
-                                        _read_op_masks)
-from phaser_tpu.mapper.host import ContigHits, assign_alleles
+from ..engine.varmap import VariantTable
+from ..io.bam import (BamData, OP_EQ, OP_H, OP_I, OP_M, OP_N, OP_S, OP_X)
+from ..kernels.alleles import _next_pow2
+from .host import ContigHits, assign_alleles
 
 from ..utils.counters import bump
 
@@ -47,6 +47,54 @@ _cap_loaded = False
 _cap_lock = threading.Lock()  # guards the table, its load and the cap file
 # chunks relaunched on their device after a hit-capacity overflow
 RELAUNCHES = {"capacity": 0}
+
+
+def _read_op_masks(bd: BamData):
+    opc = (bd.cigar_flat & 0xF)
+    ops_per_read = np.diff(bd.cigar_off)
+    op_read = np.repeat(np.arange(len(bd)), ops_per_read)
+    has_ins = np.zeros(len(bd), bool)
+    np.logical_or.at(has_ins, op_read, opc == OP_I)
+    has_n = np.zeros(len(bd), bool)
+    np.logical_or.at(has_n, op_read, opc == OP_N)
+    return has_ins, has_n
+
+
+def _affine_params(bd: BamData):
+    """Per-read affine classification: reads whose CIGAR is one contiguous
+    M/=/X run plus end clips (S/H) have refpos[i] = pos+1 + (i - lo) on
+    [lo, hi) and 0 elsewhere. Returns (is_affine, start, lo, hi); reads
+    classified non-affine (D/N/I/P or split M runs) are simply routed to
+    the refpos-plane or host paths — classification is conservative."""
+    n = len(bd)
+    opc = (bd.cigar_flat & 0xF).astype(np.int64)
+    oplen = (bd.cigar_flat >> 4).astype(np.int64)
+    ops_per_read = np.diff(bd.cigar_off)
+    op_read = np.repeat(np.arange(n), ops_per_read)
+    within = np.arange(len(opc)) - np.repeat(bd.cigar_off[:-1], ops_per_read)
+
+    is_m = (opc == OP_M) | (opc == OP_EQ) | (opc == OP_X)
+    allowed = is_m | (opc == OP_S) | (opc == OP_H)
+    has_bad = np.zeros(n, bool)
+    np.logical_or.at(has_bad, op_read, ~allowed)
+
+    n_m = np.zeros(n, np.int64)
+    np.add.at(n_m, op_read, is_m.astype(np.int64))
+    first_m = np.full(n, np.iinfo(np.int64).max, np.int64)
+    np.minimum.at(first_m, op_read[is_m], within[is_m])
+    last_m = np.full(n, -1, np.int64)
+    np.maximum.at(last_m, op_read[is_m], within[is_m])
+    contig_m = (n_m >= 1) & (last_m - first_m + 1 == n_m)
+    is_affine = ~has_bad & contig_m
+
+    lo = np.zeros(n, np.int64)
+    lead_s = (opc == OP_S) & (within < first_m[op_read])
+    np.add.at(lo, op_read[lead_s], oplen[lead_s])
+    m_total = np.zeros(n, np.int64)
+    np.add.at(m_total, op_read[is_m], oplen[is_m])
+    start = bd.pos.astype(np.int64) + 1
+    return is_affine, start.astype(np.int32), lo.astype(np.int32), \
+        (lo + m_total).astype(np.int32)
 
 
 def resolve_device(device) -> torch.device:
@@ -128,6 +176,14 @@ def _adaptive_cap(fb_key, n_elems: int) -> int:
     return _next_pow2(max(n_elems // 32, 8192))
 
 
+def require_device(device) -> None:
+    """Raises when `device` asks for the card and there is none; "host" and
+    "off" need no device.  What every entry point calls first, so that a
+    run without a card fails before it computes anything."""
+    if device not in ("host", "off"):
+        resolve_device(device)
+
+
 class PendingHits:
     """Launched GPU work + completed host parts for one chunk.
 
@@ -153,7 +209,7 @@ class PendingHits:
     def wait(self) -> None:
         """Block until every launched kernel of this chunk has finished."""
         if self._done is not None:
-            from phaser_tpu.utils.trace import device_section
+            from ..utils.trace import device_section
             with device_section():
                 self._done.synchronize()
 
@@ -168,7 +224,7 @@ class PendingHits:
             if prefetched is not None:
                 full = prefetched[k]
             else:
-                from phaser_tpu.utils.trace import device_section
+                from ..utils.trace import device_section
                 with device_section():
                     full = packed.cpu().numpy()
             r, v, a, mc, nh = decode_packed_hits(full)
@@ -254,7 +310,7 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
 
     dev_parts = []
     host_parts = []
-    from phaser_tpu.utils.trace import add_device_time
+    from ..utils.trace import add_device_time
     _t_dev = time.perf_counter()
     if dev_vidx.size and dev_read.any():
         # packer order of phaser_tpu (mapper/dispatch.py:308-332): the
@@ -283,8 +339,9 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
 
         for t in range(0, dev_vidx.size, _MAX_TABLE):
             tab_vidx = dev_vidx[t:t + _MAX_TABLE]
-            vpos = K.padded_table(vt, tab_vidx)[0]  # host copy: planners
-            table = K.device_table(vt, tab_vidx, dev)
+            padded = K.padded_table(vt, tab_vidx)
+            vpos = padded[0]  # host copy, for the delta planner
+            table = tuple(_upload(x, dev) for x in padded)
 
             # affine fast path: masked plane (BASEQ pre-applied), refpos
             # rebuilt on the device, in <= _SUB_ROWS-row launches
@@ -294,23 +351,19 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
                     continue
                 n_sub = e - s
                 ss, ls, hs = st_k[s:e], lo_k[s:e], hi_k[s:e]
-                ws = K.plan_windows_affine(ss, ls, hs, hs > ls, vpos, n_sub,
-                                           min(256, n_sub))
-                ws_t = None if ws is None else _upload(ws, dev)
                 args = (_upload(mcodes[s:e], dev), _upload(ss, dev),
                         _upload(ls, dev), _upload(hs, dev))
                 if nibble is not None:
-                    kind = "affine_win" if ws is not None else "affine_nib"
-                    fb_key = (kind, _next_pow2(max(n_sub, 8)), Lw)
+                    # the kernel finds each row's table range on the card
+                    fb_key = ("affine_nib", _next_pow2(max(n_sub, 8)), Lw)
                     cap = _adaptive_cap(fb_key, n_sub * L_bases)
-                    packed = K.assign_compact_affine_nibble(
-                        *args, table, cap, ws=ws_t)
+                    packed = K.assign_compact_affine_nibble(*args, table, cap)
                 else:
-                    kind = "affine_mwin" if ws is not None else "affine"
-                    fb_key = (kind, _next_pow2(max(n_sub, 8)), Lw)
+                    # the fallback without the nibble packer searches the
+                    # whole table
+                    fb_key = ("affine", _next_pow2(max(n_sub, 8)), Lw)
                     cap = _adaptive_cap(fb_key, n_sub * L_bases)
-                    packed = K.assign_compact_affine_masked(
-                        *args, table, cap, ws=ws_t)
+                    packed = K.assign_compact_affine_masked(*args, table, cap)
                 dev_parts.append((packed, cap, None, tab_vidx, s, fb_key))
 
             for s in range(0, plane_all.size, _SUB_ROWS):
@@ -349,14 +402,11 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
                     sub = sub.select(rest_idx)
                 codes2, quals2, refpos2 = K.pack_reads(sub)
                 N2, L2 = codes2.shape
-                ws2 = K.plan_windows_plane(refpos2, vpos, min(256, N2))
-                kind = "plane_win" if ws2 is not None else "plane"
-                fb_key = (kind, _next_pow2(max(N2, 8)), L2)
+                fb_key = ("plane", _next_pow2(max(N2, 8)), L2)
                 cap2 = _adaptive_cap(fb_key, N2 * L2)
                 packed2 = K.assign_compact_plane(
                     _upload(codes2, dev), _upload(quals2, dev),
-                    _upload(refpos2, dev), baseq, table, cap2,
-                    ws=None if ws2 is None else _upload(ws2, dev))
+                    _upload(refpos2, dev), baseq, table, cap2)
                 dev_parts.append((packed2, cap2, plane_sel, tab_vidx, 0,
                                   fb_key))
     done = None
@@ -429,7 +479,7 @@ class _ResolvedPending:
 def resolve_all(pendings: List) -> List[ContigHits]:
     """Resolve many launched chunks with ONE device->host copy: every
     pending packed buffer is concatenated on its device and copied once."""
-    from phaser_tpu.utils.trace import device_section
+    from ..utils.trace import device_section
 
     parts = []
     for p in pendings:

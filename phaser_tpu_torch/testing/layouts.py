@@ -1,0 +1,117 @@
+"""Synthetic read / variant-table layouts that reach every branch of the
+range-join kernels (affine_nibble, plane): used by the CPU tests against
+the JAX programs and, at a larger size, by chip_smoke.py on the card.
+
+A layout is a dict of numpy arrays: start / lo / hi (N,) int32 affine row
+parameters (refpos = start + (i - lo) on [lo, hi)), codes / quals (N, L)
+uint8, gap (N,) int32 (a splice inserted at the middle of the row, for the
+plane program; 0 for none), and the table vpos (M,) int32 sorted, ind
+(M, 2) uint8, ni (M,) int8.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+NAMES = ["sorted", "random_order", "dense", "L256", "L384", "lo_gt0",
+         "empty_rows", "first_last", "one_entry", "table_slice",
+         "duplicates"]
+
+_INT32_MAX = int(np.iinfo(np.int32).max)
+
+
+def make(name: str, n_rows: int = 300, n_vars: int = 200,
+         contig: int = 60_000) -> dict:
+    """The layout `name` (one of NAMES, or "big_table": the first launch
+    slice, 2^22 entries, of a table above the dispatcher's slice size)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    N, L, M = n_rows, 128, n_vars
+    if name in ("L256", "L384"):
+        L = int(name[1:])
+    lo = np.zeros(N, np.int32)
+    hi = np.full(N, L, np.int32)
+    vpos = np.sort(rng.choice(np.arange(1, contig, dtype=np.int64), size=M,
+                              replace=False))
+    start = np.sort(rng.integers(1, contig - 2 * L, size=N))
+    gap = np.where(rng.random(N) < 0.5, rng.integers(20, 400, size=N), 0)
+    if name == "random_order":
+        start = rng.permutation(start)
+    elif name == "dense":
+        # a variant on every position: a 256-row block's table slice holds
+        # far more entries than the kernel stages in shared memory
+        vpos = np.arange(1, contig, dtype=np.int64)
+    elif name == "lo_gt0":
+        lo = rng.integers(1, 20, size=N).astype(np.int32)
+        hi = (L - rng.integers(0, 20, size=N)).astype(np.int32)
+    elif name == "empty_rows":
+        empty = rng.random(N) < 0.3
+        hi = np.where(empty, lo, hi).astype(np.int32)
+        start = np.where(empty, 0, start)
+    elif name == "first_last":
+        # variants exactly under rows' first and last aligned bases
+        lo = rng.integers(0, 9, size=N).astype(np.int32)
+        hi = (L - rng.integers(0, 9, size=N)).astype(np.int32)
+        gap[:] = 0
+        ends = np.concatenate([start[::3], (start + (hi - lo) - 1)[1::3]])
+        vpos = np.unique(np.concatenate([vpos[:50], ends]))
+    elif name == "one_entry":
+        start = np.sort(rng.integers(1000, 1100, size=N))
+        vpos = np.array([1110], np.int64)
+    elif name == "table_slice":
+        # the second launch slice of a table above 2^22 entries: entries
+        # (1 << 22) and up of positions 3, 6, 9, ...
+        first = ((1 << 22) + 1) * 3
+        vpos = first + 3 * np.arange(M, dtype=np.int64)
+        start = np.sort(rng.integers(first - L, first + 3 * M, size=N))
+    elif name == "big_table":
+        vpos = 3 * np.arange(1, (1 << 22) + 1, dtype=np.int64)
+        start = np.sort(rng.integers(1, 3 * (1 << 22), size=N))
+    elif name == "duplicates":
+        vpos = np.sort(np.concatenate([vpos, vpos[::5], vpos[::10]]))
+    elif name not in ("sorted", "L256", "L384"):
+        raise ValueError("unknown layout %r" % name)
+    M = len(vpos)
+    return dict(
+        start=start.astype(np.int32), lo=lo, hi=hi, gap=gap.astype(np.int32),
+        codes=rng.integers(1, 16, size=(N, L)).astype(np.uint8),
+        quals=rng.integers(0, 40, size=(N, L)).astype(np.uint8),
+        vpos=vpos.astype(np.int32),
+        ind=rng.integers(1, 9, size=(M, 2)).astype(np.uint8),
+        ni=rng.integers(0, 3, size=M).astype(np.int8))
+
+
+def padded_table(d: dict):
+    """(vpos, a0, a1, n_ind) int32, padded to a power of two (at least 8)
+    with INT32_MAX positions and zero codes, as the dispatcher pads."""
+    M = len(d["vpos"])
+    mp = 8
+    while mp < M:
+        mp *= 2
+    vpos = np.full(mp, _INT32_MAX, np.int32)
+    vpos[:M] = d["vpos"]
+    cols = [np.zeros(mp, np.int32) for _ in range(3)]
+    cols[0][:M] = d["ind"][:, 0]
+    cols[1][:M] = d["ind"][:, 1]
+    cols[2][:M] = d["ni"]
+    return (vpos, *cols)
+
+
+def affine_inputs(d: dict, baseq: int = 10):
+    """(ncodes, start, lo, hi): the rows as the affine program takes them,
+    BASEQ applied and two masked nibbles per byte (even base low)."""
+    masked = np.where(d["quals"] >= baseq, d["codes"], 15).astype(np.uint8)
+    ncodes = (masked[:, 0::2] | (masked[:, 1::2] << 4)).astype(np.uint8)
+    return ncodes, d["start"], d["lo"], d["hi"]
+
+
+def plane_inputs(d: dict):
+    """(codes, quals, refpos): the rows as an explicit refpos plane, spliced
+    at the middle where `gap` says so (what the affine program cannot
+    carry)."""
+    N, L = d["codes"].shape
+    i = np.arange(L, dtype=np.int32)[None, :]
+    lo, hi = d["lo"][:, None], d["hi"][:, None]
+    refpos = d["start"][:, None] + (i - lo) + \
+        np.where(i >= L // 2, d["gap"][:, None], 0)
+    refpos = np.where((i >= lo) & (i < hi), refpos, 0).astype(np.int32)
+    return d["codes"], d["quals"], refpos

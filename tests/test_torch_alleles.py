@@ -8,6 +8,10 @@ Pallas programs in interpret mode and their unwindowed jnp twins, as
 tests/test_kernels.py does.  The plain versions compact in row-major order,
 so their packed buffers must equal JAX's word for word; the CUDA kernels
 compact with atomics, so those are compared after a (read, var) sort.
+
+The affine-nibble and plane programs of the port are range joins that find
+their own table ranges: JAX's windowed programs are fed planned windows, the
+port gets none.
 """
 
 import numpy as np
@@ -17,11 +21,15 @@ import torch
 import jax.numpy as jnp
 
 import datagen
-from phaser_tpu.engine.varmap import build_variant_table
-from phaser_tpu.io import bam as bamio
-from phaser_tpu.io import vcf as vcfio
+from phaser_tpu.engine import varmap as jax_varmap
+from phaser_tpu.io import bam as jax_bamio
+from phaser_tpu.io import vcf as jax_vcfio
 from phaser_tpu.kernels import alleles as J
+from phaser_tpu_torch.engine import varmap
+from phaser_tpu_torch.io import bam as bamio
+from phaser_tpu_torch.io import vcf as vcfio
 from phaser_tpu_torch.kernels import alleles as K
+from phaser_tpu_torch.testing import layouts
 
 
 def _fixture(tmp_path, seed, **kw):
@@ -30,12 +38,18 @@ def _fixture(tmp_path, seed, **kw):
     kw.setdefault("n_variants_per_contig", 150)
     kw.setdefault("frac_indel_reads", 0.0)
     vcf, bam, _ = datagen.write_fixture_dir(str(tmp_path), seed=seed, **kw)
-    lines = [l for l in vcfio.het_filtered_lines(vcf, 9)
-             if not l.startswith("#")]
-    hs = vcfio.parse_het_sites(lines, "", ["_", ":"], True)
-    vt = build_variant_table("chr20", hs.pool["chr20"])
-    bd = bamio.read_bam(bam)
-    return bd.select((bd.refid == 0) & ((bd.flag & 0x404) == 0)), vt
+
+    def read(vcfio, varmap, bamio):
+        lines = [l for l in vcfio.het_filtered_lines(vcf, 9)
+                 if not l.startswith("#")]
+        hs = vcfio.parse_het_sites(lines, "", ["_", ":"], True)
+        vt = varmap.build_variant_table("chr20", hs.pool["chr20"])
+        bd = bamio.read_bam(bam)
+        return bd.select((bd.refid == 0) & ((bd.flag & 0x404) == 0)), vt
+    chunk, vt = read(vcfio, varmap, bamio)
+    # phaser_tpu's own objects from the same files, for its packers
+    jchunk, _ = read(jax_vcfio, jax_varmap, jax_bamio)
+    return chunk, vt, jchunk
 
 
 def _tables(vt):
@@ -70,17 +84,17 @@ def _assert_same_hits(got, want):
 
 
 def _affine_case(tmp_path):
-    chunk, vt = _fixture(tmp_path, 13, n_reads_per_contig=220)
+    chunk, vt, jchunk = _fixture(tmp_path, 13, n_reads_per_contig=220)
     nb = K.pack_affine_nibble(chunk, 10)
-    for a, b in zip(nb, J.pack_affine_nibble(chunk, 10)):
+    for a, b in zip(nb, J.pack_affine_nibble(jchunk, 10)):
         np.testing.assert_array_equal(a, b)
     ncodes, ia, st, lo, hi = nb
     st, lo, hi = (np.where(ia, x, 0).astype(np.int32) for x in (st, lo, hi))
     N = ncodes.shape[0]
     vpos, (jv, ji, jn), table = _tables(vt)
-    ws = K.plan_windows_affine(st, lo, hi, hi > lo, vpos, N, min(256, N))
+    ws = J.plan_windows_affine(st, lo, hi, hi > lo, vpos, N, min(256, N))
     np.testing.assert_array_equal(
-        ws, J.plan_windows_affine(st, lo, hi, hi > lo, vpos, N, min(256, N)))
+        ws, K.plan_windows_affine(st, lo, hi, hi > lo, vpos, N, min(256, N)))
     jargs = [jnp.asarray(x) for x in (ncodes, st, lo, hi)]
 
     def jax_windowed(cap):
@@ -90,18 +104,18 @@ def _affine_case(tmp_path):
     def jax_plain(cap):
         return J.assign_compact_affine_nibble(*jargs, jv, ji, jn, cap)
 
-    def port(cap, planned=True, device="cpu"):
+    def port(cap, planned=None, device="cpu"):
         return K.assign_compact_affine_nibble(
             *[_t(x, device) for x in (ncodes, st, lo, hi)],
-            _on(table, device), cap, ws=_t(ws, device) if planned else None)
-    return N, jax_windowed, jax_plain, port
+            _on(table, device), cap)
+    return N, jax_windowed, jax_plain, port, (None,)
 
 
 def _delta_case(tmp_path):
-    chunk, vt = _fixture(tmp_path, 44, n_reads_per_contig=400,
-                         frac_spliced=0.35, frac_indel_reads=0.5)
+    chunk, vt, jchunk = _fixture(tmp_path, 44, n_reads_per_contig=400,
+                                 frac_spliced=0.35, frac_indel_reads=0.5)
     dn = K.pack_delta_nibble(chunk, 10)
-    for a, b in zip(dn, J.pack_delta_nibble(chunk, 10)):
+    for a, b in zip(dn, J.pack_delta_nibble(jchunk, 10)):
         np.testing.assert_array_equal(a, b)
     ncd, dlt, okm, dst, rmn, rmx = dn
     ok = np.flatnonzero(okm)
@@ -125,21 +139,21 @@ def _delta_case(tmp_path):
         return K.assign_compact_delta_nibble(
             *[_t(x, device) for x in (ncd, dst, dlt)], _on(table, device),
             cap, ws=_t(ws, device) if planned else None)
-    return N, jax_windowed, jax_plain, port
+    return N, jax_windowed, jax_plain, port, (True, False)
 
 
 def _plane_case(tmp_path):
-    chunk, vt = _fixture(tmp_path, 14, n_reads_per_contig=200,
-                         frac_spliced=0.5)
+    chunk, vt, jchunk = _fixture(tmp_path, 14, n_reads_per_contig=200,
+                                 frac_spliced=0.5)
     planes = K.pack_reads(chunk)
-    for a, b in zip(planes, J.pack_reads(chunk)):
+    for a, b in zip(planes, J.pack_reads(jchunk)):
         np.testing.assert_array_equal(a, b)
     codes, quals, refpos = planes
     N = codes.shape[0]
     vpos, (jv, ji, jn), table = _tables(vt)
-    ws = K.plan_windows_plane(refpos, vpos, min(256, N))
+    ws = J.plan_windows_plane(refpos, vpos, min(256, N))
     np.testing.assert_array_equal(
-        ws, J.plan_windows_plane(refpos, vpos, min(256, N)))
+        ws, K.plan_windows_plane(refpos, vpos, min(256, N)))
     jargs = [jnp.asarray(x) for x in planes]
 
     def jax_windowed(cap):
@@ -149,11 +163,10 @@ def _plane_case(tmp_path):
     def jax_plain(cap):
         return J.assign_compact_plane(*jargs, jv, ji, jn, 10, cap)
 
-    def port(cap, planned=True, device="cpu"):
+    def port(cap, planned=None, device="cpu"):
         return K.assign_compact_plane(
-            *[_t(x, device) for x in planes], 10, _on(table, device), cap,
-            ws=_t(ws, device) if planned else None)
-    return N, jax_windowed, jax_plain, port
+            *[_t(x, device) for x in planes], 10, _on(table, device), cap)
+    return N, jax_windowed, jax_plain, port, (None,)
 
 
 CASES = {"affine_nibble": _affine_case, "delta_nibble": _delta_case,
@@ -162,14 +175,15 @@ CASES = {"affine_nibble": _affine_case, "delta_nibble": _delta_case,
 
 @pytest.mark.parametrize("program", sorted(CASES))
 def test_program_matches_jax(tmp_path, program):
-    """Each program's plain version (planned windows and whole table) ==
-    the JAX windowed Pallas program (interpret) == its jnp twin."""
-    N, jax_windowed, jax_plain, port = CASES[program](tmp_path)
+    """Each program's plain version (the range joins with no window; the
+    delta program with planned windows and the whole table) == the JAX
+    windowed Pallas program (interpret) == its jnp twin."""
+    N, jax_windowed, jax_plain, port, plans = CASES[program](tmp_path)
     cap = 1 << 13
     want = np.asarray(jax_plain(cap))
     np.testing.assert_array_equal(np.asarray(jax_windowed(cap)), want)
     assert want[0, 0] > 5
-    for planned in (True, False):
+    for planned in plans:
         got = port(cap, planned).numpy()
         np.testing.assert_array_equal(got, want)
         _assert_same_hits(got, want)
@@ -179,7 +193,7 @@ def test_program_matches_jax(tmp_path, program):
 def test_capacity_overflow_keeps_exact_count(tmp_path, program):
     """Past capacity the hit counter stays exact and only `cap` hits are
     written, as in phaser_tpu's _pack_hits."""
-    N, _, jax_plain, port = CASES[program](tmp_path)
+    N, _, jax_plain, port, _ = CASES[program](tmp_path)
     cap = 4
     want = np.asarray(jax_plain(cap))
     got = port(cap).numpy()
@@ -258,7 +272,7 @@ def test_ragged_tail_rows_classified():
     table = tuple(_t(x.astype(np.int32)) for x in
                   (vpos, ind[:, 0], ind[:, 1], ni))
     got = K.assign_compact_plane(_t(codes), _t(quals), _t(refpos), 10, table,
-                                 cap, ws=_t(ws)).numpy()
+                                 cap).numpy()
     np.testing.assert_array_equal(got, want)
     r = K.decode_packed_hits(got)[0]
     assert r.max() >= 256
@@ -270,9 +284,19 @@ def test_wrappers_check_their_inputs():
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="dtype"):
         K.assign_compact_affine_nibble(nc, z.long(), z, z, table, 16)
-    with pytest.raises(ValueError, match="shape"):
+    with pytest.raises(TypeError, match="ws"):
+        # the range joins take no window
         K.assign_compact_affine_nibble(nc, z, z, z, table, 16,
-                                       ws=torch.zeros(3, dtype=torch.int32))
+                                       ws=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="shape"):
+        K.assign_compact_delta_nibble(
+            nc, z, torch.zeros((4, 128), dtype=torch.int16), table, 16,
+            ws=torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        K.assign_compact_plane(torch.zeros((4, 6), dtype=torch.uint8),
+                               torch.zeros((4, 6), dtype=torch.uint8),
+                               torch.zeros((4, 6), dtype=torch.int32), 10,
+                               table, 16)
     with pytest.raises(ValueError, match="contiguous"):
         K.assign_compact_plane(torch.zeros((64, 4), dtype=torch.uint8).t(),
                                torch.zeros((4, 64), dtype=torch.uint8),
@@ -289,8 +313,85 @@ def test_wrappers_check_their_inputs():
     assert K.LAUNCHES == before
 
 
+# ---------------------------------------------------------------------------
+# the range joins on layouts that reach every branch of the CUDA kernels
+
+LAYOUTS = layouts.NAMES
+
+
+def _layout(name):
+    return layouts.make(name)
+
+
+def _port_table(d):
+    return tuple(_t(x) for x in layouts.padded_table(d))
+
+
+_affine_inputs = layouts.affine_inputs
+_plane_inputs = layouts.plane_inputs
+
+
+@pytest.mark.parametrize("cap", [1 << 15, 4])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_affine_range_join_matches_jax(layout, cap):
+    """assign_compact_affine_nibble without a window == JAX's jnp twin and,
+    where its planner finds windows, JAX's windowed Pallas program fed
+    those windows, word for word; past capacity (cap 4) the count stays
+    exact."""
+    d = _layout(layout)
+    ncodes, start, lo, hi = _affine_inputs(d)
+    jtab = [jnp.asarray(d[k]) for k in ("vpos", "ind", "ni")]
+    jargs = [jnp.asarray(x) for x in (ncodes, start, lo, hi)]
+    want = np.asarray(J.assign_compact_affine_nibble(*jargs, *jtab, cap))
+    N = len(start)
+    ws = J.plan_windows_affine(start, lo, hi, hi > lo, d["vpos"], N, 256)
+    if ws is not None:
+        np.testing.assert_array_equal(np.asarray(J._nibble_windowed_impl(
+            *jargs, jnp.asarray(ws), *jtab, cap, interpret=True)), want)
+    if layout in ("sorted", "dense"):
+        # so the comparison with the windowed program is not vacuous, and
+        # the dense table is one no window holds
+        assert (ws is None) == (layout == "dense")
+    got = K.assign_compact_affine_nibble(
+        *[_t(x) for x in (ncodes, start, lo, hi)], _port_table(d),
+        cap).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0] > (cap if cap == 4 else 0)
+
+
+@pytest.mark.parametrize("cap", [1 << 15, 4])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_plane_range_join_matches_jax(layout, cap):
+    """assign_compact_plane without a window == JAX's jnp twin and, where
+    its planner finds windows, JAX's windowed Pallas program."""
+    d = _layout(layout)
+    planes = _plane_inputs(d)
+    jtab = [jnp.asarray(d[k]) for k in ("vpos", "ind", "ni")]
+    jargs = [jnp.asarray(x) for x in planes]
+    want = np.asarray(J.assign_compact_plane(*jargs, *jtab, 10, cap))
+    ws = J.plan_windows_plane(planes[2], d["vpos"], 256)
+    if ws is not None:
+        np.testing.assert_array_equal(np.asarray(J._plane_windowed_impl(
+            *jargs, jnp.asarray(ws), *jtab, 10, cap, interpret=True)), want)
+    got = K.assign_compact_plane(*[_t(x) for x in planes], 10,
+                                 _port_table(d), cap).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0] > (cap if cap == 4 else 0)
+
+
+def test_range_joins_hit_first_and_last_base():
+    """The layout really puts variants under first and last aligned bases,
+    and both programs report them."""
+    d = _layout("first_last")
+    got = K.assign_compact_affine_nibble(
+        *[_t(x) for x in _affine_inputs(d)], _port_table(d), 1 << 15).numpy()
+    r, v, _, _, _ = K.decode_packed_hits(got)
+    base = d["lo"][r] + (d["vpos"][v] - d["start"][r])
+    assert (base == d["lo"][r]).any() and (base == d["hi"][r] - 1).any()
+
+
 def _affine_masked_case(tmp_path):
-    chunk, vt = _fixture(tmp_path, 13, n_reads_per_contig=220)
+    chunk, vt, _ = _fixture(tmp_path, 13, n_reads_per_contig=220)
     am = K.pack_affine_masked(chunk, 10)
     mcodes, ia, st, lo, hi = am
     st, lo, hi = (np.where(ia, x, 0).astype(np.int32) for x in (st, lo, hi))
@@ -468,13 +569,13 @@ def cuda():
 def test_cuda_kernel_matches_plain(tmp_path, cuda, program):
     """On the card: the CUDA kernel == the plain version == JAX's jnp
     program, planned and whole-table, after a (read, var) sort."""
-    N, _, jax_plain, port = CASES[program](tmp_path)
+    N, _, jax_plain, port, plans = CASES[program](tmp_path)
     cap = 1 << 13
     want = np.asarray(jax_plain(cap))
     before = K.LAUNCHES[program]
-    outs = [port(cap, planned, cuda) for planned in (True, False)]
+    outs = [port(cap, planned, cuda) for planned in plans]
     torch.cuda.synchronize()
-    assert K.LAUNCHES[program] == before + 2
+    assert K.LAUNCHES[program] == before + len(plans)
     for got in outs:
         assert got.device.type == "cuda"
         _assert_same_hits(got.cpu().numpy(), want)

@@ -10,12 +10,17 @@ import pytest
 import torch
 
 import datagen
-from phaser_tpu.engine.varmap import build_variant_table
-from phaser_tpu.io import bam as bamio
-from phaser_tpu.io import vcf as vcfio
+from phaser_tpu.engine import varmap as jax_varmap
+from phaser_tpu.io import bam as jax_bamio
+from phaser_tpu.io import vcf as jax_vcfio
 from phaser_tpu.mapper import dispatch as jax_dispatch
+from phaser_tpu_torch.engine import varmap
+from phaser_tpu_torch.io import bam as bamio
+from phaser_tpu_torch.io import native
+from phaser_tpu_torch.io import vcf as vcfio
 from phaser_tpu_torch.kernels import alleles as K
 from phaser_tpu_torch.mapper import dispatch as D
+from phaser_tpu_torch.mapper import host as H
 
 FIXTURES = {
     "indel_multiallelic": dict(
@@ -35,14 +40,29 @@ def _cap_cache(tmp_path, monkeypatch):
     monkeypatch.setenv("PHASER_TPU_TORCH_CACHE", str(tmp_path / "cache"))
 
 
-def _load(tmp_path, name):
-    vcf, bam, _ = datagen.write_fixture_dir(str(tmp_path), **FIXTURES[name])
+def _read(vcf, bam, vcfio, varmap, bamio):
     lines = [l for l in vcfio.het_filtered_lines(vcf, 9)
              if not l.startswith("#")]
     hs = vcfio.parse_het_sites(lines, "", ["_", ":"], True)
-    vt = build_variant_table("chr20", hs.pool["chr20"], include_indels=True)
+    vt = varmap.build_variant_table("chr20", hs.pool["chr20"],
+                                    include_indels=True)
     bd = bamio.read_bam(bam)
     return bd.select((bd.refid == 0) & ((bd.flag & 0x404) == 0)), vt
+
+
+def _load(tmp_path, name):
+    """(bd, vt) built by the port's io and engine, and a `want(bd_sel, **kw)`
+    that runs phaser_tpu's host dispatcher on phaser_tpu's own objects from
+    the same files (bd_sel: None, or row indices of a chunk)."""
+    vcf, bam, _ = datagen.write_fixture_dir(str(tmp_path), **FIXTURES[name])
+    bd, vt = _read(vcf, bam, vcfio, varmap, bamio)
+    jbd, jvt = _read(vcf, bam, jax_vcfio, jax_varmap, jax_bamio)
+
+    def want(sel=None, device="host", **kw):
+        sub = jbd if sel is None else jbd.select(sel)
+        return jax_dispatch.assign_alleles_auto(sub, jvt, baseq=10,
+                                                device=device, **kw)
+    return bd, vt, want
 
 
 def _assert_equal_hits(got, want):
@@ -71,9 +91,8 @@ def spy(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(), dict(isize_cutoff=400),
                                 dict(splice=False)])
 def test_dispatch_cpu_matches_host(tmp_path, spy, fixture, kw):
-    bd, vt = _load(tmp_path, fixture)
-    want = jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="host",
-                                            **kw)
+    bd, vt, jax_host = _load(tmp_path, fixture)
+    want = jax_host(**kw)
     got = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu", **kw)
     _assert_equal_hits(got, want)
     assert len(want) > 100
@@ -89,8 +108,8 @@ def test_whole_table_and_overflow_paths(tmp_path, monkeypatch, spy):
     """Planner band overflow (whole-table search) and hit-capacity overflow
     (the chunk relaunched on its device with the exact counts, no host
     rerun) both keep the hits equal."""
-    bd, vt = _load(tmp_path, "indel_multiallelic")
-    want = jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="host")
+    bd, vt, jax_host = _load(tmp_path, "indel_multiallelic")
+    want = jax_host()
     for name in ("plan_windows_affine", "plan_windows_minmax",
                  "plan_windows_plane"):
         monkeypatch.setattr(K, name, lambda *a, **k: None)
@@ -100,7 +119,7 @@ def test_whole_table_and_overflow_paths(tmp_path, monkeypatch, spy):
     host_rows = []
     monkeypatch.setattr(D, "assign_alleles",
                         lambda sub, *a, **k: host_rows.append(len(sub)) or
-                        jax_dispatch.assign_alleles(sub, *a, **k))
+                        H.assign_alleles(sub, *a, **k))
     adaptive_cap = D._adaptive_cap
     monkeypatch.setattr(D, "_adaptive_cap", lambda key, n: 2)
     base = dict(spy)
@@ -121,8 +140,8 @@ def test_whole_table_and_overflow_paths(tmp_path, monkeypatch, spy):
 
 def test_table_slices(tmp_path, monkeypatch, spy):
     """Tables above the packed-hit layout's limit launch in slices."""
-    bd, vt = _load(tmp_path, "spliced")
-    want = jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="host")
+    bd, vt, jax_host = _load(tmp_path, "spliced")
+    want = jax_host()
     got = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu")
     one = dict(spy)
     monkeypatch.setattr(D, "_MAX_TABLE", 16)
@@ -136,16 +155,15 @@ def test_table_slices(tmp_path, monkeypatch, spy):
 
 def test_deferred_resolve_all(tmp_path):
     """Launch several chunks, then resolve them with one copy."""
-    bd, vt = _load(tmp_path, "spliced")
+    bd, vt, jax_host = _load(tmp_path, "spliced")
     parts = np.array_split(np.arange(len(bd)), 3)
     chunks = [bd.select(p) for p in parts]
     pend = [D.assign_alleles_auto(c, vt, baseq=10, device="cpu", defer=True)
             for c in chunks]
     for p in pend:
         p.wait()
-    for got, c in zip(D.resolve_all(pend), chunks):
-        _assert_equal_hits(got, jax_dispatch.assign_alleles_auto(
-            c, vt, baseq=10, device="host"))
+    for got, p in zip(D.resolve_all(pend), parts):
+        _assert_equal_hits(got, jax_host(p))
 
 
 def test_cap_file_is_the_ports_own(tmp_path, monkeypatch):
@@ -158,12 +176,12 @@ def test_cap_file_is_the_ports_own(tmp_path, monkeypatch):
 def test_fails_loud_without_gpu_or_native_packer(tmp_path, monkeypatch, spy):
     """No GPU: cuda raises.  No nibble packer: the masked-affine program
     takes the affine reads, as in phaser_tpu, with hits equal the host's."""
-    bd, vt = _load(tmp_path, "spliced")
+    bd, vt, jax_host = _load(tmp_path, "spliced")
     if not torch.cuda.is_available():
         for dev in ("cuda", "auto"):
             with pytest.raises(RuntimeError, match="CUDA"):
                 D.assign_alleles_auto(bd, vt, baseq=10, device=dev)
-    want = jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="host")
+    want = jax_host()
     monkeypatch.setattr(K, "pack_affine_nibble", lambda *a, **k: None)
     _assert_equal_hits(D.assign_alleles_auto(bd, vt, baseq=10, device="cpu"),
                        want)
@@ -190,19 +208,20 @@ def test_dispatch_without_native_packers(tmp_path, monkeypatch, spy, fixture,
     refpos plane for every non-affine read) and without only its delta
     packer (non-affine reads to the plane program), the port's hits equal
     the host mapper's and phaser_tpu's dispatcher's."""
-    from phaser_tpu.io import native
-    bd, vt = _load(tmp_path, fixture)
-    want = jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="host")
+    from phaser_tpu.io import native as jax_native
+    bd, vt, jax_host = _load(tmp_path, fixture)
+    want = jax_host()
     real = native.get_lib()
     assert real is not None
     stub = None if lib == "none" else _NoDeltaLib(real)
     monkeypatch.setattr(native, "get_lib", lambda: stub)
+    jax_real = jax_native.get_lib()
+    monkeypatch.setattr(jax_native, "get_lib", lambda: None if stub is None
+                        else _NoDeltaLib(jax_real))
     assert K.pack_delta_nibble(bd, 10) is None
     got = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu")
     _assert_equal_hits(got, want)
-    _assert_equal_hits(
-        jax_dispatch.assign_alleles_auto(bd, vt, baseq=10, device="auto"),
-        want)
+    _assert_equal_hits(jax_host(device="auto"), want)
     assert spy["delta_nibble"] == 0 and spy["plane"] > 0, spy
     if lib == "none":
         assert spy["affine_nibble"] == 0 and spy["affine_masked"] > 0, spy
@@ -211,13 +230,15 @@ def test_dispatch_without_native_packers(tmp_path, monkeypatch, spy, fixture,
 
 
 def test_pack_reads_numpy_matches_native(tmp_path, monkeypatch):
-    from phaser_tpu.io import native
     from phaser_tpu.kernels import alleles as J
-    bd, _ = _load(tmp_path, "spliced")
+    vcf, bam, _ = datagen.write_fixture_dir(str(tmp_path),
+                                            **FIXTURES["spliced"])
+    bd, _ = _read(vcf, bam, vcfio, varmap, bamio)
+    jbd, _ = _read(vcf, bam, jax_vcfio, jax_varmap, jax_bamio)
     want = K.pack_reads(bd)
     cq = K.pack_codes_quals(bd)
     am = K.pack_affine_masked(bd, 10)
-    for a, b in zip(am, J.pack_affine_masked(bd, 10)):
+    for a, b in zip(am, J.pack_affine_masked(jbd, 10)):
         np.testing.assert_array_equal(a, b)
     monkeypatch.setattr(native, "get_lib", lambda: None)
     for a, b in zip(K.pack_reads(bd), want):

@@ -17,22 +17,31 @@ from phaser_tpu.engine import blocks as jax_blocks
 from phaser_tpu.engine import phasing as jax_phasing
 from phaser_tpu.engine.connections import \
     build_connections as jax_build_connections
-from phaser_tpu.engine.hits import build_contig_rows, build_variant_reads
-from phaser_tpu.engine.varmap import build_variant_table
-from phaser_tpu.io import bam as bamio
-from phaser_tpu.io import vcf as vcfio
+from phaser_tpu.engine import hits as jax_hits
+from phaser_tpu.engine import varmap as jax_varmap
+from phaser_tpu.io import bam as jax_bamio
+from phaser_tpu.io import vcf as jax_vcfio
 from phaser_tpu.kernels import components as jax_components
 from phaser_tpu.kernels import paircount as jax_paircount
 from phaser_tpu.kernels import phasescore as jax_phasescore
-from phaser_tpu.mapper.host import assign_alleles
-from phaser_tpu_torch.engine import blocks, connections, phasing
+from phaser_tpu.mapper import host as jax_host
+from phaser_tpu_torch.engine import (blocks, connections, hits, phasing,
+                                     varmap)
+from phaser_tpu_torch.io import bam as bamio
+from phaser_tpu_torch.io import vcf as vcfio
 from phaser_tpu_torch.kernels import components, paircount, phasescore
+from phaser_tpu_torch.mapper import host
+
+PORT = (vcfio, varmap, bamio, host, hits)
+JAX = (jax_vcfio, jax_varmap, jax_bamio, jax_host, jax_hits)
 
 CPU = torch.device("cpu")
 
 
-def _variant_reads(tmp_path):
-    """tests/test_kernels.py:122-131's fixture as VariantReads."""
+def _variant_reads(tmp_path, side=PORT):
+    """tests/test_kernels.py:122-131's fixture as VariantReads, built with
+    the port's modules or (side=JAX) with phaser_tpu's from the same files."""
+    vcfio, varmap, bamio, host, hits = side
     vcf, bam, _ = datagen.write_fixture_dir(
         str(tmp_path), seed=2, contigs=("chr20",), contig_len=20000,
         n_variants_per_contig=80, n_reads_per_contig=1200,
@@ -40,12 +49,12 @@ def _variant_reads(tmp_path):
     lines = [l for l in vcfio.het_filtered_lines(vcf, 9)
              if not l.startswith("#")]
     hs = vcfio.parse_het_sites(lines, "", ["_", ":"], True)
-    vt = build_variant_table("chr20", hs.pool["chr20"])
+    vt = varmap.build_variant_table("chr20", hs.pool["chr20"])
     bd = bamio.read_bam(bam)
     chunk = bd.select((bd.refid == 0) & ((bd.flag & 0x404) == 0))
-    hits = assign_alleles(chunk, vt, baseq=10)
-    rows = build_contig_rows(vt, [(0, chunk, hits)], {0: None}, {0: 0})
-    return build_variant_reads(rows, [])
+    found = host.assign_alleles(chunk, vt, baseq=10)
+    rows = hits.build_contig_rows(vt, [(0, chunk, found)], {0: None}, {0: 0})
+    return hits.build_variant_reads(rows, [])
 
 
 @pytest.mark.parametrize("K", [4, 24])
@@ -89,7 +98,8 @@ def test_build_connections_gate_zero_matches_jax(tmp_path, monkeypatch):
     """With the gate at 0 every contig counts pairs on the device, with K
     caps that send some reads to the host combos."""
     vr = _variant_reads(tmp_path)
-    want = jax_build_connections(vr, 0.002, 0.01, device="host")
+    want = jax_build_connections(_variant_reads(tmp_path, JAX), 0.002, 0.01,
+                                 device="host")
     monkeypatch.setattr(connections, "DEVICE_PAIR_GATE", 0)
     for max_k in (2, 24):
         monkeypatch.setattr(connections, "MAX_K", max_k)

@@ -21,12 +21,14 @@ import numpy as np
 import pytest
 
 import datagen
-from phaser_tpu.engine.output_stage import PhaserOptions
+from phaser_tpu.engine.output_stage import PhaserOptions as JaxOptions
 from phaser_tpu.engine.pipeline import run_phaser as jax_run_phaser
-from phaser_tpu.io import bgzf
 from phaser_tpu_torch.cli import phaser_main
+from phaser_tpu_torch.engine.output_stage import PhaserOptions
+from phaser_tpu_torch.io import bgzf
 from phaser_tpu_torch.dist.engine_multihost import (MultihostReducer,
                                                     run_phaser_multiproc)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEXT = (".allelic_counts.txt", ".variant_connections.txt",
@@ -64,7 +66,7 @@ def _fixture(tmp_path, seed=31):
         n_variants_per_contig=70, n_reads_per_contig=700)
     single = str(tmp_path / "host_single")
     jax_run_phaser(vcf=vcf, bam=bam, sample="SAMPLE1", o=single, mapq="10",
-                   baseq=10, paired_end="1", opts=PhaserOptions(),
+                   baseq=10, paired_end="1", opts=JaxOptions(),
                    device="host", log=_quiet)
     return vcf, bam, single
 
@@ -202,7 +204,7 @@ def test_multiproc_worker_failure_fails_the_run(tmp_path):
         run_phaser_multiproc(2, vcf=vcf, bam=bam, sample="NOPE",
                              o=str(tmp_path / "mp"), mapq="10", baseq=10,
                              paired_end="1", opts=PhaserOptions(),
-                             timeout_s=120, log=_quiet)
+                             device="host", timeout_s=120, log=_quiet)
     assert not os.path.exists(str(tmp_path / "mp.haplotypes.txt"))
 
 

@@ -3,6 +3,7 @@
 six output files byte-identical to phaser_tpu's run_phaser(device="host");
 the port must never import jax and must fail loudly where it cannot run."""
 
+import dataclasses
 import filecmp
 import os
 import re
@@ -13,10 +14,17 @@ import pytest
 import torch
 
 import datagen
-from phaser_tpu.engine.output_stage import PhaserOptions
+from phaser_tpu.engine.output_stage import PhaserOptions as JaxOptions
 from phaser_tpu.engine.pipeline import run_phaser as jax_run_phaser
 from phaser_tpu_torch.cli import phaser_main
+from phaser_tpu_torch.engine.output_stage import PhaserOptions
 from phaser_tpu_torch.engine.pipeline import run_phaser
+
+
+def _jax_opts(opts):
+    """phaser_tpu's own options object with the port options' values."""
+    return JaxOptions(**dataclasses.asdict(opts))
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUFFIXES = (".allelic_counts.txt", ".variant_connections.txt",
@@ -47,8 +55,8 @@ def _reference(tmp_path, gen_kw, opts):
     vcf, bam, data = datagen.write_fixture_dir(str(tmp_path), **gen_kw)
     ref = str(tmp_path / "host")
     jax_run_phaser(vcf=vcf, bam=bam, sample=data.sample, o=ref, mapq="10",
-                   baseq=10, paired_end="1", opts=opts, device="host",
-                   log=lambda *x: None)
+                   baseq=10, paired_end="1", opts=_jax_opts(opts),
+                   device="host", log=lambda *x: None)
     return vcf, bam, data.sample, ref
 
 
@@ -188,3 +196,96 @@ def test_kernel_module_imports_without_nvcc_or_triton(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# the card is the default of every library entry point
+
+def _entry_points():
+    from phaser_tpu_torch.dist import engine_multihost as M
+    from phaser_tpu_torch.engine import blocks, connections, phasing
+    from phaser_tpu_torch.engine.slow_mode import run_phaser_slow
+    return {
+        "run_phaser": run_phaser,
+        "run_phaser_slow": run_phaser_slow,
+        "run_phaser_sharded_threads": M.run_phaser_sharded_threads,
+        "run_phaser_multihost": M.run_phaser_multihost,
+        "run_phaser_multiproc": M.run_phaser_multiproc,
+        "build_connections": connections.build_connections,
+        "find_blocks": blocks.find_blocks,
+        "phase_v3": phasing.phase_v3,
+        "sub_block_phase": phasing.sub_block_phase,
+    }
+
+
+ENTRY_NAMES = ["run_phaser", "run_phaser_slow", "run_phaser_sharded_threads",
+               "run_phaser_multihost", "run_phaser_multiproc",
+               "build_connections", "find_blocks", "phase_v3",
+               "sub_block_phase", "engine_multihost --device"]
+
+
+@pytest.mark.parametrize("name", ENTRY_NAMES)
+def test_entry_point_defaults_to_the_card(tmp_path, name):
+    """Called without `device`, an entry point runs on the card: its
+    default is "cuda", and on a machine without a card it raises before it
+    computes anything, as the CLI does."""
+    import inspect
+    from types import SimpleNamespace
+
+    from phaser_tpu_torch.dist import engine_multihost as M
+    no_card = not torch.cuda.is_available()
+    run = dict(vcf="missing.vcf.gz", bam="missing.bam", sample="S",
+               o=str(tmp_path / "o"), mapq="10", baseq=10, paired_end="1")
+    if name == "engine_multihost --device":
+        argv = ["--vcf", run["vcf"], "--bam", run["bam"], "--sample", "S",
+                "--o", run["o"], "--num-processes", "1", "--process-id", "0"]
+        if no_card:
+            with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+                M._mp_main(argv)
+        return
+    fn = _entry_points()[name]
+    if name == "run_phaser":  # a **kwargs wrapper around the engine
+        from phaser_tpu_torch.engine.pipeline import _run_phaser_inner
+        sig = inspect.signature(_run_phaser_inner)
+    else:
+        sig = inspect.signature(fn)
+    assert sig.parameters["device"].default == "cuda"
+    if not no_card:
+        return
+    calls = {
+        "run_phaser": lambda: fn(**run),
+        "run_phaser_slow": lambda: fn(**run),
+        "run_phaser_sharded_threads": lambda: fn(n_shards=2, **run),
+        "run_phaser_multihost": lambda: fn(num_processes=1, process_id=0,
+                                           **run),
+        "run_phaser_multiproc": lambda: fn(2, opts=PhaserOptions(), **run),
+        "build_connections": lambda: fn(None, 0.002, 0.01),
+        "find_blocks": lambda: fn(SimpleNamespace(adj={}), None),
+        "phase_v3": lambda: fn([0, 1], {}, {}, 15),
+        "sub_block_phase": lambda: fn([0, 1], {}),
+    }
+    # the inputs do not exist: reaching them would raise something else
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        calls[name]()
+
+
+def test_profile_dir_hook_writes_a_torch_profiler_trace(tmp_path, monkeypatch):
+    """PHASER_TPU_PROFILE_DIR: a tracer captures a torch.profiler trace of
+    its run and writes it there as a Chrome trace; a second tracer alive at
+    the same time (a shard thread) does not start a nested profiler."""
+    import json
+
+    from phaser_tpu_torch.utils.trace import Tracer
+    monkeypatch.setenv("PHASER_TPU_PROFILE_DIR", str(tmp_path / "prof"))
+    first, second = Tracer(), Tracer()
+    assert first._profiler is not None and second._profiler is None
+    with first.stage("work"):
+        torch.arange(1000).sum()
+    second.finish()
+    first.finish()
+    traces = os.listdir(str(tmp_path / "prof"))
+    assert len(traces) == 1 and traces[0].endswith(".json")
+    with open(str(tmp_path / "prof" / traces[0])) as fh:
+        assert json.load(fh)["traceEvents"]
+    monkeypatch.delenv("PHASER_TPU_PROFILE_DIR")
+    assert Tracer()._profiler is None

@@ -4,6 +4,7 @@ shards per contig, and the CLI.  Unlike phaser_tpu, the port skips a
 contig only when it has nothing to phase; any other RuntimeError (a
 missing card, a failed build, a device fault) fails the run."""
 
+import dataclasses
 import filecmp
 import os
 import subprocess
@@ -12,11 +13,18 @@ import sys
 import pytest
 
 import datagen
-from phaser_tpu.engine.output_stage import PhaserOptions
+from phaser_tpu.engine.output_stage import PhaserOptions as JaxOptions
 from phaser_tpu.engine.slow_mode import run_phaser_slow as jax_run_slow
 from phaser_tpu_torch.engine import slow_mode
+from phaser_tpu_torch.engine.output_stage import PhaserOptions
 from phaser_tpu_torch.engine.pipeline import run_phaser
 from phaser_tpu_torch.engine.slow_mode import run_phaser_slow
+
+
+def _jax_opts(opts):
+    """phaser_tpu's own options object with the port options' values."""
+    return JaxOptions(**dataclasses.asdict(opts))
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUFFIXES = (".allelic_counts.txt", ".variant_connections.txt",
@@ -49,7 +57,8 @@ def _fixture(tmp_path, seed=61, contig_len=15000, n_var=60, n_reads=800):
 
 def _jax_slow(tmp_path, vcf, bam, sample, opts, **kw):
     ref = str(tmp_path / "jax_slow")
-    jax_run_slow(vcf=vcf, bam=bam, sample=sample, o=ref, opts=opts,
+    jax_run_slow(vcf=vcf, bam=bam, sample=sample, o=ref,
+                 opts=_jax_opts(opts),
                  device="host", log=_quiet, **RUN, **kw)
     return ref
 

@@ -8,6 +8,7 @@ byte for byte, and the single-process host run's files: the five text
 files byte for byte, the VCF after BGZF decompression (the shard merge
 re-compresses the VCF body, in phaser_tpu as here)."""
 
+import dataclasses
 import filecmp
 import os
 import re
@@ -20,12 +21,19 @@ import pytest
 import datagen
 from phaser_tpu.dist.engine_multihost import \
     run_phaser_sharded_threads as jax_sharded
-from phaser_tpu.engine.output_stage import PhaserOptions
+from phaser_tpu.engine.output_stage import PhaserOptions as JaxOptions
 from phaser_tpu.engine.pipeline import run_phaser as jax_run_phaser
-from phaser_tpu.io import bgzf
 from phaser_tpu_torch.dist.engine_multihost import run_phaser_sharded_threads
+from phaser_tpu_torch.engine.output_stage import PhaserOptions
+from phaser_tpu_torch.io import bgzf
 from phaser_tpu_torch.engine import blocks, connections, phasing
 from phaser_tpu_torch.engine.pipeline import run_phaser
+
+
+def _jax_opts(opts):
+    """phaser_tpu's own options object with the port options' values."""
+    return JaxOptions(**dataclasses.asdict(opts))
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEXT = (".allelic_counts.txt", ".variant_connections.txt",
@@ -80,7 +88,8 @@ def _empty_shards_fixture(tmp_path):
 
 def _host_single(tmp_path, vcf, bam, opts=None):
     ref = str(tmp_path / "host_single")
-    jax_run_phaser(vcf=vcf, bam=bam, o=ref, opts=opts or PhaserOptions(),
+    jax_run_phaser(vcf=vcf, bam=bam, o=ref,
+                   opts=_jax_opts(opts or PhaserOptions()),
                    device="host", log=_quiet, **RUN)
     return ref
 
@@ -91,7 +100,8 @@ def _check_sharded(tmp_path, vcf, bam, n_shards, position_shards,
     and single-process run, both on the host."""
     opts = opts or PhaserOptions()
     want = str(tmp_path / "jax_sharded")
-    jax_sharded(n_shards=n_shards, vcf=vcf, bam=bam, o=want, opts=opts,
+    jax_sharded(n_shards=n_shards, vcf=vcf, bam=bam, o=want,
+                opts=_jax_opts(opts),
                 device="host", position_shards=position_shards, log=_quiet,
                 **RUN)
     got = str(tmp_path / "port_sharded")
@@ -226,7 +236,7 @@ def test_cli_threads_cpu_without_jax(tmp_path, threads):
     never imported."""
     vcf, bam = _fixture(tmp_path)
     want = str(tmp_path / "jax_sharded")
-    jax_sharded(n_shards=threads, vcf=vcf, bam=bam, o=want, opts=PhaserOptions(),
+    jax_sharded(n_shards=threads, vcf=vcf, bam=bam, o=want, opts=JaxOptions(),
                 device="host", position_shards=True, log=_quiet, **RUN)
     out = str(tmp_path / "cli")
     argv = ["--vcf", vcf, "--bam", bam, "--sample", "SAMPLE1", "--mapq",
