@@ -16,18 +16,18 @@ Phases (any failure exits non-zero; nothing here imports jax):
      host) and without the native nibble packer (the masked-affine path);
      the dispatcher's wall with its host items (cProfile) and its device
      share (torch.profiler); then one 262,144-row launch of each fused
-     kernel against its plain PyTorch version on the card (the range joins
-     affine_nibble and plane take no window; delta_nibble and affine_masked
-     run with planned windows and with the whole table; hits compared after
-     a (read, var) sort; timed with CUDA events); then the two range-join
-     kernels on the layouts of testing/layouts.py that reach every branch
-     (rows in random order, a table too dense for the shared-memory slice,
-     L of 256 and 384, lo > 0, empty rows, variants on first and last
-     bases, a one-entry table, the second and the first (2^22 entries)
-     slice of a table above the dispatcher's slice size, duplicate
-     positions), each also with a capacity of 4 (exact count past
-     capacity); then a small testing/datagen.py fixture with deletion
-     reads;
+     kernel against its plain PyTorch version on the card (all four are
+     range joins that take no window; the delta kernel gets per-row
+     [rp_min, rp_max]; hits compared after a (read, var) sort; timed with
+     CUDA events); then the four range-join kernels on the layouts of
+     testing/layouts.py that reach every branch (rows in random order, a
+     table too dense for the shared-memory slice, L of 256 and 384, lo > 0,
+     empty rows, variants on first and last bases, a one-entry table, the
+     second and the first (2^22 entries) slice of a table above the
+     dispatcher's slice size, duplicate positions, a masked trailing clip
+     at the position of an aligned base on a variant), each also with a
+     capacity of 4 (exact count past capacity); then a small
+     testing/datagen.py fixture with deletion reads;
   4. the kernel-level entries (assign_alleles_pallas_windowed with gather
      and cmp, assign_alleles_pallas with a resident table) on
      tests/test_tpu_hw.py's layout (M = 100k, N = 2^15, narrow regions, the
@@ -64,16 +64,20 @@ Each kernel's `ms` is the wrapper call timed with CUDA events over 20 calls
 enqueue as fast as the card runs), as in every earlier record.  `device_ms`
 is what one call keeps the card busy (torch.profiler's device time of the
 __global__ function plus the launcher's buffer fills), `kernel_ms` the
-__global__ function alone.  `plain_ms` is event-timed.  The share of bound
+__global__ function alone, `profiles` how many profiler windows it took to
+see the function (1 unless a window came back without device records).
+`plain_ms` is event-timed.  The share of bound
 is taken against `ms`.
 
 Each kernel's `bound_ms` is the larger of the bytes this run's inputs need
 moved over 3.35 TB/s and its integer operations over 67 T/s (the card's
-non-tensor rate); for the range joins the bytes are what the data needs
-(row parameters or the refpos plane, the table entries between the lowest
-and the highest position of the launch's rows, one 32-byte sector of a
-code plane per hit, 8 B per hit written), and the line printed before
-the record also gives the "every input byte once" figure.  `library_ms` is
+non-tensor rate); for the four range joins the bytes are what the data
+needs (row parameters or the refpos plane, the table entries between the
+lowest and the highest position of the launch's rows, for delta_nibble 8 B
+of [rp_min, rp_max] per row and `start` and the delta row only of the rows
+with a table entry in their range, one 32-byte sector of a code plane per
+hit, 8 B per hit written), and the line printed before the record also
+gives the "every input byte once" figure.  `library_ms` is
 null throughout: no single PyTorch call classifies bases against the table
 and compacts the hits (`torch.searchsorted` is only the lookup).
 
@@ -188,82 +192,84 @@ KERNEL_FN = {  # the __global__ function behind each kernel entry
 
 
 def device_ms(name, fn, iters=20):
-    """(device ms, kernel ms) per call from torch.profiler: the device time
-    of the kernel's __global__ function plus the launcher's memsets, and of
-    the function alone; None when the profiler reports no device time."""
+    """(device ms, kernel ms, profiles) per call from torch.profiler: the
+    device time of the kernel's __global__ function plus the launcher's
+    memsets, of the function alone, and how many profiles it took to see
+    the function (a profile now and then comes back without its device
+    records; the count goes into the kernels' record); None when three
+    profiles report no device time for it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernel_us = fill_us = 0.0
-    for e in prof.key_averages():
-        d = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0))
-        if KERNEL_FN[name] in e.key:
-            kernel_us += d
-        elif "memset" in e.key.lower():
-            fill_us += d
-    if not kernel_us:
-        return None
-    return (kernel_us + fill_us) / iters / 1e3, kernel_us / iters / 1e3
+    for attempt in (1, 2, 3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernel_us = fill_us = 0.0
+        keys = []
+        for e in prof.key_averages():
+            d = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+            if KERNEL_FN[name] in e.key:
+                kernel_us += d
+            elif "memset" in e.key.lower():
+                fill_us += d
+            if d:
+                keys.append(e.key[:60])
+        if kernel_us:
+            return ((kernel_us + fill_us) / iters / 1e3,
+                    kernel_us / iters / 1e3, attempt)
+        print("   profile without %s; device records: %s"
+              % (KERNEL_FN[name], keys), flush=True)
+    return None
 
 
-def kernel_vs_plain(name, kernel, plain, n_rows, modes):
-    """Kernel wrapper vs its plain version on the same CUDA tensors, once
-    per mode ("range-join" for the kernels that find their own table
-    ranges; "planned" / "whole-table" for the windowed ones).  Returns
-    (max_abs_err, ms, plain_ms, hits, (device_ms, kernel_ms)), timed in the
-    first mode, as the dispatcher would launch: ms is the wrapper call by
+def kernel_vs_plain(name, kernel, plain, n_rows):
+    """A range-join kernel's wrapper vs its plain version on the same CUDA
+    tensors.  Returns (max_abs_err, ms, plain_ms, hits, (device_ms,
+    kernel_ms)), as the dispatcher would launch: ms is the wrapper call by
     CUDA events (buffer fill and, where the host cannot enqueue faster than
     the card runs, host overhead included); the pair is device_ms()'s."""
     import numpy as np
     import torch
-    err, hits = 0, 0
-    for mode in modes:
-        nk, hk = sorted_hits(kernel(mode))
-        npl, hp = sorted_hits(plain(mode))
-        torch.cuda.synchronize()
-        check(nk == npl, "%s (%s): kernel found %d hits, plain %d"
-              % (name, mode, nk, npl))
-        if hk.size:
-            err = max(err, int(np.abs(hk - hp).max()))
-        hits = nk
-        print("   %-13s %-11s rows=%d hits=%d max_abs_err=%d"
-              % (name, mode, n_rows, nk, err), flush=True)
+    nk, hk = sorted_hits(kernel())
+    npl, hp = sorted_hits(plain())
+    torch.cuda.synchronize()
+    check(nk == npl, "%s: kernel found %d hits, plain %d" % (name, nk, npl))
+    err = int(np.abs(hk - hp).max()) if hk.size else 0
+    print("   %-13s range-join  rows=%d hits=%d max_abs_err=%d"
+          % (name, n_rows, nk, err), flush=True)
     check(err == 0, "%s: kernel disagrees with plain version" % name)
     # in turns (plain, kernel, kernel, plain); each number is the mean of two
-    first = modes[0]
-    p1 = time_ms(lambda: plain(first), 5)
-    k1 = time_ms(lambda: kernel(first), 20)
-    k2 = time_ms(lambda: kernel(first), 20)
-    p2 = time_ms(lambda: plain(first), 5)
+    p1 = time_ms(plain, 5)
+    k1 = time_ms(kernel, 20)
+    k2 = time_ms(kernel, 20)
+    p2 = time_ms(plain, 5)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    dev = device_ms(name, lambda: kernel(first))
+    dev = device_ms(name, kernel)
     check(dev is not None, "%s: the profiler saw no launch of %s"
           % (name, KERNEL_FN[name]))
     print("   %-13s wrapper call %.4f ms (%.4f, %.4f); on the card %.4f ms, "
-          "kernel alone %.4f ms   plain %.4f ms (%.4f, %.4f)   (%d rows, %s)"
-          % (name, ms, k1, k2, dev[0], dev[1], plain_ms, p1, p2, n_rows,
-             first), flush=True)
-    return err, ms, plain_ms, hits, dev
+          "kernel alone %.4f ms   plain %.4f ms (%.4f, %.4f)   (%d rows)"
+          % (name, ms, k1, k2, dev[0], dev[1], plain_ms, p1, p2, n_rows),
+          flush=True)
+    return err, ms, plain_ms, nk, dev
 
 
 def host_items(fn):
     """Wall of one dispatcher call under cProfile, with the cumulative
-    seconds of its host items (packers, planners, selects, uploads)."""
+    seconds of its host items (packers, selects, uploads; it plans no
+    window)."""
     import cProfile
     import pstats
 
     import torch
-    names = ("plan_windows_affine", "plan_windows_plane",
-             "plan_windows_minmax", "_plan_from_bounds", "_read_op_masks",
-             "select", "pack_affine_nibble", "pack_delta_nibble",
-             "pack_reads", "padded_table", "_upload", "assign_alleles",
-             "resolve", "decode_packed_hits")
+    names = ("_read_op_masks", "select", "pack_affine_nibble",
+             "pack_delta_nibble", "pack_reads", "padded_table", "_upload",
+             "assign_alleles", "resolve", "decode_packed_hits")
     pr = cProfile.Profile()
     t0 = time.perf_counter()
     pr.enable()
@@ -425,53 +431,72 @@ def chromosome_phase(tmp, device):
                   for x in (st, lo, hi))
     a_in = [T(x) for x in (nc, st, lo, hi)]
 
-    def affine(mode):
+    def affine():
         return K.assign_compact_affine_nibble(*a_in, table, cap)
 
-    def affine_plain(mode):
+    def affine_plain():
         return K.affine_nibble_plain(*a_in, table, cap)
 
     # delta inputs from the same reads: start - lo with zero deltas gives
     # the affine positions; every 4th read gets a 2-base deletion after
-    # base 33 (refpos shifts by 2 from there on)
+    # base 33 (refpos shifts by 2 from there on); [rmin, rmax] bounds each
+    # row's aligned positions, both 0 for a row without any
     L = 2 * nc.shape[1]
     dstart = np.where(ia, st - lo, 0).astype(np.int32)
     delta = np.zeros((n, L), np.int16)
     dele = ia & (np.arange(n) % 4 == 0)
     delta[dele, 33:] = 2
-    span = np.maximum(hi - lo, 1)
+    live = hi > lo
     rmin = st
-    rmax = (st + span - 1 + np.where(dele, 2, 0)).astype(np.int32)
-    ws_d = K.plan_windows_minmax(rmin, rmax, ia, vpos, n, min(256, n))
-    d_in = [T(x) for x in (nc, dstart, delta)]
-    ws_dt = None if ws_d is None else T(ws_d)
+    rmax = np.where(live, st + (hi - lo) - 1 + np.where(dele, 2, 0),
+                    0).astype(np.int32)
+    d_in = [T(x) for x in (nc, dstart, delta, rmin, rmax)]
 
-    def delta_k(mode):
-        return K.assign_compact_delta_nibble(
-            *d_in, table, cap, ws=ws_dt if mode == "planned" else None)
+    def delta_k():
+        return K.assign_compact_delta_nibble(*d_in, table, cap)
 
-    def delta_plain(mode):
-        w, win, R = K.window_args(ws_dt if mode == "planned" else None, n,
-                                  table, dev)
-        return K.delta_nibble_plain(*d_in, w, win, R, table, cap)
+    def delta_plain():
+        return K.delta_nibble_plain(*d_in, table, cap)
+
+    # the kernel and its plain version both trust [rmin, rmax]; a search per
+    # base over the whole table, which knows no range, must find the same
+    # (row, entry) pairs, so a bound that cut a hit off would show
+    nib = torch.stack((d_in[0] & 0xF, d_in[0] >> 4), dim=2).reshape(n, L)
+    rp = torch.where(
+        nib != 15,
+        d_in[1][:, None] + torch.arange(L, dtype=torch.int32, device=dev) +
+        d_in[2].to(torch.int32), 0)
+    vpos_t = table[0]
+    at = torch.searchsorted(vpos_t, rp).clamp_max(vpos_t.shape[0] - 1)
+    rows_ref, base_ref = torch.nonzero((rp > 0) & (vpos_t[at] == rp),
+                                       as_tuple=True)
+    ref_pairs = torch.stack((rows_ref, at[rows_ref, base_ref])).cpu().numpy()
+    got = K.decode_packed_hits(delta_k().cpu().numpy())
+    order = np.lexsort((got[1], got[0]))
+    check(got[4] == ref_pairs.shape[1] and
+          np.array_equal(np.stack((got[0], got[1]))[:, order],
+                         ref_pairs[:, np.lexsort((ref_pairs[1],
+                                                  ref_pairs[0]))]),
+          "delta_nibble: %d hits, a search per base with no range finds %d, "
+          "or their (row, entry) pairs differ"
+          % (got[4], ref_pairs.shape[1]))
+    print("   delta_nibble: %d hits, the (row, entry) pairs of a search per "
+          "base that knows no [rp_min, rp_max]" % got[4], flush=True)
+    del nib, rp, at, rows_ref, base_ref
 
     mcodes, aff_m, st_m, lo_m, hi_m = K.pack_affine_masked(bd, 10)
     ia_m = aff_m[:n]
-    m_in = [T(np.where(ia_m[:, None], mcodes[:n], 15).astype(np.uint8))] + \
-        [T(np.where(ia_m, x[:n], 0).astype(np.int32))
-         for x in (st_m, lo_m, hi_m)]
-    ws_m = K.plan_windows_affine(*[x.cpu().numpy() for x in m_in[1:]],
-                                 ia_m, vpos, n, min(256, n))
-    ws_mt = None if ws_m is None else T(ws_m)
+    st_m, lo_m, hi_m = (np.where(ia_m, x[:n], 0).astype(np.int32)
+                        for x in (st_m, lo_m, hi_m))
+    m_in = [T(x) for x in (
+        np.where(ia_m[:, None], mcodes[:n], 15).astype(np.uint8), st_m, lo_m,
+        hi_m)]
 
-    def masked_k(mode):
-        return K.assign_compact_affine_masked(
-            *m_in, table, cap, ws=ws_mt if mode == "planned" else None)
+    def masked_k():
+        return K.assign_compact_affine_masked(*m_in, table, cap)
 
-    def masked_plain(mode):
-        w, win, R = K.window_args(ws_mt if mode == "planned" else None, n,
-                                  table, dev)
-        return K.affine_masked_plain(*m_in, w, win, R, table, cap)
+    def masked_plain():
+        return K.affine_masked_plain(*m_in, table, cap)
 
     sub = bd.select(np.flatnonzero(~aff_all)[:SUB_ROWS])
     codes, quals, refpos = K.pack_reads(sub)
@@ -479,74 +504,77 @@ def chromosome_phase(tmp, device):
     p_in = [T(x) for x in (codes, quals, refpos)]
     L_p = codes.shape[1]
 
-    def plane(mode):
+    def plane():
         return K.assign_compact_plane(*p_in, 10, table, cap)
 
-    def plane_plain(mode):
+    def plane_plain():
         return K.plane_plain(*p_in, 10, table, cap)
 
     print("   table: %d entries (Mp), L=%d" % (table[0].shape[0], L),
           flush=True)
     mp = int(table[0].shape[0])
     tab_bytes = mp * TABLE_ROW_BYTES
-    # the range joins read only the table entries under their rows: those
-    # between the launch's lowest and highest position
-    live = hi > lo
-    a_tab_bytes = TABLE_ROW_BYTES * max(int(
-        np.searchsorted(vpos, (st + hi - lo)[live].max()) -
-        np.searchsorted(vpos, st[live].min())), 0)
+
+    def under(pmin, pmax, has):
+        """Table entries between the lowest and the highest position of a
+        launch's rows (what a range join reads of the table), and per row
+        the entries in its own [pmin, pmax]."""
+        k0 = np.searchsorted(vpos, pmin)
+        k1 = np.searchsorted(vpos, pmax, side="right")
+        per_row = np.where(has, np.maximum(k1 - k0, 0), 0)
+        span = int(k1[has].max() - k0[has].min()) if has.any() else 0
+        return max(span, 0), per_row
+    a_under, _ = under(st, st + (hi - lo) - 1, live)
+    m_under, _ = under(st_m, st_m + (hi_m - lo_m) - 1, hi_m > lo_m)
+    d_under, d_range = under(rmin, rmax, rmax > 0)
+    d_live = int((d_range > 0).sum())   # rows that read their delta row
+    p_under, p_range = under(
+        np.where(refpos > 0, refpos, np.iinfo(np.int32).max).min(1),
+        refpos.max(1), refpos.max(1) > 0)
     Lh = nc.shape[1]
     steps = max(mp.bit_length() - 1, 1)          # binary-search depth
-    # entries under each plane row: what its per-lane matching loops over
-    k0 = np.searchsorted(vpos, np.where(refpos > 0, refpos,
-                                        np.iinfo(np.int32).max).min(1))
-    k1 = np.searchsorted(vpos, refpos.max(1), side="right")
-    mean_range = float(np.maximum(k1 - k0, 0).mean())
-    has_pos = refpos.max(1) > 0
-    p_tab_bytes = TABLE_ROW_BYTES * max(int(k1[has_pos].max() -
-                                            k0[has_pos].min()), 0)
     print("   table entries under the launch's rows: affine_nibble %d, "
-          "plane %d of %d" % (a_tab_bytes // TABLE_ROW_BYTES,
-                              p_tab_bytes // TABLE_ROW_BYTES, mp), flush=True)
-    windowed = lambda w: ("planned", "whole-table") if w is not None \
-        else ("whole-table",)  # noqa: E731
+          "delta_nibble %d (%d of %d rows have an entry in their range), "
+          "plane %d, affine_masked %d of %d"
+          % (a_under, d_under, d_live, n, p_under, m_under, mp), flush=True)
     results, bounds = {}, {}
-    for name, k, p, rows, modes in (
-            ("affine_nibble", affine, affine_plain, n, ("range-join",)),
-            ("delta_nibble", delta_k, delta_plain, n, windowed(ws_d)),
-            ("plane", plane, plane_plain, n_p, ("range-join",)),
-            # the dispatcher launches affine_masked on the whole table
-            ("affine_masked", masked_k, masked_plain, n,
-             windowed(ws_m)[::-1])):
-        if modes == ("whole-table",):  # no plan found
-            print("   %s: a row block overflows the 256-entry window; "
-                  "whole-table launch only" % name, flush=True)
-        err, ms, plain_ms, hits, on_card = kernel_vs_plain(name, k, p, rows,
-                                                           modes)
+    for name, k, p, rows in (
+            ("affine_nibble", affine, affine_plain, n),
+            ("delta_nibble", delta_k, delta_plain, n),
+            ("plane", plane, plane_plain, n_p),
+            ("affine_masked", masked_k, masked_plain, n)):
+        err, ms, plain_ms, hits, on_card = kernel_vs_plain(name, k, p, rows)
         results[name] = (err, ms, plain_ms, on_card)
         out_bytes = 8 * hits + 4
-        win_steps = 8 if modes[0] == "planned" else steps
         if name == "affine_nibble":
-            need = rows * 12 + a_tab_bytes + 32 * hits + out_bytes
-            every = rows * (12 + Lh) + tab_bytes + out_bytes
+            need = rows * 12 + a_under * TABLE_ROW_BYTES + 32 * hits
+            every = rows * (12 + Lh) + tab_bytes
             ops = rows * 2 * steps + 12 * hits
-        elif name == "plane":
-            need = rows * L_p * 4 + p_tab_bytes + 64 * hits + out_bytes
-            every = rows * L_p * 6 + tab_bytes + out_bytes
-            ops = rows * L_p * (2 + mean_range) + rows * 2 * 4 * 32
+        elif name == "affine_masked":
+            need = rows * 12 + m_under * TABLE_ROW_BYTES + 32 * hits
+            every = rows * (12 + L) + tab_bytes
+            ops = rows * 2 * steps + 12 * hits
         elif name == "delta_nibble":
-            need = every = rows * (Lh + 2 * L + 4) + tab_bytes + out_bytes
-            ops = rows * L * 2 * win_steps
-        else:  # affine_masked
-            need = every = rows * (L + 12) + tab_bytes + out_bytes
-            ops = rows * L * 2 * win_steps
-        bounds[name] = bound_of(need, ops) + (bound_of(every, ops)[0],)
+            # [rp_min, rp_max] of every row (8 B); start (4 B) and the
+            # 2 B/base delta row only of rows with an entry in their range;
+            # a nibble sector per hit
+            need = rows * 8 + d_live * (4 + 2 * L) + \
+                d_under * TABLE_ROW_BYTES + 32 * hits
+            every = rows * (12 + Lh + 2 * L) + tab_bytes
+            ops = rows * 4 * steps + \
+                int((d_range * (2 + L)).sum()) + 12 * hits
+        else:  # plane
+            need = rows * L_p * 4 + p_under * TABLE_ROW_BYTES + 64 * hits
+            every = rows * L_p * 6 + tab_bytes
+            ops = rows * L_p * (2 + float(p_range.mean())) + rows * 2 * 4 * 32
+        bounds[name] = bound_of(need + out_bytes, ops) + \
+            (bound_of(every + out_bytes, ops)[0],)
     torch.cuda.synchronize()
     return results, bounds, masked_launches["affine_masked"], chrom_launches
 
 
 def branch_shapes_phase(device):
-    """The two range-join kernels against their plain versions on the
+    """The four range-join kernels against their plain versions on the
     layouts that reach every branch (testing/layouts.py), 20,000 rows each,
     with room for every hit and with a capacity of 4."""
     import numpy as np
@@ -561,12 +589,20 @@ def branch_shapes_phase(device):
                          contig=4_000_000)
         table = tuple(T(x) for x in layouts.padded_table(d))
         a_in = [T(x) for x in layouts.affine_inputs(d)]
+        m_in = [T(x) for x in layouts.masked_inputs(d)]
+        d_in = [T(x) for x in layouts.delta_inputs(d)]
         p_in = [T(x) for x in layouts.plane_inputs(d)]
         line = []
         for prog, kernel, plain in (
                 ("affine_nibble",
                  lambda c: K.assign_compact_affine_nibble(*a_in, table, c),
                  lambda c: K.affine_nibble_plain(*a_in, table, c)),
+                ("affine_masked",
+                 lambda c: K.assign_compact_affine_masked(*m_in, table, c),
+                 lambda c: K.affine_masked_plain(*m_in, table, c)),
+                ("delta_nibble",
+                 lambda c: K.assign_compact_delta_nibble(*d_in, table, c),
+                 lambda c: K.delta_nibble_plain(*d_in, table, c)),
                 ("plane",
                  lambda c: K.assign_compact_plane(*p_in, 10, table, c),
                  lambda c: K.plane_plain(*p_in, 10, table, c))):
@@ -583,10 +619,11 @@ def branch_shapes_phase(device):
                   int((small[0, 1:] >= 0).sum()) == min(4, nk),
                   "%s on layout %s: capacity 4 reported %d of %d hits"
                   % (prog, name, int(small[0, 0]), nk))
-            line.append("%s %d hits" % (prog, nk))
-        print("   %-12s L=%-3d Mp=%-8d %s; max_abs_err 0, exact count past "
-              "capacity" % (name, d["codes"].shape[1], table[0].shape[0],
-                            ", ".join(line)), flush=True)
+            line.append("%s %d" % (prog, nk))
+        print("   %-12s L=%-3d Mp=%-8d hits: %s; max_abs_err 0, exact count "
+              "past capacity" % (name, d["codes"].shape[1],
+                                 table[0].shape[0], ", ".join(line)),
+              flush=True)
 
 
 def small_delta_phase(tmp, device):
@@ -1214,19 +1251,24 @@ def main() -> int:
     print("   kernel            ms (on the card, kernel alone)  plain ms  "
           "bound ms (by)  share of bound (of the time on the card)  "
           "launches: 5M-read call / 1M-read e2e   [%s]" % smi)
-    for name, (err, ms, plain_ms, (dev_ms, kernel_ms)) in results.items():
+    for name, (err, ms, plain_ms, (dev_ms, kernel_ms, profiles)) in \
+            results.items():
         bound_ms, bound_by = bounds[name][:2]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "device_ms": dev_ms, "kernel_ms": kernel_ms})
+            "device_ms": dev_ms, "kernel_ms": kernel_ms,
+            "profiles": profiles})
         line = ("   %-15s %.4f (%.4f, %.4f)  %.4f  %.4f (%s)  %.1f%% (%.1f%%)  "
                 "%d / %d") % (
             name, ms, dev_ms, kernel_ms, plain_ms, bound_ms, bound_by,
             100.0 * bound_ms / ms, 100.0 * bound_ms / dev_ms,
             chrom_launches.get(name, 0), e2e_launches.get(name, 0))
+        if name == "affine_masked":
+            line += "   (%d on the 5M-read call without the nibble packer)" \
+                % masked_launches
         if len(bounds[name]) > 2 and bounds[name][2] != bound_ms:
             kernels[-1]["bound_every_input_byte_ms"] = bounds[name][2]
             line += "   (every input byte once: %.4f ms, %.1f%%)" % (

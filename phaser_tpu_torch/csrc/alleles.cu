@@ -1,9 +1,9 @@
 // Allele-assignment kernels for Hopper (sm_90a): per-base hit
 // classification against the sorted variant table.
 //
-// One classifier (lookup / classify) serves every entry point.  The fused
-// entries rebuild each base's (masked code, 1-based reference position) from
-// their read format and compact hits into the packed-hit stream:
+// The fused entries rebuild each base's (masked code, 1-based reference
+// position) from their read format and compact hits into the packed-hit
+// stream.  All four are range joins (below):
 //
 //   affine_nibble  replaces phaser_tpu/kernels/alleles.py:975
 //                  (_nibble_windowed_impl -> _alleles_pallas_windowed_kernel,
@@ -15,7 +15,7 @@
 //   affine_masked  replaces the jnp program assign_compact_affine_masked
 //                  (alleles.py:246-259): the affine rebuild from a 1 B/base
 //                  masked plane, the dispatcher's path without the nibble
-//                  packer.
+//                  packer.  One body with affine_nibble, over the code fetch.
 //
 // The unfused kernel-level entries write the (n_rows, l) int32 vidx and
 // allele planes of assign_alleles_device instead (vidx = table index or -1,
@@ -27,19 +27,22 @@
 //                  _alleles_pallas_kernel (:627, via assign_alleles_pallas).
 //   planes_cmp     replaces _alleles_pallas_cmp_kernel (alleles.py:757).
 //
-// Table search, range-join entries (affine_nibble, plane).  The hits of a
-// row are the table entries whose position lies in the row's reference
-// range, so these two kernels find that range on the card (no host planner,
-// no window argument) and visit its entries instead of searching once per
-// base.  See the note above each kernel.
+// Table search, range-join entries (affine_nibble, affine_masked,
+// delta_nibble, plane: every fused entry).  The hits of a row are the table
+// entries whose position lies in the row's reference range, so these kernels
+// find that range on the card (no host planner, no window argument) and
+// visit its entries instead of searching once per base.  The affine kernels
+// compute the range from (start, lo, hi), the delta kernel takes it from the
+// packer's per-row [rp_min, rp_max], the plane kernel reduces it from the
+// refpos plane.  See the note above each kernel.
 //
-// Table search, windowed entries (delta_nibble, affine_masked, planes,
-// planes_cmp).  Row r belongs to row block b = r / block_rows; the block
-// searches table entries [ws[b], min(ws[b] + win, mp)).  The host planners
-// pick ws so that every position the block can hit lies in that range; the
-// unplanned case passes ws = {0} and win = mp (the whole table).  The table
-// stays in global memory (L2-resident: 4 x 4 B x 128k entries = 2 MB) except
-// in the planes kernel's resident mode.
+// Table search, windowed entries (planes, planes_cmp).  Row r belongs to row
+// block b = r / block_rows; the block searches table entries
+// [ws[b], min(ws[b] + win, mp)).  The host planner picks ws so that every
+// position the block can hit lies in that range; the unplanned case passes
+// ws = {0} and win = mp (the whole table).  The table stays in global memory
+// (L2-resident: 4 x 4 B x 128k entries = 2 MB) except in the planes kernel's
+// resident mode.
 //
 // Packed output (fused entries): one int32 (2, cap + 1) buffer, filled with
 // -1 and with out[0] = 0 (the hit counter) by its launcher.  A hit takes a
@@ -49,16 +52,18 @@
 // hit count and overflow is visible to the caller.  Hit order is arbitrary
 // (the caller lexsorts).
 //
-// Bound.  About one base in 2,000 lies on a variant, so what a launch must
-// move depends on its data: the per-row parameters (12 B per affine row) or
-// the refpos plane (4 B per base), the table entries under the launch's
-// rows (16 B per entry), one 32-byte sector of the code planes per hit, and
-// 8 B per hit written.  The range-join kernels read little more than that:
-// one search per row (or per block, then in shared memory) instead of one
-// per base, and plane bytes only where a position matched.  The windowed
-// kernels still read their whole planes (1, 2.5 or 6 B per base) and make a
-// dependent chain of ~log2(win) L2 loads per aligned unmasked base, which is
-// what bounds them.
+// Bound.  About one base in 2,000 lies on a variant and about one row in
+// twenty has any table entry under it, so what a fused launch must move
+// depends on its data: the per-row parameters (12 B per affine row, the
+// 8 B of [rp_min, rp_max] per delta row) or the refpos plane (4 B per base),
+// the table entries under the launch's rows (16 B per entry), `start` and
+// the delta row (2 B per base) of a row with an entry under it, one
+// 32-byte sector of the code planes per hit, and 8 B per hit written.  The
+// range joins read little more than that: one search per row
+// (or per block, then in shared memory) instead of one per base, and plane
+// bytes only where a position matched.  What is left is latency (parameter
+// loads, block barriers, the search's dependent loads), not bytes.  The
+// unfused planes kernels read 6 B and write 8 B per base whatever the data.
 //
 // Index arithmetic is int32 inside a row plane: the wrappers assert
 // n_rows * L < 2^31.
@@ -116,18 +121,6 @@ __device__ __forceinline__ int lookup(int masked, int refpos,
   return lo;
 }
 
-// The packed hit word of a base, or -1.
-__device__ __forceinline__ int classify(int masked, int refpos,
-                                        const int32_t* __restrict__ vpos,
-                                        const int32_t* __restrict__ a0,
-                                        const int32_t* __restrict__ a1,
-                                        const int32_t* __restrict__ ni,
-                                        int w0, int wn) {
-  int allele;
-  int v = lookup<true>(masked, refpos, vpos, a0, a1, ni, w0, wn, &allele);
-  return v < 0 ? -1 : (v << 8) | (masked << 4) | allele;
-}
-
 // Window [w0, w0 + wn) of the row's block.
 __device__ __forceinline__ void window(int row, const int32_t* __restrict__ ws,
                                        int win, int block_rows, int mp,
@@ -136,40 +129,6 @@ __device__ __forceinline__ void window(int row, const int32_t* __restrict__ ws,
   *w0 = __ldg(ws + b);
   int rest = mp - *w0;
   *wn = win < rest ? win : rest;
-}
-
-// Warp-aggregated compaction of up to two hits per thread.  Every lane of
-// the warp must call this (lanes without work pass words of -1).
-__device__ __forceinline__ void emit2(int row, int word0, int word1,
-                                      int32_t* __restrict__ out, int cap) {
-  const unsigned full = 0xffffffffu;
-  int lane = threadIdx.x & 31;
-  int mine = (word0 >= 0) + (word1 >= 0);
-  int incl = mine;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    int y = __shfl_up_sync(full, incl, d);
-    if (lane >= d) incl += y;
-  }
-  int total = __shfl_sync(full, incl, 31);
-  if (total == 0) return;
-  int base = 0;
-  if (lane == 31) base = atomicAdd(out, total);
-  base = __shfl_sync(full, base, 31);
-  int slot = base + incl - mine;
-  int32_t* reads = out + 1;
-  int32_t* words = out + (cap + 1) + 1;
-  if (word0 >= 0) {
-    if (slot < cap) {
-      reads[slot] = row;
-      words[slot] = word0;
-    }
-    ++slot;
-  }
-  if (word1 >= 0 && slot < cap) {
-    reads[slot] = row;
-    words[slot] = word1;
-  }
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -208,10 +167,11 @@ __device__ __forceinline__ void narrow32(bool before, int step, int* lo,
 }
 
 // Cooperative 32-ary search by one warp (all 32 lanes must call): the first
-// index in [0, n) of the sorted v whose entry is >= key, or n.  Each step
-// probes 32 evenly spaced entries and one ballot narrows the range 32-fold:
-// 4 steps for 131,072 entries where a binary search takes 17 dependent
-// loads.
+// index in [0, n) of the sorted v whose entry is >= key (kUpper: > key), or
+// n.  Each step probes 32 evenly spaced entries and one ballot narrows the
+// range 32-fold: 4 steps for 131,072 entries where a binary search takes 17
+// dependent loads.
+template <bool kUpper = false>
 __device__ __forceinline__ int warp_bound(const int32_t* __restrict__ v, int n,
                                           int key) {
   int lane = threadIdx.x & 31;
@@ -220,19 +180,23 @@ __device__ __forceinline__ int warp_bound(const int32_t* __restrict__ v, int n,
     int step = (len + 31) >> 5;
     int idx = lo + (lane + 1) * step - 1;
     bool before = false;
-    if (idx < lo + len) before = __ldg(v + idx) < key;
+    if (idx < lo + len) {
+      int e = __ldg(v + idx);
+      before = kUpper ? e <= key : e < key;
+    }
     narrow32(before, step, &lo, &len);
   }
   return lo;
 }
 
-// Lower bound of key in v[0, n) by one thread.
-template <bool kGlobal>
+// Lower bound (kUpper: upper bound) of key in v[0, n) by one thread.
+template <bool kGlobal, bool kUpper = false>
 __device__ __forceinline__ int lower_bound(const int32_t* v, int n, int key) {
   int lo = 0;
   while (n > 0) {
     int half = n >> 1;
-    if (tload<kGlobal>(v + lo + half) < key) {
+    int e = tload<kGlobal>(v + lo + half);
+    if (kUpper ? e <= key : e < key) {
       lo += half + 1;
       n -= half + 1;
     } else {
@@ -244,14 +208,43 @@ __device__ __forceinline__ int lower_bound(const int32_t* v, int n, int key) {
 
 constexpr int kStage = 2048;  // table entries a block stages (4 x 8 KB)
 
+// The masked code of base i of a row: a nibble of the packed plane (even
+// base in the low nibble) or a byte of the 1 B/base masked plane.
+template <bool kNibble>
+__device__ __forceinline__ int code_at(const uint8_t* __restrict__ crow,
+                                       int i) {
+  if constexpr (kNibble) {
+    int byte = __ldg(crow + (i >> 1));
+    return (i & 1) ? (byte >> 4) : (byte & 0xF);
+  } else {
+    return __ldg(crow + i);
+  }
+}
+
+// Packed hit word of observed code `masked` (not 15) on table entry k of the
+// slice tv/t0/t1/tni, whose first entry has table index tbase.
+template <bool kGlobal>
+__device__ __forceinline__ int hit_word(int masked, int k, const int32_t* t0,
+                                        const int32_t* t1, const int32_t* tni,
+                                        int tbase) {
+  int n_ind = tload<kGlobal>(tni + k);
+  int allele = 2;
+  if (masked == tload<kGlobal>(t0 + k) && n_ind > 0) {
+    allele = 0;
+  } else if (masked == tload<kGlobal>(t1 + k) && n_ind > 1) {
+    allele = 1;
+  }
+  return ((tbase + k) << 8) | (masked << 4) | allele;
+}
+
 // The rows of one affine block, one row per thread: search the row's start
 // in the table slice tv[0, tn_) (staged in shared memory, or the whole table
 // in global memory), then walk the entries inside the row's range.  Entry
 // indices are reported as tbase + local index.  All 32 lanes of a warp stay
 // in the emission loop while any of them still has a candidate.
-template <bool kGlobal>
+template <bool kGlobal, bool kNibble>
 __device__ __forceinline__ void affine_rows(
-    const uint8_t* __restrict__ nrow, bool live, int row, int p0, int span,
+    const uint8_t* __restrict__ crow, bool live, int row, int p0, int span,
     int i0, const int32_t* tv, const int32_t* t0, const int32_t* t1,
     const int32_t* tni, int tn_, int tbase, int32_t* __restrict__ out,
     int cap) {
@@ -280,44 +273,146 @@ __device__ __forceinline__ void affine_rows(
       prev = p;
       int kk = k++;
       if (!first || p <= 0) continue;
-      int i = i0 + (int)off;
-      int byte = __ldg(nrow + (i >> 1));
-      int nib = (i & 1) ? (byte >> 4) : (byte & 0xF);
-      if (nib == 15) continue;
-      int n_ind = tload<kGlobal>(tni + kk);
-      int allele = 2;
-      if (nib == tload<kGlobal>(t0 + kk) && n_ind > 0) {
-        allele = 0;
-      } else if (nib == tload<kGlobal>(t1 + kk) && n_ind > 1) {
-        allele = 1;
-      }
-      word = ((tbase + kk) << 8) | (nib << 4) | allele;
+      int code = code_at<kNibble>(crow, i0 + (int)off);
+      if (code == 15) continue;
+      word = hit_word<kGlobal>(code, kk, t0, t1, tni, tbase);
       break;
     }
     emit1(row, word, out, cap);
   }
 }
 
-// Replaces phaser_tpu/kernels/alleles.py:975 (_nibble_windowed_impl over the
-// Pallas body at :673, with its host planner plan_windows_affine) as a range
-// join.  An affine row covers the reference positions [p0, p0 + span), so its
-// hits are exactly the table entries in that range: one search per ROW finds
-// the first, and the row walks entries while they stay inside.  The base
-// under entry k is i0 + vpos[k] - p0, read from the one byte that holds its
-// nibble (even base in the low nibble); a masked nibble (15) emits nothing.
+// Per-block state of the kernels that stage a table slice in shared memory.
+struct BlockTable {
+  int32_t sv[kStage], s0[kStage], s1[kStage], sn[kStage];
+  int red_min[kThreads / 32], red_max[kThreads / 32];
+  int slice[2];
+};
+
+// The table slice under a block whose live rows cover the positions
+// [mn, mx] (mn = INT32_MAX and mx = INT32_MIN from a thread without a live
+// row): reduces the range over the block, finds the slice with two
+// cooperative 32-ary warp searches and, when it holds at most kStage
+// entries, stages its four columns in bt with 16-byte asynchronous copies
+// (cp.async).  Returns false, uniformly, when no table entry lies under the
+// block.  Sets *k_lo (the slice's first table index, rounded down to 4
+// entries for the copies), *n_slice and *staged.  Every thread of the block
+// must call; mp is a multiple of 4.
+__device__ __forceinline__ bool block_slice(
+    BlockTable& bt, int mn, int mx, const int32_t* __restrict__ vpos,
+    const int32_t* __restrict__ a0, const int32_t* __restrict__ a1,
+    const int32_t* __restrict__ ni, int mp, int* k_lo, int* n_slice,
+    bool* staged) {
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    int omn = __shfl_xor_sync(kFull, mn, d);
+    int omx = __shfl_xor_sync(kFull, mx, d);
+    mn = omn < mn ? omn : mn;
+    mx = omx > mx ? omx : mx;
+  }
+  if (lane == 0) {
+    bt.red_min[warp] = mn;
+    bt.red_max[warp] = mx;
+  }
+  __syncthreads();
+  mn = bt.red_min[0];
+  mx = bt.red_max[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) {
+    mn = bt.red_min[w] < mn ? bt.red_min[w] : mn;
+    mx = bt.red_max[w] > mx ? bt.red_max[w] : mx;
+  }
+  if (mx < mn) return false;  // no live row in this block
+
+  // the block's table slice [slice[0], slice[1]): one warp per end
+  if (warp == 0) {
+    int k = warp_bound(vpos, mp, mn);
+    if (lane == 0) bt.slice[0] = k;
+  } else if (warp == 1) {
+    int k = warp_bound<true>(vpos, mp, mx);
+    if (lane == 0) bt.slice[1] = k;
+  }
+  __syncthreads();
+  *k_lo = bt.slice[0] & ~3;  // 16-byte aligned for the copies
+  *n_slice = bt.slice[1] - *k_lo;
+  if (*n_slice <= 0) return false;  // no table entry under this block
+  *staged = *n_slice <= kStage;
+  if (*staged) {
+    // mp is a multiple of 4, so every 4-entry chunk from k_lo lies inside
+    int chunks = (*n_slice + 3) >> 2;
+    for (int c = threadIdx.x; c < chunks; c += kThreads) {
+      int g = *k_lo + 4 * c;
+      __pipeline_memcpy_async(bt.sv + 4 * c, vpos + g, 16);
+      __pipeline_memcpy_async(bt.s0 + 4 * c, a0 + g, 16);
+      __pipeline_memcpy_async(bt.s1 + 4 * c, a1 + g, 16);
+      __pipeline_memcpy_async(bt.sn + 4 * c, ni + g, 16);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+  return true;
+}
+
+// The affine range join, one body for both code planes (kNibble: the
+// (n_rows, l / 2) nibble plane; else the (n_rows, l) masked byte plane).
+// An affine row covers the reference positions [p0, p0 + span), so its hits
+// are exactly the table entries in that range: one search per ROW finds the
+// first, and the row walks entries while they stay inside.  The base under
+// entry k is i0 + vpos[k] - p0, read from the one byte that holds its code;
+// a masked code (15) emits nothing.
 //
 // Bound: 12 B of parameters per row, the table entries between the rows'
-// lowest and highest position, one 32-byte sector of the nibble plane per
-// hit and 8 B per hit written; per row the work is one
-// search plus its hits, against rows x L x log2(win) dependent loads for a
-// search per base.  What the design does about it: a block takes 256
-// consecutive rows (BAM order is position order), reduces their
-// [min p0, max p0 + span), finds that table slice with two cooperative
-// 32-ary warp searches, and when the slice fits kStage entries stages its
-// four columns in shared memory with 16-byte asynchronous copies
-// (cp.async), so each row's own search and walk run in shared memory.  A
-// block whose slice does not fit (rows in no order, a dense table) searches
-// the whole table in global memory; the result is the same.
+// lowest and highest position, one 32-byte sector of the code plane per
+// hit and 8 B per hit written; per row the work is one search plus its
+// hits, against rows x L x log2(win) dependent loads for a search per base.
+// What the design does about it: a block takes 256 consecutive rows (BAM
+// order is position order), finds the table slice under them (block_slice)
+// and, when the slice fits kStage entries, runs each row's own search and
+// walk in shared memory.  A block whose slice does not fit (rows in no
+// order, a dense table) searches the whole table in global memory; the
+// result is the same.
+template <bool kNibble>
+__device__ __forceinline__ void affine_body(
+    const uint8_t* __restrict__ codes, const int32_t* __restrict__ start,
+    const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
+    int n_rows, int l, const int32_t* __restrict__ vpos,
+    const int32_t* __restrict__ a0, const int32_t* __restrict__ a1,
+    const int32_t* __restrict__ ni, int mp, int32_t* __restrict__ out,
+    int cap) {
+  __shared__ __align__(16) BlockTable bt;
+
+  int row = blockIdx.x * kThreads + threadIdx.x;
+  bool live = false;
+  int p0 = 0, span = 0, i0 = 0;
+  if (row < n_rows) {
+    int s = __ldg(start + row), w = __ldg(lo + row), h = __ldg(hi + row);
+    i0 = w > 0 ? w : 0;
+    int i1 = h < l ? h : l;
+    span = i1 - i0;
+    p0 = s + (i0 - w);
+    live = span > 0;
+  }
+  int k_lo, n_slice;
+  bool staged;
+  if (!block_slice(bt, live ? p0 : 0x7fffffff,
+                   live ? p0 + span - 1 : (int)0x80000000, vpos, a0, a1, ni,
+                   mp, &k_lo, &n_slice, &staged))
+    return;
+  const uint8_t* crow = codes + (size_t)row * (kNibble ? l >> 1 : l);
+  if (staged) {
+    affine_rows<false, kNibble>(crow, live, row, p0, span, i0, bt.sv, bt.s0,
+                                bt.s1, bt.sn, n_slice, k_lo, out, cap);
+  } else {
+    affine_rows<true, kNibble>(crow, live, row, p0, span, i0, vpos, a0, a1,
+                               ni, mp, 0, out, cap);
+  }
+}
+
+// Replaces phaser_tpu/kernels/alleles.py:975 (_nibble_windowed_impl over the
+// Pallas body at :673, with its host planner plan_windows_affine): the
+// affine range join (affine_body) on the nibble plane, 2 * lh bases a row.
 __global__ void __launch_bounds__(kThreads)
 affine_nibble_kernel(const uint8_t* __restrict__ ncodes,
                      const int32_t* __restrict__ start,
@@ -328,115 +423,30 @@ affine_nibble_kernel(const uint8_t* __restrict__ ncodes,
                      const int32_t* __restrict__ a1,
                      const int32_t* __restrict__ ni, int mp,
                      int32_t* __restrict__ out, int cap) {
-  __shared__ __align__(16) int32_t sv[kStage];
-  __shared__ __align__(16) int32_t s0[kStage];
-  __shared__ __align__(16) int32_t s1[kStage];
-  __shared__ __align__(16) int32_t sn[kStage];
-  __shared__ int red_min[kThreads / 32], red_max[kThreads / 32];
-  __shared__ int slice[2];
-
-  int row = blockIdx.x * kThreads + threadIdx.x;
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  bool live = false;
-  int p0 = 0, span = 0, i0 = 0;
-  if (row < n_rows) {
-    int s = __ldg(start + row), l = __ldg(lo + row), h = __ldg(hi + row);
-    i0 = l > 0 ? l : 0;
-    int i1 = h < 2 * lh ? h : 2 * lh;
-    span = i1 - i0;
-    p0 = s + (i0 - l);
-    live = span > 0;
-  }
-  // block range [bmin, bmax) over the live rows
-  int mn = live ? p0 : 0x7fffffff;
-  int mx = live ? p0 + span : (int)0x80000000;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    int omn = __shfl_xor_sync(kFull, mn, d);
-    int omx = __shfl_xor_sync(kFull, mx, d);
-    mn = omn < mn ? omn : mn;
-    mx = omx > mx ? omx : mx;
-  }
-  if (lane == 0) {
-    red_min[warp] = mn;
-    red_max[warp] = mx;
-  }
-  __syncthreads();
-  mn = red_min[0];
-  mx = red_max[0];
-#pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) {
-    mn = red_min[w] < mn ? red_min[w] : mn;
-    mx = red_max[w] > mx ? red_max[w] : mx;
-  }
-  if (mx <= mn) return;  // no live row in this block (uniform)
-
-  // the block's table slice [slice[0], slice[1]): one warp per end
-  if (warp == 0) {
-    int k = warp_bound(vpos, mp, mn);
-    if (lane == 0) slice[0] = k;
-  } else if (warp == 1) {
-    int k = warp_bound(vpos, mp, mx);
-    if (lane == 0) slice[1] = k;
-  }
-  __syncthreads();
-  int k_lo = slice[0] & ~3;  // 16-byte aligned for the copies
-  int n_slice = slice[1] - k_lo;
-  if (n_slice <= 0) return;  // no table entry under this block (uniform)
-
-  const uint8_t* nrow = ncodes + (size_t)row * lh;
-  if (n_slice <= kStage) {
-    // mp is a multiple of 4, so every 4-entry chunk from k_lo lies inside
-    int chunks = (n_slice + 3) >> 2;
-    for (int c = threadIdx.x; c < chunks; c += kThreads) {
-      int g = k_lo + 4 * c;
-      __pipeline_memcpy_async(sv + 4 * c, vpos + g, 16);
-      __pipeline_memcpy_async(s0 + 4 * c, a0 + g, 16);
-      __pipeline_memcpy_async(s1 + 4 * c, a1 + g, 16);
-      __pipeline_memcpy_async(sn + 4 * c, ni + g, 16);
-    }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    affine_rows<false>(nrow, live, row, p0, span, i0, sv, s0, s1, sn,
-                       n_slice, k_lo, out, cap);
-  } else {
-    affine_rows<true>(nrow, live, row, p0, span, i0, vpos, a0, a1, ni, mp, 0,
-                      out, cap);
-  }
+  affine_body<true>(ncodes, start, lo, hi, n_rows, 2 * lh, vpos, a0, a1, ni,
+                    mp, out, cap);
 }
 
-// Replaces alleles.py:424 (_delta_windowed_impl).  One thread per packed
-// byte; delta is the (n_rows, 2 * lh) int16 plane.  Reads 2.5 B per base;
-// bound like affine_nibble by the search's dependent L2 loads.
+// Replaces the jnp program assign_compact_affine_masked
+// (phaser_tpu/kernels/alleles.py:246-259), which phaser_tpu runs when the
+// nibble packer is missing: the affine range join (affine_body) on the
+// (n_rows, l) masked plane (BASEQ already applied, 15 = masked).  A search
+// per base read the whole plane (1 B per base) and made 17 dependent L2
+// loads for every aligned base; the join reads 12 B per row and one byte of
+// the plane per table entry under the row, and is bound like affine_nibble
+// by latency (parameter load, two block barriers, the search), not bytes.
 __global__ void __launch_bounds__(kThreads)
-delta_nibble_kernel(const uint8_t* __restrict__ ncodes,
-                    const int32_t* __restrict__ start,
-                    const int16_t* __restrict__ delta, int n_rows, int lh,
-                    const int32_t* __restrict__ ws, int win, int block_rows,
-                    const int32_t* __restrict__ vpos,
-                    const int32_t* __restrict__ a0,
-                    const int32_t* __restrict__ a1,
-                    const int32_t* __restrict__ ni, int mp,
-                    int32_t* __restrict__ out, int cap) {
-  int idx = blockIdx.x * kThreads + threadIdx.x;
-  int row = idx / lh;
-  int word0 = -1, word1 = -1;
-  if (row < n_rows) {
-    int j = idx - row * lh;
-    int byte = __ldg(ncodes + idx);
-    int m0 = byte & 0xF, m1 = byte >> 4;
-    int s = __ldg(start + row);
-    int w0, wn;
-    window(row, ws, win, block_rows, mp, &w0, &wn);
-    int i = 2 * j;
-    const int16_t* d = delta + (size_t)row * (2 * lh);
-    int rp0 = m0 != 15 ? s + i + __ldg(d + i) : 0;
-    int rp1 = m1 != 15 ? s + i + 1 + __ldg(d + i + 1) : 0;
-    word0 = classify(m0, rp0, vpos, a0, a1, ni, w0, wn);
-    word1 = classify(m1, rp1, vpos, a0, a1, ni, w0, wn);
-  }
-  emit2(row, word0, word1, out, cap);
+affine_masked_kernel(const uint8_t* __restrict__ mcodes,
+                     const int32_t* __restrict__ start,
+                     const int32_t* __restrict__ lo,
+                     const int32_t* __restrict__ hi, int n_rows, int l,
+                     const int32_t* __restrict__ vpos,
+                     const int32_t* __restrict__ a0,
+                     const int32_t* __restrict__ a1,
+                     const int32_t* __restrict__ ni, int mp,
+                     int32_t* __restrict__ out, int cap) {
+  affine_body<false>(mcodes, start, lo, hi, n_rows, l, vpos, a0, a1, ni, mp,
+                     out, cap);
 }
 
 // Warp-aggregated compaction of up to four hits per lane (words of -1 are
@@ -467,6 +477,172 @@ __device__ __forceinline__ void emit4(int row, const int (&word)[4],
       }
       ++slot;
     }
+  }
+}
+
+// One live row of the delta join, by one warp: each lane rebuilds four
+// positions at a time from 8 bytes of the delta row (128 bases a step) and
+// matches them against the row's table range tv[k0, k1): every entry of a
+// range of at most 32 is broadcast to the lanes, a longer range is searched
+// per base.  The nibble is read only where a position matched, and decides:
+// a soft-clipped or low-quality base (nibble 15) emits nothing, whatever its
+// position equals.  All 32 lanes must call.
+template <bool kGlobal>
+__device__ __forceinline__ void delta_row(
+    const uint8_t* __restrict__ nrow, const int16_t* __restrict__ drow,
+    int row, int s, int l, const int32_t* tv, const int32_t* t0,
+    const int32_t* t1, const int32_t* tni, int k0, int k1, int tbase,
+    int32_t* __restrict__ out, int cap) {
+  int lane = threadIdx.x & 31;
+  int quads = l >> 2;  // l is a multiple of 4
+  int n_range = k1 - k0;
+  const int2* d2 = reinterpret_cast<const int2*>(drow);
+  for (int qb = 0; qb < quads; qb += 32) {
+    int q = qb + lane;
+    int e[4] = {0, 0, 0, 0};
+    if (q < quads) {
+      int2 v = __ldg(d2 + q);  // delta[4q .. 4q + 3], little-endian int16
+      int p = s + 4 * q;
+      e[0] = p + (int)(int16_t)v.x;
+      e[1] = p + 1 + (v.x >> 16);
+      e[2] = p + 2 + (int)(int16_t)v.y;
+      e[3] = p + 3 + (v.y >> 16);
+    }
+    int kk[4] = {-1, -1, -1, -1};
+    if (n_range <= 32) {
+      for (int j = 0; j < n_range; ++j) {
+        int p = tload<kGlobal>(tv + k0 + j);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          // the first of equal entries wins, as a lower bound does
+          if (e[t] == p && kk[t] < 0) kk[t] = k0 + j;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (e[t] > 0) {
+          int k = k0 + lower_bound<kGlobal>(tv + k0, n_range, e[t]);
+          if (k < k1 && tload<kGlobal>(tv + k) == e[t]) kk[t] = k;
+        }
+      }
+    }
+    int word[4] = {-1, -1, -1, -1};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (kk[t] >= 0 && e[t] > 0) {
+        int nib = code_at<true>(nrow, 4 * q + t);
+        if (nib != 15)
+          word[t] = hit_word<kGlobal>(nib, kk[t], t0, t1, tni, tbase);
+      }
+    }
+    emit4(row, word, out, cap);
+  }
+}
+
+// The live rows of one delta block (rows with a table entry in their range),
+// compacted so that the block's warps share them evenly.
+struct LiveRows {
+  int n;
+  int row[kThreads], start[kThreads], k0[kThreads], k1[kThreads];
+};
+
+// One delta block on the table slice tv[0, tn_): each thread finds its row's
+// table range, rows with an entry join the live list, then each warp takes
+// live rows in turn.  lr.n is 0 on entry (set before a block barrier).
+template <bool kGlobal>
+__device__ __forceinline__ void delta_rows(
+    LiveRows& lr, const uint8_t* __restrict__ ncodes,
+    const int32_t* __restrict__ start, const int16_t* __restrict__ delta,
+    int lh, bool live, int pmin, int pmax, const int32_t* tv,
+    const int32_t* t0, const int32_t* t1, const int32_t* tni, int tn_,
+    int tbase, int32_t* __restrict__ out, int cap) {
+  if (live) {
+    int k0 = lower_bound<kGlobal>(tv, tn_, pmin);
+    // most rows end here: the first entry at or after rp_min lies past rp_max
+    if (k0 < tn_ && tload<kGlobal>(tv + k0) <= pmax) {
+      int row = blockIdx.x * kThreads + threadIdx.x;
+      int s = __ldg(start + row);  // all live rows' loads in flight at once
+      int k1 = k0 + 1 +
+               lower_bound<kGlobal, true>(tv + k0 + 1, tn_ - k0 - 1, pmax);
+      int at = atomicAdd(&lr.n, 1);
+      lr.row[at] = row;
+      lr.start[at] = s;
+      lr.k0[at] = k0;
+      lr.k1[at] = k1;
+    }
+  }
+  __syncthreads();
+  int n_live = lr.n;
+  for (int w = threadIdx.x >> 5; w < n_live; w += kThreads / 32) {
+    int row = lr.row[w];
+    delta_row<kGlobal>(ncodes + (size_t)row * lh,
+                       delta + (size_t)row * (2 * lh), row, lr.start[w],
+                       2 * lh, tv, t0, t1, tni, lr.k0[w], lr.k1[w], tbase, out,
+                       cap);
+  }
+}
+
+// Replaces alleles.py:424 (_delta_windowed_impl over the Pallas body at
+// :673, with its host planner plan_windows_minmax) as a range join.  delta
+// is the (n_rows, 2 * lh) int16 plane, refpos = start + i + delta[i] where
+// the nibble is not 15; rp_min / rp_max are the packer's per-row bounds of
+// the aligned positions (rp_max <= 0: no aligned base).
+//
+// Bound: a search per base read both planes whole (2.5 B per base) and made
+// 8-17 dependent L2 loads for every unmasked base.  What the data needs is
+// the 8 B of [rp_min, rp_max] per row, the table entries under the rows,
+// `start` and the 2 B per base of delta only for rows with an entry in
+// [rp_min, rp_max] (about one in twenty), one sector of the nibble plane
+// per matched base and 8 B per hit.  What the design does about it: a
+// block takes 256 consecutive rows, one row per thread, and stages the table slice under them in shared
+// memory (block_slice, as the affine kernels); each thread finds its row's
+// [k0, k1) there and a row with no entry ends, having read 8 B.  The live
+// rows are compacted into a shared list and each WARP takes one at a time
+// (delta_row): 8-byte coalesced loads of the delta row, the range's entries
+// broadcast from shared memory.  Thread-per-row for the search and
+// warp-per-row for the match keeps both halves busy: a warp per row for
+// all 262,144 rows would spend its time on the 95% of rows that end after
+// the search, a thread per live row would read its delta row uncoalesced.
+// Matching is per base, never per entry: a clipped base (delta 0, nibble
+// 15) can sit at the position of an aligned base of the same row, so each
+// base looks up its own entry and is dropped by its own nibble.
+__global__ void __launch_bounds__(kThreads)
+delta_nibble_kernel(const uint8_t* __restrict__ ncodes,
+                    const int32_t* __restrict__ start,
+                    const int16_t* __restrict__ delta,
+                    const int32_t* __restrict__ rp_min,
+                    const int32_t* __restrict__ rp_max, int n_rows, int lh,
+                    const int32_t* __restrict__ vpos,
+                    const int32_t* __restrict__ a0,
+                    const int32_t* __restrict__ a1,
+                    const int32_t* __restrict__ ni, int mp,
+                    int32_t* __restrict__ out, int cap) {
+  __shared__ __align__(16) BlockTable bt;
+  __shared__ LiveRows lr;
+
+  int row = blockIdx.x * kThreads + threadIdx.x;
+  if (threadIdx.x == 0) lr.n = 0;  // block_slice's first barrier orders this
+  bool live = false;
+  int pmin = 0, pmax = 0;
+  if (row < n_rows) {
+    pmin = __ldg(rp_min + row);
+    pmax = __ldg(rp_max + row);
+    if (pmin < 1) pmin = 1;  // refpos <= 0 never hits
+    live = pmax >= pmin;
+  }
+  int k_lo, n_slice;
+  bool staged;
+  if (!block_slice(bt, live ? pmin : 0x7fffffff,
+                   live ? pmax : (int)0x80000000, vpos, a0, a1, ni, mp, &k_lo,
+                   &n_slice, &staged))
+    return;
+  if (staged) {
+    delta_rows<false>(lr, ncodes, start, delta, lh, live, pmin, pmax, bt.sv,
+                      bt.s0, bt.s1, bt.sn, n_slice, k_lo, out, cap);
+  } else {
+    delta_rows<true>(lr, ncodes, start, delta, lh, live, pmin, pmax, vpos, a0,
+                     a1, ni, mp, 0, out, cap);
   }
 }
 
@@ -559,8 +735,8 @@ __device__ __forceinline__ int skel_bound(const int32_t* __restrict__ vpos,
 //
 // Bound: the 4 B per base of the refpos plane (the codes and quals planes
 // are touched one 32-byte sector per hit), the table entries under the
-// rows and 8 B per hit written.  What the design does about it: 16-byte coalesced loads, one
-// dependent global load per row for the search where a binary search per
+// rows and 8 B per hit written.  What the design does about it: 16-byte
+// coalesced loads, one dependent global load per row for the search where a binary search per
 // base makes 8-17, and no second and third plane read for the 99.95% of
 // bases that hit nothing.
 __global__ void __launch_bounds__(kThreads)
@@ -662,56 +838,13 @@ plane_kernel(const uint8_t* __restrict__ codes,
         if (kk[t] >= 0 && e[t] > 0) {
           size_t idx = row_off + 4 * (size_t)q + t;
           int masked = __ldg(quals + idx) >= baseq ? __ldg(codes + idx) : 15;
-          if (masked != 15) {
-            int k = kk[t];
-            int n_ind = __ldg(ni + k);
-            int allele = 2;
-            if (masked == __ldg(a0 + k) && n_ind > 0) {
-              allele = 0;
-            } else if (masked == __ldg(a1 + k) && n_ind > 1) {
-              allele = 1;
-            }
-            word[t] = (k << 8) | (masked << 4) | allele;
-          }
+          if (masked != 15)
+            word[t] = hit_word<true>(masked, kk[t], a0, a1, ni, 0);
         }
       }
       emit4(row, word, out, cap);
     }
   }
-}
-
-// Replaces the jnp program assign_compact_affine_masked
-// (phaser_tpu/kernels/alleles.py:246-259), which phaser_tpu runs when the
-// nibble packer is missing.  One thread per two bases of the (n_rows, l)
-// masked plane (BASEQ already applied, 15 = masked): 1 B per base read, then
-// the same dependent L2 loads as affine_nibble.
-__global__ void __launch_bounds__(kThreads)
-affine_masked_kernel(const uint8_t* __restrict__ mcodes,
-                     const int32_t* __restrict__ start,
-                     const int32_t* __restrict__ lo,
-                     const int32_t* __restrict__ hi, int n_rows, int l,
-                     const int32_t* __restrict__ ws, int win, int block_rows,
-                     const int32_t* __restrict__ vpos,
-                     const int32_t* __restrict__ a0,
-                     const int32_t* __restrict__ a1,
-                     const int32_t* __restrict__ ni, int mp,
-                     int32_t* __restrict__ out, int cap) {
-  int lh = l >> 1;
-  int idx = blockIdx.x * kThreads + threadIdx.x;
-  int row = idx / lh;
-  int word0 = -1, word1 = -1;
-  if (row < n_rows) {
-    int i = 2 * (idx - row * lh);
-    const uint8_t* m = mcodes + (size_t)row * l;
-    int s = __ldg(start + row), lw = __ldg(lo + row), h = __ldg(hi + row);
-    int w0, wn;
-    window(row, ws, win, block_rows, mp, &w0, &wn);
-    int rp0 = (i >= lw && i < h) ? s + (i - lw) : 0;
-    int rp1 = (i + 1 >= lw && i + 1 < h) ? s + (i + 1 - lw) : 0;
-    word0 = classify(__ldg(m + i), rp0, vpos, a0, a1, ni, w0, wn);
-    word1 = classify(__ldg(m + i + 1), rp1, vpos, a0, a1, ni, w0, wn);
-  }
-  emit2(row, word0, word1, out, cap);
 }
 
 // Unfused planes: replaces _alleles_pallas_windowed_kernel as reached from
@@ -870,19 +1003,21 @@ int affine_nibble_launch(const void* ncodes, const void* start, const void* lo,
 }
 
 int delta_nibble_launch(const void* ncodes, const void* start,
-                        const void* delta, int n_rows, int lh, const void* ws,
-                        int win, int block_rows, const void* vpos,
-                        const void* a0, const void* a1, const void* ni, int mp,
-                        void* out, int cap, void* stream) {
+                        const void* delta, const void* rp_min,
+                        const void* rp_max, int n_rows, int lh,
+                        const void* vpos, const void* a0, const void* a1,
+                        const void* ni, int mp, void* out, int cap,
+                        void* stream) {
   cudaError_t init = init_packed(out, cap, (cudaStream_t)stream);
   if (init != cudaSuccess) return (int)init;
   if (n_rows > 0) {
-    delta_nibble_kernel<<<grid_for((long long)n_rows * lh), kThreads, 0,
+    // one row per thread for the range search
+    delta_nibble_kernel<<<grid_for(n_rows), kThreads, 0,
                           (cudaStream_t)stream>>>(
         (const uint8_t*)ncodes, (const int32_t*)start, (const int16_t*)delta,
-        n_rows, lh, (const int32_t*)ws, win, block_rows, (const int32_t*)vpos,
-        (const int32_t*)a0, (const int32_t*)a1, (const int32_t*)ni, mp,
-        (int32_t*)out, cap);
+        (const int32_t*)rp_min, (const int32_t*)rp_max, n_rows, lh,
+        (const int32_t*)vpos, (const int32_t*)a0, (const int32_t*)a1,
+        (const int32_t*)ni, mp, (int32_t*)out, cap);
   }
   return (int)cudaGetLastError();
 }
@@ -928,19 +1063,19 @@ int plane_launch(const void* codes, const void* quals, const void* refpos,
 }
 
 int affine_masked_launch(const void* mcodes, const void* start, const void* lo,
-                         const void* hi, int n_rows, int l, const void* ws,
-                         int win, int block_rows, const void* vpos,
+                         const void* hi, int n_rows, int l, const void* vpos,
                          const void* a0, const void* a1, const void* ni,
                          int mp, void* out, int cap, void* stream) {
   cudaError_t init = init_packed(out, cap, (cudaStream_t)stream);
   if (init != cudaSuccess) return (int)init;
   if (n_rows > 0) {
-    affine_masked_kernel<<<grid_for((long long)n_rows * (l / 2)), kThreads, 0,
+    // one row per thread
+    affine_masked_kernel<<<grid_for(n_rows), kThreads, 0,
                            (cudaStream_t)stream>>>(
         (const uint8_t*)mcodes, (const int32_t*)start, (const int32_t*)lo,
-        (const int32_t*)hi, n_rows, l, (const int32_t*)ws, win, block_rows,
-        (const int32_t*)vpos, (const int32_t*)a0, (const int32_t*)a1,
-        (const int32_t*)ni, mp, (int32_t*)out, cap);
+        (const int32_t*)hi, n_rows, l, (const int32_t*)vpos,
+        (const int32_t*)a0, (const int32_t*)a1, (const int32_t*)ni, mp,
+        (int32_t*)out, cap);
   }
   return (int)cudaGetLastError();
 }

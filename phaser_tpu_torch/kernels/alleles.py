@@ -9,10 +9,9 @@ hand-written CUDA kernel in csrc/alleles.cu beside a plain PyTorch version:
   assign_compact_delta_nibble   D / split-M reads, nibble plane + int16 delta
   assign_compact_plane          N-spliced reads / delta overflow, refpos plane
 
-The affine-nibble and plane programs are range joins: they find each row's
-table range themselves (on the card, in the CUDA kernels) and take no window.
-The delta-nibble and masked-affine programs take `ws` (per-256-row-block
-table offsets from a planner) or None for a search over the whole table.
+All four are range joins: they find each row's table range themselves (on
+the card, in the CUDA kernels) and take no window; the delta-nibble program
+takes the packer's per-row [rp_min, rp_max] for it.
 Each returns the packed-hit buffer of phaser_tpu's `_pack_hits`:
 int32 (2, capacity + 1), out[0, 0] = n_hits (exact
 even past capacity), row 0 = read index within the launch, row 1 =
@@ -29,8 +28,10 @@ resident in shared memory), plus compact_hits.
 A wrapper runs the plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises.
 
-The numpy packers and planners below are copies of phaser_tpu's, without the
-options no caller here uses.
+The numpy packers and the refpos-plane planner below are copies of
+phaser_tpu's, without the options no caller here uses; its two planners for
+the affine and delta programs have no caller in a package whose fused
+programs take no window, and are not copied.
 """
 
 from __future__ import annotations
@@ -297,32 +298,11 @@ def _plan_from_bounds(pmin_rows, pmax_rows, vpos_host, n_rows: int,
     return ws.astype(np.int32)
 
 
-def plan_windows_affine(start, lo, hi, aff, vpos_host, n_rows: int,
-                        block_rows: int = 256):
-    """Window planning for affine reads from per-read (start, lo, hi).
-    Returns the (n_blocks,) int32 128-aligned window offsets, or None when
-    a block's variant band exceeds the 256-entry window."""
-    span = np.where(aff, hi.astype(np.int64) - lo, 0)
-    smin = np.where(aff & (span > 0), start.astype(np.int64),
-                    np.iinfo(np.int64).max)
-    smax = np.where(aff & (span > 0), start.astype(np.int64) + span - 1, 0)
-    return _plan_from_bounds(smin, smax, vpos_host, n_rows, block_rows)
-
-
-def plan_windows_minmax(rp_min, rp_max, valid, vpos_host, n_rows: int,
-                        block_rows: int = 256):
-    """Window planning from per-read [rp_min, rp_max] (delta-nibble path).
-    Same contract as plan_windows_affine."""
-    smin = np.where(valid & (rp_max > 0), rp_min.astype(np.int64),
-                    np.iinfo(np.int64).max)
-    smax = np.where(valid & (rp_max > 0), rp_max.astype(np.int64), 0)
-    return _plan_from_bounds(smin, smax, vpos_host, n_rows, block_rows)
-
-
 def plan_windows_plane(refpos_host: np.ndarray, vpos_host: np.ndarray,
                        block_rows: int = 256):
-    """Window planning from an (N, L) refpos plane.  Same contract as
-    plan_windows_affine."""
+    """Window planning from an (N, L) refpos plane, for the unfused windowed
+    entry.  Returns the (n_blocks,) int32 128-aligned window offsets, or
+    None when a block's variant band exceeds the 256-entry window."""
     N = refpos_host.shape[0]
     rp_pos = np.where(refpos_host > 0, refpos_host, _INT32_MAX)
     smin = rp_pos.min(axis=1).astype(np.int64) if N else np.zeros(0, np.int64)
@@ -409,16 +389,6 @@ def _lookup_plain(masked: torch.Tensor, refpos: torch.Tensor,
     return hit, safe, allele
 
 
-def _classify_plain(masked: torch.Tensor, refpos: torch.Tensor,
-                    ws: torch.Tensor, win: int, block_rows: int,
-                    table: Table) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hit, packed hit word) planes."""
-    hit, safe, allele = _lookup_plain(masked, refpos, ws, win, block_rows,
-                                      table)
-    word = (safe << 8) | (masked.long() << 4) | allele.long()
-    return hit, word
-
-
 def _pack_pairs(rows: torch.Tensor, words: torch.Tensor, capacity: int,
                 device) -> torch.Tensor:
     """_pack_hits from (row, word) pairs already in row-major order: n_hits
@@ -430,20 +400,6 @@ def _pack_pairs(rows: torch.Tensor, words: torch.Tensor, capacity: int,
     out[0, 1:1 + k] = rows[:k].to(torch.int32)
     out[1, 1:1 + k] = words[:k].to(torch.int32)
     return out
-
-
-def _pack_plain(hit: torch.Tensor, word: torch.Tensor,
-                capacity: int) -> torch.Tensor:
-    """_pack_hits of (hit, word) planes: hits in row-major order."""
-    flat = torch.nonzero(hit.reshape(-1)).squeeze(1)
-    return _pack_pairs(flat // hit.shape[1], word.reshape(-1)[flat], capacity,
-                       hit.device)
-
-
-def _unpack_nibbles(ncodes: torch.Tensor) -> torch.Tensor:
-    nc = ncodes.to(torch.int32)
-    N, Lh = nc.shape
-    return torch.stack([nc & 0xF, nc >> 4], dim=-1).reshape(N, 2 * Lh)
 
 
 def _base_index(L: int, device) -> torch.Tensor:
@@ -477,14 +433,13 @@ def _classify_entries(k: torch.Tensor, masked: torch.Tensor,
         _allele_plain(masked, k, table).long()
 
 
-def affine_nibble_plain(ncodes, start, lo, hi, table: Table,
-                        capacity: int) -> torch.Tensor:
-    """The range join of the affine_nibble kernel: row r covers positions
+def _affine_plain(code_at, L: int, start, lo, hi, table: Table,
+                  capacity: int) -> torch.Tensor:
+    """The range join of the affine kernels: row r covers positions
     [p0, p0 + span), so its candidates are the table entries in that range;
-    the base under entry k is i0 + vpos[k] - p0 and its code is one nibble
-    of one byte."""
+    the base under entry k is i0 + vpos[k] - p0 and its masked code is
+    code_at(rows, base)."""
     vpos = table[0]
-    L = 2 * ncodes.shape[1]
     lo_, hi_ = lo.long(), hi.long()
     i0 = lo_.clamp_min(0)
     span = (hi_.clamp_max(L) - i0).clamp_min(0)
@@ -494,66 +449,51 @@ def affine_nibble_plain(ncodes, start, lo, hi, table: Table,
                             .to(torch.int32).contiguous())
     rows, k = _ragged(k0, torch.where(span > 0, k1, k0))
     p = vpos[k].long()
-    i = i0[rows] + (p - p0[rows])
-    byte = ncodes[rows, i >> 1].to(torch.int32)
-    nib = torch.where((i & 1) == 1, byte >> 4, byte & 0xF)
-    keep = (nib != 15) & (p > 0) & _first_of_equal(k, k0[rows], vpos)
-    rows, k, nib = rows[keep], k[keep], nib[keep]
-    return _pack_pairs(rows, _classify_entries(k, nib, table), capacity,
-                       ncodes.device)
+    code = code_at(rows, i0[rows] + (p - p0[rows]))
+    keep = (code != 15) & (p > 0) & _first_of_equal(k, k0[rows], vpos)
+    rows, k, code = rows[keep], k[keep], code[keep]
+    return _pack_pairs(rows, _classify_entries(k, code, table), capacity,
+                       start.device)
 
 
-def affine_masked_plain(mcodes, start, lo, hi, ws, win: int,
-                        block_rows: int, table: Table,
+def affine_nibble_plain(ncodes, start, lo, hi, table: Table,
                         capacity: int) -> torch.Tensor:
-    masked = mcodes.to(torch.int32)
-    i = _base_index(masked.shape[1], start.device)
-    lo_ = lo[:, None]
-    aligned = (i >= lo_) & (i < hi[:, None])
-    # refpos = start + (i - lo) on [lo, hi), else 0
-    refpos = torch.where(aligned, start[:, None] + (i - lo_), 0)
-    hit, word = _classify_plain(masked, refpos, ws, win, block_rows, table)
-    return _pack_plain(hit, word, capacity)
+    """_affine_plain on the nibble plane: a base's code is one nibble of one
+    byte (even base low)."""
+    def nibble_at(rows, i):
+        byte = ncodes[rows, i >> 1].to(torch.int32)
+        return torch.where((i & 1) == 1, byte >> 4, byte & 0xF)
+    return _affine_plain(nibble_at, 2 * ncodes.shape[1], start, lo, hi,
+                         table, capacity)
 
 
-def delta_nibble_plain(ncodes, start, delta, ws, win: int, block_rows: int,
-                       table: Table, capacity: int) -> torch.Tensor:
-    masked = _unpack_nibbles(ncodes)
-    i = _base_index(masked.shape[1], masked.device)
-    refpos = torch.where(masked != 15,
-                         start[:, None] + i + delta.to(torch.int32), 0)
-    hit, word = _classify_plain(masked, refpos, ws, win, block_rows, table)
-    return _pack_plain(hit, word, capacity)
-
-
-def _masked_plane(codes, quals, baseq: int) -> torch.Tensor:
-    return torch.where(quals.to(torch.int32) >= baseq, codes.to(torch.int32),
-                       15)
+def affine_masked_plain(mcodes, start, lo, hi, table: Table,
+                        capacity: int) -> torch.Tensor:
+    """_affine_plain on the 1 B/base masked plane."""
+    return _affine_plain(lambda rows, i: mcodes[rows, i].to(torch.int32),
+                         mcodes.shape[1], start, lo, hi, table, capacity)
 
 
 _PLAIN_CAND_CHUNK = 1 << 19  # candidates compared with their rows at once
 
 
-def plane_plain(codes, quals, refpos, baseq: int, table: Table,
+def _join_plain(k0, k1, positions_of, code_at, L: int, table: Table,
                 capacity: int) -> torch.Tensor:
-    """The range join of the plane kernel: a row's candidates are the table
-    entries between its smallest positive and its largest position; a
-    candidate hits every base of the row at its position, and codes / quals
-    are read only there."""
+    """The range join of the delta and plane kernels: row r's candidates are
+    the table entries [k0[r], k1[r]) (the first of each position); a
+    candidate hits every base of the row at its position.
+    positions_of(rows) is the (len(rows), L) refpos plane of those rows
+    (<= 0 never hits) and code_at(rows, base) the masked code of a matched
+    base, read only there; 15 emits nothing."""
     vpos = table[0]
-    N, L = refpos.shape
-    has = refpos > 0
-    pmin = torch.where(has, refpos, _INT32_MAX).amin(dim=1)
-    pmax = torch.where(has, refpos, 0).amax(dim=1)
-    k0 = torch.searchsorted(vpos, pmin.contiguous())
-    k1 = torch.searchsorted(vpos, pmax.contiguous(), right=True)
-    rows, k = _ragged(k0, torch.where(pmax > 0, k1, k0))
+    rows, k = _ragged(k0, k1)
     first = _first_of_equal(k, k0[rows], vpos)
     rows, k = rows[first], k[first]
     hit_rows, hit_base, hit_k = [], [], []
     for s in range(0, int(rows.numel()), _PLAIN_CAND_CHUNK):
         r, kk = rows[s:s + _PLAIN_CAND_CHUNK], k[s:s + _PLAIN_CAND_CHUNK]
-        c, i = torch.nonzero(refpos[r] == vpos[kk][:, None], as_tuple=True)
+        p = vpos[kk][:, None]
+        c, i = torch.nonzero((positions_of(r) == p) & (p > 0), as_tuple=True)
         hit_rows.append(r[c])
         hit_base.append(i)
         hit_k.append(kk[c])
@@ -561,16 +501,62 @@ def plane_plain(codes, quals, refpos, baseq: int, table: Table,
         rows, base, k = (torch.cat(hit_rows), torch.cat(hit_base),
                          torch.cat(hit_k))
     else:
-        rows = base = k = torch.zeros(0, dtype=torch.long,
-                                      device=refpos.device)
-    masked = torch.where(quals[rows, base].to(torch.int32) >= baseq,
-                         codes[rows, base].to(torch.int32), 15)
+        rows = base = k = torch.zeros(0, dtype=torch.long, device=k0.device)
+    masked = code_at(rows, base)
     keep = masked != 15
     rows, base, k, masked = rows[keep], base[keep], k[keep], masked[keep]
     order = torch.argsort(rows * max(L, 1) + base)  # row-major, as _pack_hits
     rows, k, masked = rows[order], k[order], masked[order]
     return _pack_pairs(rows, _classify_entries(k, masked, table), capacity,
-                       refpos.device)
+                       k0.device)
+
+
+def delta_nibble_plain(ncodes, start, delta, rp_min, rp_max, table: Table,
+                       capacity: int) -> torch.Tensor:
+    """The range join of the delta_nibble kernel: a row's candidates are the
+    table entries in [rp_min, rp_max]; each base of a candidate row at a
+    candidate's position looks up its own nibble, so a clipped base (delta
+    0, nibble 15) that shares a position with an aligned base emits
+    nothing."""
+    vpos = table[0]
+    L = 2 * ncodes.shape[1]
+    i = _base_index(L, start.device)
+    k0 = torch.searchsorted(vpos, rp_min.clamp_min(1).contiguous())
+    k1 = torch.searchsorted(vpos, rp_max.contiguous(), right=True)
+
+    def positions_of(rows):
+        return start[rows][:, None] + i + delta[rows].to(torch.int32)
+
+    def nibble_at(rows, base):
+        byte = ncodes[rows, base >> 1].to(torch.int32)
+        return torch.where((base & 1) == 1, byte >> 4, byte & 0xF)
+    return _join_plain(k0, torch.where(rp_max > 0, k1, k0), positions_of,
+                       nibble_at, L, table, capacity)
+
+
+def _masked_plane(codes, quals, baseq: int) -> torch.Tensor:
+    return torch.where(quals.to(torch.int32) >= baseq, codes.to(torch.int32),
+                       15)
+
+
+def plane_plain(codes, quals, refpos, baseq: int, table: Table,
+                capacity: int) -> torch.Tensor:
+    """The range join of the plane kernel: a row's candidates are the table
+    entries between its smallest positive and its largest position; codes /
+    quals are read only where a position matched."""
+    vpos = table[0]
+    has = refpos > 0
+    pmin = torch.where(has, refpos, _INT32_MAX).amin(dim=1)
+    pmax = torch.where(has, refpos, 0).amax(dim=1)
+    k0 = torch.searchsorted(vpos, pmin.contiguous())
+    k1 = torch.searchsorted(vpos, pmax.contiguous(), right=True)
+
+    def masked_at(rows, base):
+        return torch.where(quals[rows, base].to(torch.int32) >= baseq,
+                           codes[rows, base].to(torch.int32), 15)
+    return _join_plain(k0, torch.where(pmax > 0, k1, k0),
+                       lambda rows: refpos[rows], masked_at, refpos.shape[1],
+                       table, capacity)
 
 
 def planes_plain(codes, quals, refpos, baseq: int, ws, win: int,
@@ -627,11 +613,11 @@ def _kernels() -> ctypes.CDLL:
         lib.affine_nibble_launch.argtypes = (
             [_P] * 4 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P])
         lib.delta_nibble_launch.argtypes = (
-            [_P] * 3 + [_I, _I, _P, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
+            [_P] * 5 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P])
         lib.plane_launch.argtypes = (
             [_P] * 3 + [_I, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
         lib.affine_masked_launch.argtypes = (
-            [_P] * 4 + [_I, _I, _P, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
+            [_P] * 4 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P])
         lib.planes_launch.argtypes = (
             [_P] * 3 + [_I, _I, _I, _P, _I, _I] + [_P] * 4 +
             [_I, _I, _P, _P, _P])
@@ -697,19 +683,6 @@ def _check_join_table(table: Table) -> None:
             raise ValueError("table column %s is not 16-byte aligned" % k)
 
 
-def window_args(ws: Optional[torch.Tensor], n_rows: int, table: Table,
-                 dev: torch.device) -> Tuple[torch.Tensor, int, int]:
-    """(ws, win, block_rows): planned 256-entry windows per min(256, N)-row
-    block, or one whole-table window."""
-    dev = _check_table(table, dev)
-    mp = int(table[0].shape[0])
-    if ws is None:
-        return torch.zeros(1, dtype=torch.int32, device=dev), mp, max(n_rows, 1)
-    R = max(min(_WIN, n_rows), 1)
-    _check("ws", ws, torch.int32, (-(-n_rows // R),), dev)
-    return ws, _WIN, R
-
-
 def _check_size(n_rows: int, L: int, capacity: int) -> None:
     # the kernels index planes with int32 (a launch holds <= 262144 rows)
     if n_rows * L >= (1 << 31):
@@ -767,29 +740,41 @@ def assign_compact_affine_nibble(ncodes: torch.Tensor, start: torch.Tensor,
 
 
 def assign_compact_delta_nibble(ncodes: torch.Tensor, start: torch.Tensor,
-                                delta: torch.Tensor, table: Table,
-                                capacity: int,
-                                ws: Optional[torch.Tensor] = None
-                                ) -> torch.Tensor:
+                                delta: torch.Tensor, rp_min: torch.Tensor,
+                                rp_max: torch.Tensor, table: Table,
+                                capacity: int) -> torch.Tensor:
     """Deletion / split-M reads: ncodes (N, L/2) uint8, start (N,) int32,
     delta (N, L) int16 with refpos = start + i + delta[i] where the
-    nibble != 15."""
+    nibble != 15; rp_min / rp_max (N,) int32 as pack_delta_nibble returns
+    them.  The contract: every unmasked base's position lies in
+    [rp_min, rp_max]; a row with rp_max <= 0 emits nothing.  The table must
+    be position-sorted; each row's table range is found by the program
+    itself from those two numbers."""
     dev = ncodes.device
     N, Lh = ncodes.shape
     _check("ncodes", ncodes, torch.uint8, (N, Lh), dev)
-    _check("start", start, torch.int32, (N,), dev)
+    for k, t in (("start", start), ("rp_min", rp_min), ("rp_max", rp_max)):
+        _check(k, t, torch.int32, (N,), dev)
     _check("delta", delta, torch.int16, (N, 2 * Lh), dev)
-    ws, win, R = window_args(ws, N, table, dev)
+    _check_table(table, dev)
     _check_size(N, 2 * Lh, capacity)
     if not _on_cuda(dev):
-        return delta_nibble_plain(ncodes, start, delta, ws, win, R, table,
+        return delta_nibble_plain(ncodes, start, delta, rp_min, rp_max, table,
                                   capacity)
+    _check_join_table(table)
+    # the kernel loads a delta row as 8-byte words (4 x int16)
+    if Lh % 2:
+        raise ValueError("delta plane width %d is not a multiple of 4"
+                         % (2 * Lh))
+    if delta.data_ptr() % 16:
+        raise ValueError("delta is not 16-byte aligned")
     out = _new_packed(capacity, dev)
     vpos, a0, a1, ni = table
     _launch("delta_nibble_launch", (
-        ncodes.data_ptr(), start.data_ptr(), delta.data_ptr(), N, Lh,
-        ws.data_ptr(), win, R, vpos.data_ptr(), a0.data_ptr(), a1.data_ptr(),
-        ni.data_ptr(), vpos.shape[0], out.data_ptr(), capacity, _stream(dev)))
+        ncodes.data_ptr(), start.data_ptr(), delta.data_ptr(),
+        rp_min.data_ptr(), rp_max.data_ptr(), N, Lh, vpos.data_ptr(),
+        a0.data_ptr(), a1.data_ptr(), ni.data_ptr(), vpos.shape[0],
+        out.data_ptr(), capacity, _stream(dev)))
     bump(LAUNCHES, "delta_nibble")
     return out
 
@@ -828,32 +813,30 @@ def assign_compact_plane(codes: torch.Tensor, quals: torch.Tensor,
 
 def assign_compact_affine_masked(mcodes: torch.Tensor, start: torch.Tensor,
                                  lo: torch.Tensor, hi: torch.Tensor,
-                                 table: Table, capacity: int,
-                                 ws: Optional[torch.Tensor] = None
+                                 table: Table, capacity: int
                                  ) -> torch.Tensor:
     """Affine reads from the 1 B/base masked plane (BASEQ applied, 15 =
     masked): mcodes (N, L) uint8, start/lo/hi (N,) int32 with
     refpos = start + (i - lo) on [lo, hi).  phaser_tpu's jnp
-    assign_compact_affine_masked (kernels/alleles.py:246-259)."""
+    assign_compact_affine_masked (kernels/alleles.py:246-259).  The table
+    must be position-sorted; each row's table range is found by the program
+    itself."""
     dev = mcodes.device
     N, L = mcodes.shape
     _check("mcodes", mcodes, torch.uint8, (N, L), dev)
     for k, t in (("start", start), ("lo", lo), ("hi", hi)):
         _check(k, t, torch.int32, (N,), dev)
-    if L % 2:
-        raise ValueError("masked plane width %d is odd" % L)
-    ws, win, R = window_args(ws, N, table, dev)
+    _check_table(table, dev)
     _check_size(N, L, capacity)
     if not _on_cuda(dev):
-        return affine_masked_plain(mcodes, start, lo, hi, ws, win, R, table,
-                                   capacity)
+        return affine_masked_plain(mcodes, start, lo, hi, table, capacity)
+    _check_join_table(table)
     out = _new_packed(capacity, dev)
     vpos, a0, a1, ni = table
     _launch("affine_masked_launch", (
         mcodes.data_ptr(), start.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        N, L, ws.data_ptr(), win, R, vpos.data_ptr(), a0.data_ptr(),
-        a1.data_ptr(), ni.data_ptr(), vpos.shape[0], out.data_ptr(),
-        capacity, _stream(dev)))
+        N, L, vpos.data_ptr(), a0.data_ptr(), a1.data_ptr(), ni.data_ptr(),
+        vpos.shape[0], out.data_ptr(), capacity, _stream(dev)))
     bump(LAUNCHES, "affine_masked")
     return out
 

@@ -339,9 +339,8 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
 
         for t in range(0, dev_vidx.size, _MAX_TABLE):
             tab_vidx = dev_vidx[t:t + _MAX_TABLE]
-            padded = K.padded_table(vt, tab_vidx)
-            vpos = padded[0]  # host copy, for the delta planner
-            table = tuple(_upload(x, dev) for x in padded)
+            table = tuple(_upload(x, dev)
+                          for x in K.padded_table(vt, tab_vidx))
 
             # affine fast path: masked plane (BASEQ pre-applied), refpos
             # rebuilt on the device, in <= _SUB_ROWS-row launches
@@ -353,14 +352,12 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
                 ss, ls, hs = st_k[s:e], lo_k[s:e], hi_k[s:e]
                 args = (_upload(mcodes[s:e], dev), _upload(ss, dev),
                         _upload(ls, dev), _upload(hs, dev))
+                # either kernel finds each row's table range on the card
                 if nibble is not None:
-                    # the kernel finds each row's table range on the card
                     fb_key = ("affine_nib", _next_pow2(max(n_sub, 8)), Lw)
                     cap = _adaptive_cap(fb_key, n_sub * L_bases)
                     packed = K.assign_compact_affine_nibble(*args, table, cap)
                 else:
-                    # the fallback without the nibble packer searches the
-                    # whole table
                     fb_key = ("affine", _next_pow2(max(n_sub, 8)), Lw)
                     cap = _adaptive_cap(fb_key, n_sub * L_bases)
                     packed = K.assign_compact_affine_masked(*args, table, cap)
@@ -382,16 +379,13 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
                 if ok_idx.size:
                     Nd = ok_idx.size
                     Ld = dlt.shape[1]
-                    ws_d = K.plan_windows_minmax(rmn[ok_idx], rmx[ok_idx],
-                                                 np.ones(Nd, bool), vpos, Nd,
-                                                 min(256, Nd))
-                    kind = "delta_win" if ws_d is not None else "delta_nib"
-                    fb_key = (kind, _next_pow2(max(Nd, 8)), Ld)
+                    # the packer's per-row [rp_min, rp_max] is all the
+                    # kernel needs to find each row's table range
+                    fb_key = ("delta_nib", _next_pow2(max(Nd, 8)), Ld)
                     cap_d = _adaptive_cap(fb_key, Nd * Ld)
                     packed_d = K.assign_compact_delta_nibble(
-                        _upload(ncd[ok_idx], dev), _upload(dst[ok_idx], dev),
-                        _upload(dlt[ok_idx], dev), table, cap_d,
-                        ws=None if ws_d is None else _upload(ws_d, dev))
+                        *[_upload(x[ok_idx], dev)
+                          for x in (ncd, dst, dlt, rmn, rmx)], table, cap_d)
                     dev_parts.append((packed_d, cap_d, plane_sel[ok_idx],
                                       tab_vidx, 0, fb_key))
                 if dn is not None:

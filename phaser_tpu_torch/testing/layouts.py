@@ -1,12 +1,14 @@
 """Synthetic read / variant-table layouts that reach every branch of the
-range-join kernels (affine_nibble, plane): used by the CPU tests against
-the JAX programs and, at a larger size, by chip_smoke.py on the card.
+range-join kernels (affine_nibble, affine_masked, delta_nibble, plane):
+used by the CPU tests against the JAX programs and, at a larger size, by
+chip_smoke.py on the card.
 
 A layout is a dict of numpy arrays: start / lo / hi (N,) int32 affine row
 parameters (refpos = start + (i - lo) on [lo, hi)), codes / quals (N, L)
-uint8, gap (N,) int32 (a splice inserted at the middle of the row, for the
-plane program; 0 for none), and the table vpos (M,) int32 sorted, ind
-(M, 2) uint8, ni (M,) int8.
+uint8, gap (N,) int32 (a jump in the reference at the middle of the row:
+a splice for the plane program, a deletion for the delta program, ignored
+by the affine programs; 0 for none), and the table vpos (M,) int32 sorted,
+ind (M, 2) uint8, ni (M,) int8.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 
 NAMES = ["sorted", "random_order", "dense", "L256", "L384", "lo_gt0",
          "empty_rows", "first_last", "one_entry", "table_slice",
-         "duplicates"]
+         "duplicates", "clip_collide"]
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
 
@@ -68,6 +70,16 @@ def make(name: str, n_rows: int = 300, n_vars: int = 200,
         start = np.sort(rng.integers(1, 3 * (1 << 22), size=N))
     elif name == "duplicates":
         vpos = np.sort(np.concatenate([vpos, vpos[::5], vpos[::10]]))
+    elif name == "clip_collide":
+        # a short deletion at the middle and a 20-base trailing clip: the
+        # clipped base i + gap (delta 0, masked) has the position of the
+        # aligned base i, and variants sit under the rows' last aligned bases
+        lo = rng.integers(0, 9, size=N).astype(np.int32)
+        hi = np.full(N, L - 20, np.int32)
+        gap = rng.integers(1, 20, size=N)
+        last = start + (hi - lo) - 1 + gap
+        vpos = np.unique(np.concatenate([vpos[::4], last[::2],
+                                         last[1::4] - 2]))
     elif name not in ("sorted", "L256", "L384"):
         raise ValueError("unknown layout %r" % name)
     M = len(vpos)
@@ -115,3 +127,36 @@ def plane_inputs(d: dict):
         np.where(i >= L // 2, d["gap"][:, None], 0)
     refpos = np.where((i >= lo) & (i < hi), refpos, 0).astype(np.int32)
     return d["codes"], d["quals"], refpos
+
+
+def masked_inputs(d: dict, baseq: int = 10):
+    """(mcodes, start, lo, hi): the affine rows on the 1 B/base masked plane
+    (BASEQ applied, 15 = masked)."""
+    mcodes = np.where(d["quals"] >= baseq, d["codes"], 15).astype(np.uint8)
+    return mcodes, d["start"], d["lo"], d["hi"]
+
+
+def delta_inputs(d: dict, baseq: int = 10):
+    """(ncodes, start, delta, rp_min, rp_max): the rows as the delta program
+    takes them, with `gap` (clipped to int16) as a deletion at the middle.
+    Bases outside [lo, hi) are soft clips: nibble 15 and delta 0, as the
+    packer writes them; start is the position base 0 would have.  rp_min /
+    rp_max bound the aligned positions (low-quality bases included), both 0
+    for a row with no aligned base."""
+    N, L = d["codes"].shape
+    i = np.arange(L, dtype=np.int32)[None, :]
+    lo, hi = d["lo"][:, None], d["hi"][:, None]
+    aligned = (i >= lo) & (i < hi)
+    masked = np.where(aligned & (d["quals"] >= baseq), d["codes"],
+                      15).astype(np.uint8)
+    ncodes = (masked[:, 0::2] | (masked[:, 1::2] << 4)).astype(np.uint8)
+    gap = np.minimum(d["gap"], 32767)[:, None]
+    delta = np.where(aligned & (i >= L // 2), gap, 0).astype(np.int16)
+    start = (d["start"] - d["lo"]).astype(np.int32)
+    refpos = start[:, None] + i + delta
+    some = aligned.any(axis=1)
+    rp_min = np.where(some, np.where(aligned, refpos, _INT32_MAX).min(axis=1),
+                      0).astype(np.int32)
+    rp_max = np.where(some, np.where(aligned, refpos, 0).max(axis=1),
+                      0).astype(np.int32)
+    return ncodes, start, delta, rp_min, rp_max

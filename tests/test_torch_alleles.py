@@ -9,9 +9,9 @@ tests/test_kernels.py does.  The plain versions compact in row-major order,
 so their packed buffers must equal JAX's word for word; the CUDA kernels
 compact with atomics, so those are compared after a (read, var) sort.
 
-The affine-nibble and plane programs of the port are range joins that find
-their own table ranges: JAX's windowed programs are fed planned windows, the
-port gets none.
+The port's four fused programs are range joins that find their own table
+ranges: JAX's windowed programs are fed planned windows, the port gets none
+(the delta program gets the packer's per-row [rp_min, rp_max] instead).
 """
 
 import numpy as np
@@ -93,8 +93,6 @@ def _affine_case(tmp_path):
     N = ncodes.shape[0]
     vpos, (jv, ji, jn), table = _tables(vt)
     ws = J.plan_windows_affine(st, lo, hi, hi > lo, vpos, N, min(256, N))
-    np.testing.assert_array_equal(
-        ws, K.plan_windows_affine(st, lo, hi, hi > lo, vpos, N, min(256, N)))
     jargs = [jnp.asarray(x) for x in (ncodes, st, lo, hi)]
 
     def jax_windowed(cap):
@@ -123,9 +121,7 @@ def _delta_case(tmp_path):
     N = ok.size
     vpos, (jv, ji, jn), table = _tables(vt)
     valid = np.ones(N, bool)
-    ws = K.plan_windows_minmax(rmn, rmx, valid, vpos, N, min(256, N))
-    np.testing.assert_array_equal(
-        ws, J.plan_windows_minmax(rmn, rmx, valid, vpos, N, min(256, N)))
+    ws = J.plan_windows_minmax(rmn, rmx, valid, vpos, N, min(256, N))
     jargs = [jnp.asarray(x) for x in (ncd, dst, dlt)]
 
     def jax_windowed(cap):
@@ -135,11 +131,11 @@ def _delta_case(tmp_path):
     def jax_plain(cap):
         return J.assign_compact_delta_nibble(*jargs, jv, ji, jn, cap)
 
-    def port(cap, planned=True, device="cpu"):
+    def port(cap, planned=None, device="cpu"):
         return K.assign_compact_delta_nibble(
-            *[_t(x, device) for x in (ncd, dst, dlt)], _on(table, device),
-            cap, ws=_t(ws, device) if planned else None)
-    return N, jax_windowed, jax_plain, port, (True, False)
+            *[_t(x, device) for x in (ncd, dst, dlt, rmn, rmx)],
+            _on(table, device), cap)
+    return N, jax_windowed, jax_plain, port, (None,)
 
 
 def _plane_case(tmp_path):
@@ -175,9 +171,9 @@ CASES = {"affine_nibble": _affine_case, "delta_nibble": _delta_case,
 
 @pytest.mark.parametrize("program", sorted(CASES))
 def test_program_matches_jax(tmp_path, program):
-    """Each program's plain version (the range joins with no window; the
-    delta program with planned windows and the whole table) == the JAX
-    windowed Pallas program (interpret) == its jnp twin."""
+    """Each program's plain version (a range join with no window) == the
+    JAX windowed Pallas program (interpret, fed phaser_tpu's planned
+    windows) == its jnp twin."""
     N, jax_windowed, jax_plain, port, plans = CASES[program](tmp_path)
     cap = 1 << 13
     want = np.asarray(jax_plain(cap))
@@ -239,7 +235,7 @@ def test_band_overflow_affine_whole_table():
     ncodes = (codes[:, 0::2] | (codes[:, 1::2] << 4)).astype(np.uint8)
     lo = np.full(N, 3, np.int32)
     hi = np.full(N, L - 5, np.int32)
-    assert K.plan_windows_affine(starts, lo, hi, hi > lo, vpos, N, 256) is None
+    assert J.plan_windows_affine(starts, lo, hi, hi > lo, vpos, N, 256) is None
     cap = 1 << 14
     want = np.asarray(J.assign_compact_affine_nibble(
         *[jnp.asarray(x) for x in (ncodes, starts, lo, hi, vpos, ind, ni)],
@@ -288,10 +284,25 @@ def test_wrappers_check_their_inputs():
         # the range joins take no window
         K.assign_compact_affine_nibble(nc, z, z, z, table, 16,
                                        ws=torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="shape"):
+    dl = torch.zeros((4, 128), dtype=torch.int16)
+    with pytest.raises(TypeError, match="ws"):
+        K.assign_compact_delta_nibble(nc, z, dl, z, z, table, 16,
+                                      ws=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(TypeError, match="ws"):
+        K.assign_compact_affine_masked(
+            torch.zeros((4, 128), dtype=torch.uint8), z, z, z, table, 16,
+            ws=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="rp_max has shape"):
         K.assign_compact_delta_nibble(
-            nc, z, torch.zeros((4, 128), dtype=torch.int16), table, 16,
-            ws=torch.zeros(3, dtype=torch.int32))
+            nc, z, dl, z, torch.zeros(3, dtype=torch.int32), table, 16)
+    with pytest.raises(ValueError, match="rp_min has dtype"):
+        K.assign_compact_delta_nibble(nc, z, dl, z.long(), z, table, 16)
+    with pytest.raises(ValueError, match="delta has shape"):
+        K.assign_compact_delta_nibble(
+            nc, z, torch.zeros((4, 64), dtype=torch.int16), z, z, table, 16)
+    with pytest.raises(ValueError, match="mcodes has dtype"):
+        K.assign_compact_affine_masked(
+            torch.zeros((4, 128), dtype=torch.int32), z, z, z, table, 16)
     with pytest.raises(ValueError, match="multiple of 4"):
         K.assign_compact_plane(torch.zeros((4, 6), dtype=torch.uint8),
                                torch.zeros((4, 6), dtype=torch.uint8),
@@ -329,6 +340,8 @@ def _port_table(d):
 
 _affine_inputs = layouts.affine_inputs
 _plane_inputs = layouts.plane_inputs
+_delta_inputs = layouts.delta_inputs
+_masked_inputs = layouts.masked_inputs
 
 
 @pytest.mark.parametrize("cap", [1 << 15, 4])
@@ -379,6 +392,79 @@ def test_plane_range_join_matches_jax(layout, cap):
     assert got[0, 0] > (cap if cap == 4 else 0)
 
 
+@pytest.mark.parametrize("cap", [1 << 15, 4])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_delta_range_join_matches_jax(layout, cap):
+    """assign_compact_delta_nibble from the rows' [rp_min, rp_max] == JAX's
+    jnp twin (a search per base over the whole table), word for word; past
+    capacity (cap 4) the count stays exact."""
+    d = _layout(layout)
+    ncodes, start, delta, rp_min, rp_max = _delta_inputs(d)
+    jtab = [jnp.asarray(d[k]) for k in ("vpos", "ind", "ni")]
+    want = np.asarray(J.assign_compact_delta_nibble(
+        *[jnp.asarray(x) for x in (ncodes, start, delta)], *jtab, cap))
+    got = K.assign_compact_delta_nibble(
+        *[_t(x) for x in (ncodes, start, delta, rp_min, rp_max)],
+        _port_table(d), cap).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0] > (cap if cap == 4 else 0)
+
+
+@pytest.mark.parametrize("cap", [1 << 15, 4])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_masked_range_join_matches_jax(layout, cap):
+    """assign_compact_affine_masked without a window == JAX's jnp program,
+    word for word, and == the nibble program on the same rows."""
+    d = _layout(layout)
+    args = _masked_inputs(d)
+    jtab = [jnp.asarray(d[k]) for k in ("vpos", "ind", "ni")]
+    want = np.asarray(J.assign_compact_affine_masked(
+        *[jnp.asarray(x) for x in args], *jtab, cap))
+    table = _port_table(d)
+    got = K.assign_compact_affine_masked(*[_t(x) for x in args], table,
+                                         cap).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, K.assign_compact_affine_nibble(
+        *[_t(x) for x in _affine_inputs(d)], table, cap).numpy())
+    assert got[0, 0] > (cap if cap == 4 else 0)
+
+
+def test_clip_collision_layout_collides():
+    """The layout really puts a masked trailing clip at the position of an
+    aligned base on a variant, the delta program reports that variant once,
+    from the aligned base, and a base that is aligned but of low quality
+    reports nothing."""
+    d = _layout("clip_collide")
+    ncodes, start, delta, rp_min, rp_max = _delta_inputs(d)
+    L = delta.shape[1]
+    i = np.arange(L)[None, :]
+    pos = start[:, None] + i + delta
+    clip = i >= d["hi"][:, None]
+    on_var = np.isin(pos, d["vpos"])
+    aligned = (i >= d["lo"][:, None]) & ~clip
+    # rows with a clipped base and an aligned base on one variant position
+    both = [(r, p) for r in range(len(start))
+            for p in set(pos[r][clip[r] & on_var[r]]) &
+            set(pos[r][aligned[r] & on_var[r]])]
+    assert len(both) > 20
+    got = K.assign_compact_delta_nibble(
+        *[_t(x) for x in (ncodes, start, delta, rp_min, rp_max)],
+        _port_table(d), 1 << 15).numpy()
+    r, v, _, mc, _ = K.decode_packed_hits(got)
+    hits = {}
+    for rr, vv in zip(r.tolist(), v.tolist()):
+        hits[(rr, int(d["vpos"][vv]))] = hits.get((rr, int(d["vpos"][vv])),
+                                                  0) + 1
+    assert max(hits.values()) == 1
+    masked = np.where(aligned & (d["quals"] >= 10), d["codes"], 15)
+    seen = 0
+    for row, p in both:
+        base = int(np.flatnonzero(aligned[row] & (pos[row] == p))[0])
+        assert ((row, int(p)) in hits) == (masked[row, base] != 15)
+        seen += (row, int(p)) in hits
+    assert 0 < seen < len(both)
+
+
 def test_range_joins_hit_first_and_last_base():
     """The layout really puts variants under first and last aligned bases,
     and both programs report them."""
@@ -397,30 +483,27 @@ def _affine_masked_case(tmp_path):
     st, lo, hi = (np.where(ia, x, 0).astype(np.int32) for x in (st, lo, hi))
     N = mcodes.shape[0]
     vpos, (jv, ji, jn), table = _tables(vt)
-    ws = K.plan_windows_affine(st, lo, hi, hi > lo, vpos, N, min(256, N))
-    assert ws is not None
 
     def jax_plain(cap):
         return J.assign_compact_affine_masked(
             *[jnp.asarray(x) for x in (mcodes, st, lo, hi)], jv, ji, jn, cap)
 
-    def port(cap, planned=True, device="cpu"):
+    def port(cap, device="cpu"):
         return K.assign_compact_affine_masked(
             *[_t(x, device) for x in (mcodes, st, lo, hi)],
-            _on(table, device), cap, ws=_t(ws, device) if planned else None)
+            _on(table, device), cap)
     return N, jax_plain, port
 
 
 def test_affine_masked_matches_jax(tmp_path):
-    """The masked-affine plain version == phaser_tpu's jnp
-    assign_compact_affine_masked, word for word, planned and whole table,
-    and past capacity."""
+    """The masked-affine plain version (a range join with no window) ==
+    phaser_tpu's jnp assign_compact_affine_masked, word for word, and past
+    capacity."""
     N, jax_plain, port = _affine_masked_case(tmp_path)
     for cap in (1 << 13, 4):
         want = np.asarray(jax_plain(cap))
         assert want[0, 0] > 5
-        for planned in (True, False):
-            np.testing.assert_array_equal(port(cap, planned).numpy(), want)
+        np.testing.assert_array_equal(port(cap).numpy(), want)
 
 
 def _entry_inputs(seed, M, N, L, contig, regions=None, holes=0.05):
@@ -568,7 +651,7 @@ def cuda():
 @pytest.mark.parametrize("program", sorted(CASES))
 def test_cuda_kernel_matches_plain(tmp_path, cuda, program):
     """On the card: the CUDA kernel == the plain version == JAX's jnp
-    program, planned and whole-table, after a (read, var) sort."""
+    program, after a (read, var) sort."""
     N, _, jax_plain, port, plans = CASES[program](tmp_path)
     cap = 1 << 13
     want = np.asarray(jax_plain(cap))
@@ -587,11 +670,10 @@ def test_cuda_affine_masked_matches_plain(tmp_path, cuda):
     cap = 1 << 13
     want = np.asarray(jax_plain(cap))
     before = K.LAUNCHES["affine_masked"]
-    outs = [port(cap, planned, cuda) for planned in (True, False)]
+    got = port(cap, cuda)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["affine_masked"] == before + 2
-    for got in outs:
-        _assert_same_hits(got.cpu().numpy(), want)
+    assert K.LAUNCHES["affine_masked"] == before + 1
+    _assert_same_hits(got.cpu().numpy(), want)
 
 
 @pytest.mark.gpu

@@ -104,17 +104,32 @@ def test_dispatch_cpu_matches_host(tmp_path, spy, fixture, kw):
         assert min(spy.values()) > 0, spy
 
 
+@pytest.mark.parametrize("nibble_packer", [True, False])
+def test_dispatcher_plans_no_window(tmp_path, monkeypatch, spy,
+                                    nibble_packer):
+    """Every fused program finds its table ranges itself: the dispatcher
+    calls no window planner, with the nibble packer and without it (the
+    masked-affine program)."""
+    bd, vt, jax_host = _load(tmp_path, "indel_multiallelic")
+
+    def planned(*a, **k):
+        raise AssertionError("the dispatcher planned a window")
+    for name in ("plan_windows_plane", "_plan_from_bounds"):
+        monkeypatch.setattr(K, name, planned)
+    if not nibble_packer:
+        monkeypatch.setattr(K, "pack_affine_nibble", lambda *a, **k: None)
+    _assert_equal_hits(
+        D.assign_alleles_auto(bd, vt, baseq=10, device="cpu"), jax_host())
+    assert spy["delta_nibble"] > 0 and spy["plane"] > 0
+    assert (spy["affine_nibble"] > 0) == nibble_packer
+    assert (spy["affine_masked"] > 0) == (not nibble_packer)
+
+
 def test_whole_table_and_overflow_paths(tmp_path, monkeypatch, spy):
-    """Planner band overflow (whole-table search) and hit-capacity overflow
-    (the chunk relaunched on its device with the exact counts, no host
-    rerun) both keep the hits equal."""
+    """Hit-capacity overflow (the chunk relaunched on its device with the
+    exact counts, no host rerun) keeps the hits equal."""
     bd, vt, jax_host = _load(tmp_path, "indel_multiallelic")
     want = jax_host()
-    for name in ("plan_windows_affine", "plan_windows_minmax",
-                 "plan_windows_plane"):
-        monkeypatch.setattr(K, name, lambda *a, **k: None)
-    _assert_equal_hits(
-        D.assign_alleles_auto(bd, vt, baseq=10, device="cpu"), want)
 
     host_rows = []
     monkeypatch.setattr(D, "assign_alleles",
