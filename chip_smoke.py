@@ -14,6 +14,12 @@ Phases (any failure exits non-zero; nothing here imports jax):
      exact host mapper, also with every launch's hit capacity forced to
      overflow (the chunk must be relaunched on the card, never rerun on the
      host) and without the native nibble packer (the masked-affine path);
+     the dispatcher's counters after each such call (its pre-filter dropped
+     the reads whose span holds no variant, only the filled columns of the
+     packed-hit buffers were fetched, every upload left pinned memory), and
+     the pre-filter's two ends: reads of which none reaches a variant
+     (nothing uploaded, nothing launched) and reads that all do (none
+     dropped);
      the dispatcher's wall with its host items (cProfile) and its device
      share (torch.profiler); then one 262,144-row launch of each fused
      kernel against its plain PyTorch version on the card (all four are
@@ -32,7 +38,14 @@ Phases (any failure exits non-zero; nothing here imports jax):
      and cmp, assign_alleles_pallas with a resident table) on
      tests/test_tpu_hw.py's layout (M = 100k, N = 2^15, narrow regions, the
      plan asserted), each against its plain version, max_abs_err 0 on both
-     planes;
+     planes, and the whole-table mode at that table; then every mode
+     (windowed search, cmp, whole table, resident table) on the layouts of
+     testing/layouts.py PLANES_NAMES: an L that is no multiple of 4 (the
+     scalar instantiation) and one that is none of 16, spliced and
+     descending rows, duplicate table positions (the search takes the
+     first, cmp the last), a window past the end of a table whose length is
+     no multiple of 4, pairs of entries whose product of differences
+     vanishes modulo 2^32, 20,077 rows each (no multiple of the row block);
   5. engine stages #3 pair counting, #4 components and #5 the 2^n scorer at
      and above their size gates, cuda against host: equal results, both
      times printed;
@@ -65,7 +78,8 @@ enqueue as fast as the card runs), as in every earlier record.  `device_ms`
 is what one call keeps the card busy (torch.profiler's device time of the
 __global__ function plus the launcher's buffer fills), `kernel_ms` the
 __global__ function alone, `profiles` how many profiler windows it took to
-see the function (1 unless a window came back without device records).
+see the function (1 unless a window came back without device records; one
+discarded window with a launch in it precedes the first measured one).
 `plain_ms` is event-timed.  The share of bound
 is taken against `ms`.
 
@@ -76,8 +90,10 @@ needs (row parameters or the refpos plane, the table entries between the
 lowest and the highest position of the launch's rows, for delta_nibble 8 B
 of [rp_min, rp_max] per row and `start` and the delta row only of the rows
 with a table entry in their range, one 32-byte sector of a code plane per
-hit, 8 B per hit written), and the line printed before the record also
-gives the "every input byte once" figure.  `library_ms` is
+hit, 8 B per hit written; for the planes kernels 4 B of refpos read and 8 B
+written per base, 2 B of codes and quals per hit, the table entries under
+the launch's windows), and the line printed before the record also gives
+the "every input byte once" figure.  `library_ms` is
 null throughout: no single PyTorch call classifies bases against the table
 and compacts the hits (`torch.searchsorted` is only the lookup).
 
@@ -187,8 +203,11 @@ KERNEL_FN = {  # the __global__ function behind each kernel entry
     "affine_nibble": "affine_nibble_kernel",
     "delta_nibble": "delta_nibble_kernel", "plane": "plane_kernel",
     "affine_masked": "affine_masked_kernel",
-    "planes": "planes_kernel<false>", "planes_resident": "planes_kernel<true>",
-    "planes_cmp": "planes_cmp_kernel"}
+    "planes": "planes_windowed_kernel",
+    "planes_resident": "planes_resident_kernel",
+    "planes_cmp": "planes_cmp_kernel",
+    "planes_table": "planes_table_kernel"}  # the whole-table mode of planes
+_profiler_warm = False
 
 
 def device_ms(name, fn, iters=20):
@@ -198,10 +217,19 @@ def device_ms(name, fn, iters=20):
     the function (a profile now and then comes back without its device
     records; the count goes into the kernels' record); None when three
     profiles report no device time for it."""
+    global _profiler_warm
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    if not _profiler_warm:
+        # the first window of a process has come back without device
+        # records: a discarded window with a launch in it comes first
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            fn()
+            torch.cuda.synchronize()
+        _profiler_warm = True
     for attempt in (1, 2, 3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -267,9 +295,9 @@ def host_items(fn):
     import pstats
 
     import torch
-    names = ("_read_op_masks", "select", "pack_affine_nibble",
+    names = ("_read_spans", "select", "pack_affine_nibble",
              "pack_delta_nibble", "pack_reads", "padded_table", "_upload",
-             "assign_alleles", "resolve", "decode_packed_hits")
+             "assign_alleles", "resolve", "_fetch", "decode_packed_hits")
     pr = cProfile.Profile()
     t0 = time.perf_counter()
     pr.enable()
@@ -323,6 +351,68 @@ def profile_dispatch(fn):
     sys.stdout.flush()
 
 
+def rows_or_copy(K, call):
+    """The dispatcher call with the packers given the kept reads' row
+    indices (as shipped) against a gathered copy of those reads
+    (BamData.select, then pack), in turns in this process."""
+    import torch
+    names = ("pack_reads", "pack_affine_nibble", "pack_delta_nibble")
+    packers = {n: getattr(K, n) for n in names}
+
+    def gathered(pack):
+        def packed(b, *a, rows=None, **k):
+            return pack(b if rows is None else b.select(rows), *a, **k)
+        return packed
+    walls = {"row index": [], "gathered copy": []}
+    try:
+        for mode in ("row index", "gathered copy", "gathered copy",
+                     "row index") * 3:
+            for n, pack in packers.items():
+                setattr(K, n, pack if mode == "row index" else gathered(pack))
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+    finally:
+        for n, pack in packers.items():
+            setattr(K, n, pack)
+    print("   packers by %s" % "; ".join(
+        "%s %s s" % (m, " ".join("%.3f" % w for w in ws))
+        for m, ws in walls.items()), flush=True)
+
+
+def filter_stats(D, what, dropped):
+    """Prints the dispatcher's counts since the last reset and checks them:
+    the pre-filter ran (with `dropped`: it dropped rows), exactly the filled
+    columns were fetched (min(n_hits, cap) + 1 a part), every upload left
+    pinned memory."""
+    st = dict(D.STATS)
+    print("   %s: rows kept %d / rows in %d (dropped %d); columns fetched %d "
+          "/ needed %d / allocated %d in %d parts; uploads pinned %d / %d"
+          % (what, st["rows_kept"], st["rows_in"], st["rows_dropped"],
+             st["columns_fetched"], st["columns_needed"],
+             st["columns_allocated"], st["parts_fetched"],
+             st["uploads_pinned"], st["uploads"]),
+          flush=True)
+    check(st["rows_in"] > 0 and
+          st["rows_kept"] + st["rows_dropped"] == st["rows_in"],
+          "%s: the pre-filter did not run: %s" % (what, st))
+    if dropped:
+        check(0 < st["rows_kept"] < st["rows_in"] // 2,
+              "%s: the pre-filter kept %d of %d rows"
+              % (what, st["rows_kept"], st["rows_in"]))
+    check(st["parts_fetched"] > 0 and
+          st["columns_fetched"] == st["columns_needed"] and
+          st["parts_fetched"] < st["columns_fetched"] <
+          st["columns_allocated"],
+          "%s: fetched %d columns, needed %d of %d allocated in %d parts"
+          % (what, st["columns_fetched"], st["columns_needed"],
+             st["columns_allocated"], st["parts_fetched"]))
+    check(st["uploads"] > 0 and st["uploads_pinned"] == st["uploads"],
+          "%s: %d of %d uploads left pinned memory"
+          % (what, st["uploads_pinned"], st["uploads"]))
+
+
 def chromosome_phase(tmp, device):
     import numpy as np
     import torch
@@ -352,12 +442,14 @@ def chromosome_phase(tmp, device):
     D.RELAUNCHES["capacity"] = 0
     for _ in range(2):
         K.reset_launches()
+        D.reset_stats()
         t0 = time.perf_counter()
         got = assign_alleles_auto(bd, vt, baseq=10, device=device)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         same_hits(got, want, "chromosome-scale assign_alleles_auto")
     chrom_launches = dict(K.LAUNCHES)
+    filter_stats(D, "chromosome-scale call", dropped=True)
     print("   assign_alleles_auto: %d hits; host %.3f s, cuda %.3f s "
           "(first call) / %.3f s; launches %s"
           % (len(want), t_host, walls[0], walls[1], chrom_launches),
@@ -389,11 +481,37 @@ def chromosome_phase(tmp, device):
           flush=True)
     check(D.RELAUNCHES["capacity"] == 1 and K.LAUNCHES["affine_nibble"] > 0
           and K.LAUNCHES["plane"] > 0, "overflow was not relaunched on the card")
+    # the pre-filter's two ends: reads of which none reaches a device variant
+    # (nothing packed, nothing launched) and reads that all do (none dropped)
+    _, _, near = D._read_spans(bd, vt.pos)
+    for what, sel in (("no read near a variant", np.flatnonzero(~near)),
+                      ("every read near a variant", np.flatnonzero(near))):
+        part = bd.select(sel[:300_000])
+        want_part = assign_alleles_auto(part, vt, baseq=10, device="host")
+        K.reset_launches()
+        D.reset_stats()
+        got = assign_alleles_auto(part, vt, baseq=10, device=device)
+        torch.cuda.synchronize()
+        same_hits(got, want_part, what)
+        n_launch = sum(K.LAUNCHES.values())
+        print("   %s: %d reads, %d hits, %d launches, stats %s"
+              % (what, len(part), len(got), n_launch, dict(D.STATS)),
+              flush=True)
+        if what.startswith("no"):
+            check(n_launch == 0 and D.STATS["rows_kept"] == 0 and
+                  D.STATS["uploads"] == 0 and len(got) == 0,
+                  "reads near no variant reached the card")
+        else:
+            check(n_launch > 0 and D.STATS["rows_dropped"] == 0 and
+                  D.STATS["rows_kept"] == len(part) and len(got) > 0,
+                  "reads near a variant were dropped")
     if dev.type == "cuda":
         profile_dispatch(lambda: assign_alleles_auto(bd, vt, baseq=10,
                                                      device=device))
         host_items(lambda: assign_alleles_auto(bd, vt, baseq=10,
                                                device=device))
+        rows_or_copy(K, lambda: assign_alleles_auto(bd, vt, baseq=10,
+                                                    device=device))
 
     # the dispatcher without the native nibble packer: affine reads take
     # the 1 B/base masked plane and the affine_masked kernel
@@ -401,6 +519,7 @@ def chromosome_phase(tmp, device):
     K.pack_affine_nibble = lambda *a, **k: None
     try:
         K.reset_launches()
+        D.reset_stats()
         t0 = time.perf_counter()
         got = assign_alleles_auto(bd, vt, baseq=10, device=device)
         torch.cuda.synchronize()
@@ -409,6 +528,7 @@ def chromosome_phase(tmp, device):
     finally:
         K.pack_affine_nibble = pack_nibble
     same_hits(got, want, "assign_alleles_auto without the nibble packer")
+    filter_stats(D, "no-nibble call", dropped=True)
     print("   no nibble packer: %.3f s, launches %s; hits equal the host's"
           % (t_masked, masked_launches), flush=True)
     check(masked_launches["affine_masked"] > 0 and
@@ -762,27 +882,124 @@ def entries_phase(device):
     }
     results = {name: planes_vs_plain(name, outs[name], *runs[name])
                for name in outs}
-    # 6 B read and 8 B written per base, the windows and the table once;
-    # the search depth in a 256-entry window or the resident table, or 256
+    # what these inputs need moved: 4 B of refpos read and 8 B written per
+    # base, codes and quals (2 B) only under a base whose position matched,
+    # the window starts, and the table entries under the launch's windows
+    # (the resident table whole); beside it the "every input byte once"
+    # figure of earlier records (6 B read per base, the whole table).  The
+    # search depth in a 256-entry window or the resident table, or 256
     # compare-selects per base for cmp
-    plane_bytes = N * L * (6 + 8)
     n_blocks = -(-N // R)
-    bounds = {
-        "planes": bound_of(plane_bytes + 4 * n_blocks + M * TABLE_ROW_BYTES,
-                           N * L * 2 * 8),
-        "planes_cmp": bound_of(
-            plane_bytes + 4 * n_blocks + M * TABLE_ROW_BYTES,
-            N * L * 2 * K._WIN),
-        "planes_resident": bound_of(plane_bytes + R_res * TABLE_ROW_BYTES,
-                                    N * L * 2 * 7),
-    }
-    # the windowed entry equals the whole-table classifier, as on the TPU
+    covered = np.zeros(M + K._WIN + 1, np.int32)
+    np.add.at(covered, ws, 1)
+    np.add.at(covered, ws + K._WIN, -1)
+    windowed = int((np.cumsum(covered)[:M] > 0).sum())
+    print("   table entries under the %d windows: %d of %d"
+          % (n_blocks, windowed, M), flush=True)
+    bounds = {}
+    for name, entries, every_entries, ops in (
+            ("planes", windowed, M, N * L * 2 * 8),
+            ("planes_cmp", windowed, M, N * L * 2 * K._WIN),
+            ("planes_resident", R_res, R_res, N * L * 2 * 7)):
+        hits = int((outs[name][0] >= 0).sum())
+        starts_bytes = 0 if name == "planes_resident" else 4 * n_blocks
+        need = N * L * (4 + 8) + 2 * hits + starts_bytes + \
+            entries * TABLE_ROW_BYTES
+        every = N * L * (6 + 8) + starts_bytes + \
+            every_entries * TABLE_ROW_BYTES
+        bounds[name] = bound_of(need, ops) + (bound_of(every, ops)[0],)
+    # the windowed entry equals the whole-table classifier, as on the TPU,
+    # and the whole-table mode (the table in global memory, a skeleton of it
+    # in shared memory) equals its plain version at the 100k table
     whole = K.assign_alleles_device(*big, 10)
+    whole_plain = K.planes_plain(*big[:3], 10, zero, M, N, table)
     torch.cuda.synchronize()
-    for g, w in zip(outs["planes"], whole):
+    for g, w, p in zip(outs["planes"], whole, whole_plain):
         check(torch.equal(g, w), "windowed planes differ from the whole "
               "table's")
+        check(torch.equal(w, p), "whole-table planes differ from their "
+              "plain version")
+    on_card = device_ms("planes_table", lambda: K._launch_planes(
+        "planes_launch", "planes", *big[:3], 10, zero, (M, N), table, (0,)))
+    check(on_card is not None, "the profiler saw no planes_table_kernel")
+    print("   whole-table mode, M = %d: max_abs_err 0, %.4f ms a call of the "
+          "entry, %.4f ms on the card"
+          % (M, time_ms(lambda: K.assign_alleles_device(*big, 10), 20),
+             on_card[0]), flush=True)
+    planes_layouts_phase(dev)
     return results, bounds, launches
+
+
+def planes_layouts_phase(dev):
+    """Every mode of the planes kernels against its plain version on the
+    layouts of testing/layouts.py that the vector kernels treat apart: an L
+    that is no multiple of 4 (the scalar instantiation) and one that is
+    none of 16, spliced and descending rows, duplicate table positions (the
+    search takes the first, cmp the last), a window that runs past a table
+    whose length is no multiple of 4; 20,077 rows each, no multiple of the
+    256-row block."""
+    import numpy as np
+    import torch
+    from phaser_tpu_torch.kernels import alleles as K
+    from phaser_tpu_torch.testing import layouts
+
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    for lname in layouts.PLANES_NAMES:
+        arrays = layouts.planes_layout(lname, n_rows=20_077)
+        codes, quals, refpos, vpos = arrays[:4]
+        N, L = codes.shape
+        M = len(vpos)
+        ws = K.plan_windows_plane(refpos, vpos, 256)
+        check(ws is not None, "layout %s: no window plan" % lname)
+        tx = [T(x) for x in arrays]
+        table = K._entry_table(*tx)
+        ws_t = T(ws)
+        # a resident table of 122 entries (no multiple of 4) under the reads
+        seen = np.unique(refpos[refpos > 0])
+        rng = np.random.default_rng(1)
+        pick = np.sort(rng.choice(len(seen), 122, replace=False))
+        rx = tx[:3] + [T(seen[pick].astype(np.int32)),
+                       T(rng.integers(1, 9, size=(122, 2)).astype(np.uint8)),
+                       T(np.full(122, 2, np.int8))]
+        rtable = K._entry_table(*rx)
+        modes = {
+            "windowed": (
+                lambda: K._launch_planes("planes_launch", "planes", *tx[:3],
+                                         10, ws_t, (K._WIN, 256), table, (0,)),
+                lambda: K.planes_plain(*tx[:3], 10, ws_t, K._WIN, 256, table)),
+            "cmp": (
+                lambda: K._launch_planes("planes_cmp_launch", "planes_cmp",
+                                         *tx[:3], 10, ws_t, (256,), table),
+                lambda: K.planes_cmp_plain(*tx[:3], 10, ws_t, 256, table)),
+            "whole table": (
+                lambda: K.assign_alleles_device(*tx, 10),
+                lambda: K.planes_plain(*tx[:3], 10, zero, M, N, table)),
+            "resident": (
+                lambda: K._launch_planes("planes_launch", "planes_resident",
+                                         *rx[:3], 10, zero, (122, N), rtable,
+                                         (1,)),
+                lambda: K.planes_plain(*rx[:3], 10, zero, 122, N, rtable)),
+        }
+        line, outs = [], {}
+        for mode, (kernel, plain) in modes.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = max(int((g.long() - w.long()).abs().max())
+                      for g, w in zip(got, want))
+            hits = int((want[0] >= 0).sum())
+            check(err == 0 and hits > 0,
+                  "planes %s on layout %s: max_abs_err %d, %d hits"
+                  % (mode, lname, err, hits))
+            outs[mode] = got[0]
+            line.append("%s %d" % (mode, hits))
+        differ = int((outs["windowed"] != outs["cmp"]).sum())
+        check((differ > 0) == (lname == "dup_positions"),
+              "layout %s: the search and cmp differ on %d bases"
+              % (lname, differ))
+        print("   %-18s N=%d L=%d M=%d hits: %s; max_abs_err 0; search and "
+              "cmp differ on %d bases"
+              % (lname, N, L, M, ", ".join(line), differ), flush=True)
 
 
 class _FakeVT:
@@ -964,6 +1181,7 @@ def counted_cli_run(argv, gates_down=False):
              (blocks, "_DEVICE_EDGE_GATE", 0),
              (phasing, "DEVICE_SCORE_GATE", 2))
     K.reset_launches()
+    D.reset_stats()
     D.RELAUNCHES["capacity"] = 0
     for m, _, _ in gates:
         m.COUNTS["device_calls"] = 0
@@ -1017,6 +1235,9 @@ def e2e_phase(tmp, device):
                 print("   [%s] %s" % (run, line.strip()), flush=True)
         print("   [%s] device stage calls %s, reads over the pair K cap %d"
               % (run, calls, connections.COUNTS["host_reads"]), flush=True)
+        if run != "host":
+            from phaser_tpu_torch.mapper import dispatch as D
+            filter_stats(D, "[%s] allele assignment" % run, dropped=False)
     for run in (device, "gates_down"):
         same_outputs(os.path.join(d, run), os.path.join(d, "host"),
                      "e2e run %s" % run, vcf_text=False)
@@ -1271,8 +1492,9 @@ def main() -> int:
                 % masked_launches
         if len(bounds[name]) > 2 and bounds[name][2] != bound_ms:
             kernels[-1]["bound_every_input_byte_ms"] = bounds[name][2]
-            line += "   (every input byte once: %.4f ms, %.1f%%)" % (
-                bounds[name][2], 100.0 * bounds[name][2] / ms)
+            line += "   (every input byte once: %.4f ms, %.1f%% (%.1f%%))" % (
+                bounds[name][2], 100.0 * bounds[name][2] / ms,
+                100.0 * bounds[name][2] / dev_ms)
         print(line)
     check(len(kernels) == len(REPLACES) and
           min(k["launches"] for k in kernels) > 0,

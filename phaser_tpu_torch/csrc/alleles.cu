@@ -40,9 +40,13 @@
 // block b = r / block_rows; the block searches table entries
 // [ws[b], min(ws[b] + win, mp)).  The host planner picks ws so that every
 // position the block can hit lies in that range; the unplanned case passes
-// ws = {0} and win = mp (the whole table).  The table stays in global memory
-// (L2-resident: 4 x 4 B x 128k entries = 2 MB) except in the planes kernel's
-// resident mode.
+// ws = {0} and win = mp (the whole table).  A CUDA block works inside one
+// row block and stages that block's window (or the resident table) in
+// shared memory with 16-byte asynchronous copies; only the whole-table mode
+// leaves the table in global memory (L2-resident: 4 x 4 B x 128k entries =
+// 2 MB) and keeps a skeleton of it in shared memory.  A warp takes 512
+// consecutive bases at a time, a thread 16 of them as four runs of 4, and
+// the thread searches once for the whole range of its 16 positions.
 //
 // Packed output (fused entries): one int32 (2, cap + 1) buffer, filled with
 // -1 and with out[0] = 0 (the hit counter) by its launcher.  A hit takes a
@@ -85,50 +89,6 @@ __device__ __forceinline__ int32_t tload(const int32_t* p) {
   } else {
     return *p;
   }
-}
-
-// Lower bound of refpos in vpos[w0, w0 + wn).  Returns the table index of a
-// hit and sets *allele, or returns -1.
-template <bool kGlobal>
-__device__ __forceinline__ int lookup(int masked, int refpos,
-                                      const int32_t* __restrict__ vpos,
-                                      const int32_t* __restrict__ a0,
-                                      const int32_t* __restrict__ a1,
-                                      const int32_t* __restrict__ ni, int w0,
-                                      int wn, int* allele) {
-  if (refpos <= 0 || masked == 15) return -1;
-  int lo = w0;
-  int n = wn;
-  while (n > 0) {
-    int half = n >> 1;
-    int mid = lo + half;
-    if (tload<kGlobal>(vpos + mid) < refpos) {
-      lo = mid + 1;
-      n -= half + 1;
-    } else {
-      n = half;
-    }
-  }
-  if (lo >= w0 + wn || tload<kGlobal>(vpos + lo) != refpos) return -1;
-  if (masked == tload<kGlobal>(a0 + lo) && tload<kGlobal>(ni + lo) > 0) {
-    *allele = 0;
-  } else if (masked == tload<kGlobal>(a1 + lo) &&
-             tload<kGlobal>(ni + lo) > 1) {
-    *allele = 1;
-  } else {
-    *allele = 2;
-  }
-  return lo;
-}
-
-// Window [w0, w0 + wn) of the row's block.
-__device__ __forceinline__ void window(int row, const int32_t* __restrict__ ws,
-                                       int win, int block_rows, int mp,
-                                       int* w0, int* wn) {
-  int b = row / block_rows;
-  *w0 = __ldg(ws + b);
-  int rest = mp - *w0;
-  *wn = win < rest ? win : rest;
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -847,70 +807,335 @@ plane_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
-// Unfused planes: replaces _alleles_pallas_windowed_kernel as reached from
-// assign_alleles_pallas_windowed (alleles.py:813, windowed table) and the
-// jnp assign_alleles_device (:33, whole table, win = mp); with kResident it
-// replaces _alleles_pallas_kernel (:627, via assign_alleles_pallas), whose
-// table (mp <= L entries) every block reads in full: the block stages it in
-// shared memory once (16 B per entry, 16 KB at L = 1024) and searches it
-// there.  Grid-stride over the bases, one base per thread per step.  Reads
-// 6 B and writes 8 B per base: bound by the plane traffic once the table
-// sits in L2 or shared memory.
-template <bool kResident>
-__global__ void __launch_bounds__(kThreads)
-planes_kernel(const uint8_t* __restrict__ codes,
-              const uint8_t* __restrict__ quals,
-              const int32_t* __restrict__ refpos, int n_rows, int l,
-              int baseq, const int32_t* __restrict__ ws, int win,
-              int block_rows, const int32_t* __restrict__ vpos,
-              const int32_t* __restrict__ a0, const int32_t* __restrict__ a1,
-              const int32_t* __restrict__ ni, int mp,
-              int32_t* __restrict__ vidx_out,
-              int32_t* __restrict__ allele_out) {
-  extern __shared__ int32_t staged[];
-  const int32_t* tv = vpos;
-  const int32_t* t0 = a0;
-  const int32_t* t1 = a1;
-  const int32_t* tn = ni;
-  if constexpr (kResident) {
-    for (int k = threadIdx.x; k < mp; k += kThreads) {
-      staged[k] = vpos[k];
-      staged[mp + k] = a0[k];
-      staged[2 * mp + k] = a1[k];
-      staged[3 * mp + k] = ni[k];
+// ---------------------------------------------------------------------------
+// Unfused planes kernels: (n_rows, l) int32 vidx / allele planes
+// ---------------------------------------------------------------------------
+
+constexpr int kWin = 256;     // table window entries per row block
+constexpr int kQuads = 4;     // runs of 4 consecutive bases per thread
+constexpr int kOwn = 4 * kQuads;       // bases a thread owns in a tile
+constexpr int kTile = 32 * kOwn;       // consecutive bases a warp takes
+constexpr int kIntMax = 0x7fffffff;
+
+// How a warp takes a tile of 512 consecutive bases of a plane (planes are
+// row-major, so a block's rows are one run of bases): lane k owns the four
+// bases from 4 k of each 128-base quarter, so every warp-wide load or
+// store is one contiguous 512-byte run of 16-byte vectors.  (A thread that
+// owns 16 consecutive bases instead, 64 bytes apart from its neighbour's,
+// fills only half of each 32-byte sector an instruction touches: measured
+// at twice the time for the same bytes.)  `first` is the thread's first
+// base (tile + 4 * lane), `end` the end of the block's bases.  kVec: the
+// plane is 16-byte aligned and its width a multiple of 4, so every run of 4
+// is whole and aligned; else each base is loaded on its own.  Bases past
+// `end` read as 0, which never hits.
+template <bool kVec>
+__device__ __forceinline__ void load_tile(const int32_t* __restrict__ p,
+                                          int first, int end,
+                                          int (&rp)[kOwn]) {
+#pragma unroll
+  for (int q = 0; q < kQuads; ++q) {
+    int i = first + 128 * q;
+    if constexpr (kVec) {
+      int4 v = make_int4(0, 0, 0, 0);
+      if (i < end) v = __ldg(reinterpret_cast<const int4*>(p + i));
+      rp[4 * q] = v.x;
+      rp[4 * q + 1] = v.y;
+      rp[4 * q + 2] = v.z;
+      rp[4 * q + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        rp[4 * q + t] = i + t < end ? __ldg(p + i + t) : 0;
     }
-    __syncthreads();
-    tv = staged;
-    t0 = staged + mp;
-    t1 = staged + 2 * mp;
-    tn = staged + 3 * mp;
-  }
-  long long total = (long long)n_rows * l;
-  for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * kThreads) {
-    int row = (int)(idx / l);
-    int masked = __ldg(quals + idx) >= baseq ? __ldg(codes + idx) : 15;
-    int w0, wn;
-    window(row, ws, win, block_rows, mp, &w0, &wn);
-    int allele = 3;
-    int v = lookup<!kResident>(masked, __ldg(refpos + idx), tv, t0, t1, tn,
-                               w0, wn, &allele);
-    vidx_out[idx] = v;
-    allele_out[idx] = v < 0 ? 3 : allele;
   }
 }
 
-constexpr int kWin = 256;            // table window entries per row block
-constexpr int kCmpThreads = 1024;
+// The thread's bases of a tile of an output plane, streaming
+// (st.global.cs): the planes are not read again by the kernel, so they
+// should not displace the table in L2.
+template <bool kVec>
+__device__ __forceinline__ void store_tile(int32_t* __restrict__ p, int first,
+                                           int end, const int (&v)[kOwn]) {
+#pragma unroll
+  for (int q = 0; q < kQuads; ++q) {
+    int i = first + 128 * q;
+    if constexpr (kVec) {
+      if (i < end)
+        __stcs(reinterpret_cast<int4*>(p + i),
+               make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (i + t < end) __stcs(p + i + t, v[4 * q + t]);
+    }
+  }
+}
+
+// The base of the plane under the thread's j-th position of the tile whose
+// first base for this thread is `first`.
+__device__ __forceinline__ int base_of(int first, int j) {
+  return first + 128 * (j >> 2) + (j & 3);
+}
+
+// Stages table entries [w0, w0 + n_slots) in shared memory (n_slots a
+// multiple of 4): 16-byte cp.async where the four entries lie inside the
+// table and the source is 16-byte aligned, else entry by entry with
+// INT32_MAX positions and zero codes past the table's end.  The caller
+// commits, waits (__pipeline_wait_prior) and synchronises the block.
+__device__ __forceinline__ void stage_window(
+    int32_t* sv, int32_t* s0, int32_t* s1, int32_t* sn, int n_slots,
+    const int32_t* __restrict__ vpos, const int32_t* __restrict__ a0,
+    const int32_t* __restrict__ a1, const int32_t* __restrict__ ni, int w0,
+    int mp) {
+  bool vec = (w0 & 3) == 0 &&
+             ((reinterpret_cast<uintptr_t>(vpos) |
+               reinterpret_cast<uintptr_t>(a0) |
+               reinterpret_cast<uintptr_t>(a1) |
+               reinterpret_cast<uintptr_t>(ni)) & 15) == 0;
+  for (int c = threadIdx.x; c < (n_slots >> 2); c += blockDim.x) {
+    int g = w0 + 4 * c;
+    if (vec && g + 4 <= mp) {
+      __pipeline_memcpy_async(sv + 4 * c, vpos + g, 16);
+      __pipeline_memcpy_async(s0 + 4 * c, a0 + g, 16);
+      __pipeline_memcpy_async(s1 + 4 * c, a1 + g, 16);
+      __pipeline_memcpy_async(sn + 4 * c, ni + g, 16);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        bool in = g + t < mp;
+        sv[4 * c + t] = in ? __ldg(vpos + g + t) : kIntMax;
+        s0[4 * c + t] = in ? __ldg(a0 + g + t) : 0;
+        s1[4 * c + t] = in ? __ldg(a1 + g + t) : 0;
+        sn[4 * c + t] = in ? __ldg(ni + g + t) : 0;
+      }
+    }
+  }
+  __pipeline_commit();
+}
+
+// The rows [*row0, *row_end) of this CUDA block: row block b = blockIdx.x /
+// ctas_per_block, and inside it the part-th run of rows_per_cta rows.
+__device__ __forceinline__ int cta_rows(int n_rows, int block_rows,
+                                        int rows_per_cta, int ctas_per_block,
+                                        int* row0, int* row_end) {
+  int b = blockIdx.x / ctas_per_block;
+  int first = (blockIdx.x - b * ctas_per_block) * rows_per_cta;
+  int here = block_rows - first;
+  here = here < rows_per_cta ? here : rows_per_cta;
+  *row0 = b * block_rows + first;
+  int end = *row0 + (here > 0 ? here : 0);
+  *row_end = end < n_rows ? end : n_rows;
+  return b;
+}
+
+// Allele class of observed code `masked` on table entry k.
+template <bool kGlobal>
+__device__ __forceinline__ int allele_of(int masked, int k, const int32_t* t0,
+                                         const int32_t* t1,
+                                         const int32_t* tni) {
+  int n_ind = tload<kGlobal>(tni + k);
+  if (masked == tload<kGlobal>(t0 + k) && n_ind > 0) return 0;
+  if (masked == tload<kGlobal>(t1 + k) && n_ind > 1) return 1;
+  return 2;
+}
+
+enum PlanesMode { kWindowed = 0, kResident = 1, kWholeTable = 2 };
+
+// The planes body.  kWindowed replaces _alleles_pallas_windowed_kernel as
+// reached from assign_alleles_pallas_windowed (alleles.py:813): the row
+// block's window [ws[b], ws[b] + win), win <= kWin, staged in shared memory.
+// kResident replaces _alleles_pallas_kernel (:627, via
+// assign_alleles_pallas): the whole table (mp <= L entries) staged in
+// shared memory by every block.  kWholeTable is the jnp
+// assign_alleles_device (:33) and the planners' fall-back: the table stays
+// in global memory and the block keeps a skeleton of it (the last entry of
+// each of at most kSkel segments) in shared memory, so a search costs
+// log2(n_skel) shared loads and log2(seg) global ones.
+//
+// Bound: the planes (the refpos plane read, 4 B per base; codes and quals,
+// 2 B per base, read only under a base that matched; 8 B per base
+// written) whatever the data; the table sits in shared memory or L2.  What
+// the design does about it: a warp takes 512 consecutive bases at a time
+// and a thread 16 of them as four runs of 4 (load_tile), so positions
+// arrive and results leave as 16-byte vectors in fully coalesced warp
+// accesses (streaming stores), and the thread searches ONCE for all 16: a
+// lower bound of their smallest positive position decides whether any
+// table entry lies in [smallest positive, largest].  Few threads have one;
+// all others store constant -1 / 3 vectors without having touched codes,
+// quals or the allele columns.  A thread with an entry matches each of its
+// bases inside the entry range [k0, k1) (the first of equal entries wins,
+// as a lower bound does).  Positions need not ascend or lie in one row: the
+// range is the min and max over the 16.  The window arrives by cp.async
+// while the thread's first positions are in flight, and the next tile's
+// positions are loaded before this tile's results are stored.
+template <int kMode, bool kVec>
+__device__ __forceinline__ void planes_body(
+    const uint8_t* __restrict__ codes, const uint8_t* __restrict__ quals,
+    const int32_t* __restrict__ refpos, int n_rows, int l, int baseq,
+    const int32_t* __restrict__ ws, int win, int block_rows,
+    const int32_t* __restrict__ vpos, const int32_t* __restrict__ a0,
+    const int32_t* __restrict__ a1, const int32_t* __restrict__ ni, int mp,
+    int rows_per_cta, int ctas_per_block, int seg, int n_skel,
+    int32_t* __restrict__ vidx_out, int32_t* __restrict__ allele_out) {
+  extern __shared__ __align__(16) int32_t smem[];
+  constexpr bool kStaged = kMode != kWholeTable;
+
+  int row0, row_end;
+  int b = cta_rows(n_rows, block_rows, rows_per_cta, ctas_per_block, &row0,
+                   &row_end);
+  if (row0 >= row_end) return;  // uniform over the block
+
+  // the table as this block searches it: tv[0, wn), entry k has table
+  // index tbase + k
+  int tbase = 0, wn = mp;
+  const int32_t *tv = vpos, *t0 = a0, *t1 = a1, *tn = ni;
+  if constexpr (kStaged) {
+    if constexpr (kMode == kWindowed) {
+      tbase = __ldg(ws + b);
+      int rest = mp - tbase;
+      wn = win < rest ? win : rest;
+      wn = wn > 0 ? wn : 0;
+    }
+    int n_slots = (wn + 3) & ~3;
+    int32_t* sv = smem;
+    stage_window(sv, sv + n_slots, sv + 2 * n_slots, sv + 3 * n_slots,
+                 n_slots, vpos, a0, a1, ni, tbase, mp);
+    tv = sv;
+    t0 = sv + n_slots;
+    t1 = sv + 2 * n_slots;
+    tn = sv + 3 * n_slots;
+  } else {
+    for (int j = threadIdx.x; j < n_skel; j += kThreads) {
+      int e = (j + 1) * seg;
+      smem[j] = __ldg(vpos + (e < mp ? e : mp) - 1);
+    }
+  }
+
+  // the block's rows are the bases [first, end) of the planes; a warp
+  // takes every (kThreads / 32)-th tile of them
+  int end = row_end * l;
+  int first = row0 * l + (threadIdx.x >> 5) * kTile + 4 * (threadIdx.x & 31);
+  int rp[kOwn];
+  // the first positions fly while the table arrives
+  if (first < end) load_tile<kVec>(refpos, first, end, rp);
+  if constexpr (kStaged) __pipeline_wait_prior(0);
+  __syncthreads();
+
+  while (first < end) {
+    int mn = kIntMax, mx = 0;
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      if (rp[j] > 0) {
+        mn = rp[j] < mn ? rp[j] : mn;
+        mx = rp[j] > mx ? rp[j] : mx;
+      }
+    }
+    int vi[kOwn], al[kOwn];
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      vi[j] = -1;
+      al[j] = 3;
+    }
+    if (mx > 0) {
+      // first entry at or after the thread's smallest position
+      int k0;
+      if constexpr (kStaged) {
+        k0 = lower_bound<false>(tv, wn, mn);
+      } else {
+        int s = lower_bound<false>(smem, n_skel, mn);
+        k0 = mp;
+        if (s < n_skel) {
+          int lo = s * seg;
+          int len = mp - lo < seg ? mp - lo : seg;
+          k0 = lo + lower_bound<true>(vpos + lo, len, mn);
+        }
+      }
+      // most threads end here: that entry lies past their largest position
+      if (k0 < wn && tload<!kStaged>(tv + k0) <= mx) {
+        int k1 = k0 + 1 +
+                 lower_bound<!kStaged, true>(tv + k0 + 1, wn - k0 - 1, mx);
+#pragma unroll
+        for (int j = 0; j < kOwn; ++j) {
+          if (rp[j] <= 0) continue;
+          int k = k0 + lower_bound<!kStaged>(tv + k0, k1 - k0, rp[j]);
+          if (k >= k1 || tload<!kStaged>(tv + k) != rp[j]) continue;
+          int at = base_of(first, j);
+          int masked = __ldg(quals + at) >= baseq ? __ldg(codes + at) : 15;
+          if (masked == 15) continue;
+          vi[j] = tbase + k;
+          al[j] = allele_of<!kStaged>(masked, k, t0, t1, tn);
+        }
+      }
+    }
+    int here = first;
+    first += (kThreads / 32) * kTile;
+    // the next positions fly while this tile stores
+    if (first < end) load_tile<kVec>(refpos, first, end, rp);
+    store_tile<kVec>(vidx_out, here, end, vi);
+    store_tile<kVec>(allele_out, here, end, al);
+  }
+}
+
+#define PLANES_PARAMS                                                        \
+  const uint8_t *__restrict__ codes, const uint8_t *__restrict__ quals,      \
+      const int32_t *__restrict__ refpos, int n_rows, int l, int baseq,      \
+      const int32_t *__restrict__ ws, int win, int block_rows,               \
+      const int32_t *__restrict__ vpos, const int32_t *__restrict__ a0,      \
+      const int32_t *__restrict__ a1, const int32_t *__restrict__ ni,        \
+      int mp, int rows_per_cta, int ctas_per_block, int seg, int n_skel,     \
+      int32_t *__restrict__ vidx_out, int32_t *__restrict__ allele_out
+#define PLANES_ARGS                                                          \
+  codes, quals, refpos, n_rows, l, baseq, ws, win, block_rows, vpos, a0, a1, \
+      ni, mp, rows_per_cta, ctas_per_block, seg, n_skel, vidx_out, allele_out
+
+// One __global__ function per mode, so that a profile names the mode.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+planes_windowed_kernel(PLANES_PARAMS) {
+  planes_body<kWindowed, kVec>(PLANES_ARGS);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+planes_resident_kernel(PLANES_PARAMS) {
+  planes_body<kResident, kVec>(PLANES_ARGS);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+planes_table_kernel(PLANES_PARAMS) {
+  planes_body<kWholeTable, kVec>(PLANES_ARGS);
+}
 
 // Replaces _alleles_pallas_cmp_kernel (alleles.py:757): the gather-free
-// windowed body.  One CUDA block per row block: its threads load the four
-// 256-entry window slices into shared memory together (4 KB, INT32_MAX past
-// the table's end), then each base is compared with all 256 entries
-// (broadcast shared reads, no search) and the last match wins, which equals
-// the lower bound on unique positions.  Bound by the ~256 compare-selects per
-// base; kept as the TPU's recorded alternative to the search.
-__global__ void __launch_bounds__(kCmpThreads)
+// windowed body.  Every base is compared with all 256 entries of its row
+// block's window (INT32_MAX past the table's end), no search, and the last
+// match wins, which equals the lower bound on unique positions.  Kept as
+// the TPU's recorded alternative to the search; it never replaces it.
+//
+// Bound: operations, 256 compare-selects per base.  With one 4-byte
+// broadcast shared-memory load per compare the kernel was bound by
+// shared-memory issue (one load, one compare, one select: three issue
+// slots a compare).  What the design does about it: register blocking.  A
+// thread keeps its 16 positions of a tile in registers and walks the
+// window with 16-byte shared loads, so one load feeds 64 tests and the
+// inner loop is integer arithmetic alone.  Integer compares issue at half
+// rate on Hopper, on one pipe (ALU); integer multiply-adds issue on the
+// other (FMA).  So the window is staged a second time as pairs (e0 + e1,
+// e0 e1), and a position r is tested against both entries of a pair by one
+// multiply-add and one compare, (e0 - r)(e1 - r) == 0 modulo 2^32: both
+// pipes work, one issue slot an entry.  The tests of 8 entries fold into
+// one predicate and one select; which entry it was is found again, exactly,
+// only under a base that matched (a product that vanishes modulo 2^32 with
+// neither factor zero only costs that rescan).  Positions arrive and
+// results leave as 16-byte vectors (streaming stores), the window by
+// cp.async, and codes, quals and the allele columns are read only for a
+// base that matched.
+constexpr int kGroup = 8;  // window entries folded into one predicate
+static_assert(kGroup == 8, "pass 1 of planes_cmp_kernel is written out for 8");
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
 planes_cmp_kernel(const uint8_t* __restrict__ codes,
                   const uint8_t* __restrict__ quals,
                   const int32_t* __restrict__ refpos, int n_rows, int l,
@@ -918,46 +1143,118 @@ planes_cmp_kernel(const uint8_t* __restrict__ codes,
                   const int32_t* __restrict__ vpos,
                   const int32_t* __restrict__ a0,
                   const int32_t* __restrict__ a1,
-                  const int32_t* __restrict__ ni, int mp,
-                  int32_t* __restrict__ vidx_out,
+                  const int32_t* __restrict__ ni, int mp, int rows_per_cta,
+                  int ctas_per_block, int32_t* __restrict__ vidx_out,
                   int32_t* __restrict__ allele_out) {
-  __shared__ int32_t sv[kWin], s0[kWin], s1[kWin], sn[kWin];
-  int b = blockIdx.x;
+  __shared__ __align__(16) int32_t sv[kWin], s0[kWin], s1[kWin], sn[kWin];
+  __shared__ __align__(16) uint2 pairs[kWin / 2];
+  int row0, row_end;
+  int b = cta_rows(n_rows, block_rows, rows_per_cta, ctas_per_block, &row0,
+                   &row_end);
+  if (row0 >= row_end) return;  // uniform over the block
   int w0 = __ldg(ws + b);
-  for (int k = threadIdx.x; k < kWin; k += kCmpThreads) {
-    int g = w0 + k;
-    bool in = g < mp;
-    sv[k] = in ? __ldg(vpos + g) : 0x7fffffff;
-    s0[k] = in ? __ldg(a0 + g) : 0;
-    s1[k] = in ? __ldg(a1 + g) : 0;
-    sn[k] = in ? __ldg(ni + g) : 0;
+  stage_window(sv, s0, s1, sn, kWin, vpos, a0, a1, ni, w0, mp);
+
+  int end = row_end * l;
+  int first = row0 * l + (threadIdx.x >> 5) * kTile + 4 * (threadIdx.x & 31);
+  int rp[kOwn];
+  if (first < end) load_tile<kVec>(refpos, first, end, rp);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  // entries in pairs: (e0 - r)(e1 - r) = e0 e1 - r (e0 + e1) + r^2, so with
+  // the pair's sum and product staged, one multiply-add and one compare
+  // test a position against two entries (all arithmetic modulo 2^32)
+  for (int i = threadIdx.x; i < kWin / 2; i += kThreads) {
+    unsigned e0 = (unsigned)sv[2 * i], e1 = (unsigned)sv[2 * i + 1];
+    pairs[i] = make_uint2(e0 + e1, e0 * e1);
   }
   __syncthreads();
-  int row0 = b * block_rows;
-  int rows = min(block_rows, n_rows - row0);
-  size_t base = (size_t)row0 * l;
-  int n = rows * l;
-  for (int e = threadIdx.x; e < n; e += kCmpThreads) {
-    size_t idx = base + e;
-    int rp = __ldg(refpos + idx);
-    int masked = __ldg(quals + idx) >= baseq ? __ldg(codes + idx) : 15;
-    int k_hit = -1;
-#pragma unroll 16
-    for (int k = 0; k < kWin; ++k) k_hit = sv[k] == rp ? k : k_hit;
-    int v = -1, allele = 3;
-    if (rp > 0 && k_hit >= 0 && masked != 15) {
-      v = w0 + k_hit;
-      if (masked == s0[k_hit] && sn[k_hit] > 0) {
-        allele = 0;
-      } else if (masked == s1[k_hit] && sn[k_hit] > 1) {
-        allele = 1;
-      } else {
-        allele = 2;
+
+  const uint4* pairs4 = reinterpret_cast<const uint4*>(pairs);
+  while (first < end) {
+    // pass 1: the last group of kGroup window entries that may hold each
+    // position.  The tests of a group fold into one predicate.
+    unsigned nr[kOwn], nq[kOwn];
+    int grp[kOwn];
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      nr[j] = 0u - (unsigned)rp[j];
+      nq[j] = 0u - (unsigned)rp[j] * (unsigned)rp[j];
+      grp[j] = -1;
+    }
+    // (written out for a group of 8: folded in a loop over a group's loads
+    // the same arithmetic compiled to a schedule 10-40% slower)
+#pragma unroll 4
+    for (int g = 0; g < kWin / kGroup; ++g) {
+      uint4 p = pairs4[2 * g];  // two broadcast loads, 64 tests of 2 entries
+      uint4 q = pairs4[2 * g + 1];
+#pragma unroll
+      for (int j = 0; j < kOwn; ++j) {
+        bool any = (nr[j] * p.x + p.y == nq[j]) | (nr[j] * p.z + p.w == nq[j]) |
+                   (nr[j] * q.x + q.y == nq[j]) | (nr[j] * q.z + q.w == nq[j]);
+        grp[j] = any ? g : grp[j];
       }
     }
-    vidx_out[idx] = v;
-    allele_out[idx] = allele;
+    // pass 2, only under a base whose position may have matched: the last
+    // equal entry at or before the end of that group, exactly (a product
+    // of two differences can vanish modulo 2^32 with neither zero: then the
+    // scan goes on to earlier entries), its code and the allele columns
+    int vi[kOwn], al[kOwn];
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      vi[j] = -1;
+      al[j] = 3;
+      if (rp[j] > 0 && grp[j] >= 0) {
+        int hit = kGroup * grp[j] + kGroup - 1;
+        while (hit >= 0 && sv[hit] != rp[j]) --hit;
+        if (hit < 0) continue;
+        int at = base_of(first, j);
+        int masked = __ldg(quals + at) >= baseq ? __ldg(codes + at) : 15;
+        if (masked != 15) {
+          vi[j] = w0 + hit;
+          al[j] = allele_of<false>(masked, hit, s0, s1, sn);
+        }
+      }
+    }
+    int here = first;
+    first += (kThreads / 32) * kTile;
+    if (first < end) load_tile<kVec>(refpos, first, end, rp);
+    store_tile<kVec>(vidx_out, here, end, vi);
+    store_tile<kVec>(allele_out, here, end, al);
   }
+}
+
+// How the planes kernels cut the rows into CUDA blocks: a block works
+// inside one row block (it stages that block's window) and takes about
+// `target` bases, a tile or two a warp, so that the card holds many blocks
+// and the staging stays small beside the planes.
+struct CtaShape {
+  int rows_per_cta, ctas_per_block;
+  unsigned grid;
+};
+
+inline CtaShape cta_shape(int n_rows, int l, int block_rows, int target) {
+  CtaShape s;
+  s.rows_per_cta = target / l;
+  if (s.rows_per_cta < 1) s.rows_per_cta = 1;
+  if (s.rows_per_cta > block_rows) s.rows_per_cta = block_rows;
+  s.ctas_per_block = (block_rows + s.rows_per_cta - 1) / s.rows_per_cta;
+  long long row_blocks = ((long long)n_rows + block_rows - 1) / block_rows;
+  s.grid = (unsigned)(row_blocks * s.ctas_per_block);
+  return s;
+}
+
+constexpr int kCtaBases = (kThreads / 32) * kTile;  // one tile a warp
+
+// The vector path: a width that is a multiple of 4 and 16-byte aligned
+// int32 planes, so every run of 4 bases from a block's first is an aligned
+// int4 (a block starts at a row).
+inline bool planes_vec(int l, const void* refpos, const void* vidx,
+                       const void* allele) {
+  return l % 4 == 0 &&
+         ((reinterpret_cast<uintptr_t>(refpos) |
+           reinterpret_cast<uintptr_t>(vidx) |
+           reinterpret_cast<uintptr_t>(allele)) & 15) == 0;
 }
 
 inline unsigned grid_for(long long n) {
@@ -1080,42 +1377,53 @@ int affine_masked_launch(const void* mcodes, const void* start, const void* lo,
   return (int)cudaGetLastError();
 }
 
-// resident != 0 stages the whole table (win must be mp) in shared memory.
+// resident != 0 stages the whole table (win must be mp) in shared memory;
+// else a window of at most kWin entries is staged per row block, and a wider
+// one (the whole-table call: ws = {0}, win = mp) is searched in global
+// memory.  block_rows >= 1.
 int planes_launch(const void* codes, const void* quals, const void* refpos,
                   int n_rows, int l, int baseq, const void* ws, int win,
                   int block_rows, const void* vpos, const void* a0,
                   const void* a1, const void* ni, int mp, int resident,
                   void* vidx, void* allele, void* stream) {
-  long long total = (long long)n_rows * l;
-  if (total == 0) return (int)cudaGetLastError();
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // grid-stride: enough blocks to fill the card, each staging the resident
-  // table once
-  long long want = grid_for(total);
-  long long cap = (long long)sms * (2048 / kThreads);
-  unsigned grid = (unsigned)(want < cap ? want : cap);
+  if ((long long)n_rows * l == 0) return (int)cudaGetLastError();
+  // a window wider than kWin is the whole table or nothing this kernel has
+  if (block_rows < 1 || (!resident && win > kWin && win < mp) ||
+      (resident && win != mp))
+    return (int)cudaErrorInvalidValue;
+  bool vec = planes_vec(l, refpos, vidx, allele);
+  int seg = 0, n_skel = 0;
+  size_t smem;
+  int target = kCtaBases;
+  void (*kernel)(PLANES_PARAMS);
   if (resident) {
-    size_t smem = (size_t)4 * mp * sizeof(int32_t);
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          planes_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    planes_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, (const uint8_t*)quals, (const int32_t*)refpos,
-        n_rows, l, baseq, (const int32_t*)ws, win, block_rows,
-        (const int32_t*)vpos, (const int32_t*)a0, (const int32_t*)a1,
-        (const int32_t*)ni, mp, (int32_t*)vidx, (int32_t*)allele);
+    smem = (size_t)4 * ((mp + 3) & ~3) * sizeof(int32_t);
+    // a block stages the whole table (16 B an entry): give it planes to
+    // match
+    if (4 * mp > target) target = 4 * mp;
+    kernel = vec ? planes_resident_kernel<true> : planes_resident_kernel<false>;
+  } else if (win <= kWin) {
+    smem = (size_t)4 * kWin * sizeof(int32_t);
+    kernel = vec ? planes_windowed_kernel<true> : planes_windowed_kernel<false>;
   } else {
-    planes_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, (const uint8_t*)quals, (const int32_t*)refpos,
-        n_rows, l, baseq, (const int32_t*)ws, win, block_rows,
-        (const int32_t*)vpos, (const int32_t*)a0, (const int32_t*)a1,
-        (const int32_t*)ni, mp, (int32_t*)vidx, (int32_t*)allele);
+    seg = 128;
+    while ((long long)seg * kSkel < mp) seg <<= 1;
+    n_skel = (mp + seg - 1) / seg;
+    smem = (size_t)n_skel * sizeof(int32_t);
+    kernel = vec ? planes_table_kernel<true> : planes_table_kernel<false>;
   }
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  CtaShape s = cta_shape(n_rows, l, block_rows, target);
+  kernel<<<s.grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (const uint8_t*)quals, (const int32_t*)refpos,
+      n_rows, l, baseq, (const int32_t*)ws, win, block_rows,
+      (const int32_t*)vpos, (const int32_t*)a0, (const int32_t*)a1,
+      (const int32_t*)ni, mp, s.rows_per_cta, s.ctas_per_block, seg, n_skel,
+      (int32_t*)vidx, (int32_t*)allele);
   return (int)cudaGetLastError();
 }
 
@@ -1124,14 +1432,16 @@ int planes_cmp_launch(const void* codes, const void* quals, const void* refpos,
                       int block_rows, const void* vpos, const void* a0,
                       const void* a1, const void* ni, int mp, void* vidx,
                       void* allele, void* stream) {
-  if (n_rows > 0) {
-    unsigned grid = (unsigned)((n_rows + block_rows - 1) / block_rows);
-    planes_cmp_kernel<<<grid, kCmpThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, (const uint8_t*)quals, (const int32_t*)refpos,
-        n_rows, l, baseq, (const int32_t*)ws, block_rows,
-        (const int32_t*)vpos, (const int32_t*)a0, (const int32_t*)a1,
-        (const int32_t*)ni, mp, (int32_t*)vidx, (int32_t*)allele);
-  }
+  if ((long long)n_rows * l == 0) return (int)cudaGetLastError();
+  if (block_rows < 1) return (int)cudaErrorInvalidValue;
+  bool vec = planes_vec(l, refpos, vidx, allele);
+  CtaShape s = cta_shape(n_rows, l, block_rows, kCtaBases);
+  auto kernel = vec ? planes_cmp_kernel<true> : planes_cmp_kernel<false>;
+  kernel<<<s.grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (const uint8_t*)quals, (const int32_t*)refpos,
+      n_rows, l, baseq, (const int32_t*)ws, block_rows, (const int32_t*)vpos,
+      (const int32_t*)a0, (const int32_t*)a1, (const int32_t*)ni, mp,
+      s.rows_per_cta, s.ctas_per_block, (int32_t*)vidx, (int32_t*)allele);
   return (int)cudaGetLastError();
 }
 

@@ -106,6 +106,19 @@ class NameView:
         return NameView(src[pos].tobytes(), new_off)
 
 
+_gather_n_threads = None
+
+
+def _gather_threads() -> int:
+    """Threads of the native row gather, asked of the OS once (the call
+    costs about half a millisecond in a container)."""
+    global _gather_n_threads
+    if _gather_n_threads is None:
+        import os
+        _gather_n_threads = min(os.cpu_count() or 1, 8)
+    return _gather_n_threads
+
+
 @dataclass
 class BamData:
     """Struct-of-arrays view of a BAM file (or a filtered subset)."""
@@ -183,7 +196,6 @@ class BamData:
             if native_lib is not None and flat.dtype in (np.uint8,
                                                          np.uint32):
                 import ctypes
-                import os as _os
                 ptr = ctypes.c_void_p
                 out = np.empty(total, flat.dtype)
                 fn = (native_lib.gather_ragged_u32
@@ -194,7 +206,7 @@ class BamData:
                 fn(len(idx64), idx64.ctypes.data_as(ptr),
                    fc.ctypes.data_as(ptr), oc.ctypes.data_as(ptr),
                    new_off.ctypes.data_as(ptr), out.ctypes.data_as(ptr),
-                   min(_os.cpu_count() or 1, 8))
+                   _gather_threads())
                 return out, new_off
             lens = np.diff(new_off)
             within = np.arange(total, dtype=np.int64) - np.repeat(new_off[:-1], lens)

@@ -94,7 +94,7 @@ def _declare(lib) -> None:
     lib.prefault_free.argtypes = [c.c_void_p]
     lib.pack_reads_native.restype = None
     lib.pack_reads_native.argtypes = [
-        c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+        c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
         c.c_void_p, c.c_void_p, c.c_int64, c.c_void_p, c.c_void_p,
         c.c_void_p, c.c_int]
     lib.pack_codes_quals_native.restype = None
@@ -108,17 +108,17 @@ def _declare(lib) -> None:
         c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int]
     lib.pack_affine_masked_native.restype = None
     lib.pack_affine_masked_native.argtypes = [
-        c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+        c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
         c.c_void_p, c.c_void_p, c.c_int, c.c_int64, c.c_void_p,
         c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int]
     lib.pack_affine_nibble_native.restype = None
     lib.pack_affine_nibble_native.argtypes = [
-        c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+        c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
         c.c_void_p, c.c_void_p, c.c_int, c.c_int64, c.c_void_p,
         c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int]
     lib.pack_delta_nibble_native.restype = None
     lib.pack_delta_nibble_native.argtypes = [
-        c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+        c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
         c.c_void_p, c.c_void_p, c.c_int, c.c_int64, c.c_void_p,
         c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
         c.c_int]
@@ -126,6 +126,10 @@ def _declare(lib) -> None:
     lib.bam_index_scan.argtypes = [
         c.c_void_p, c.c_int64, c.c_int64, c.c_void_p, c.c_void_p,
         c.c_void_p, c.c_void_p, c.c_void_p]
+    lib.read_spans_native.restype = None
+    lib.read_spans_native.argtypes = [
+        c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64,
+        c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int]
     for fn in ("gather_ragged_u8", "gather_ragged_u32"):
         g = getattr(lib, fn)
         g.restype = None

@@ -37,6 +37,7 @@ programs take no window, and are not copied.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 from typing import Optional, Sequence, Tuple
@@ -110,14 +111,29 @@ def _read_arrays(bd):
     return arrs, [a.ctypes.data_as(ptr) for a in arrs]
 
 
+@functools.lru_cache(maxsize=None)
 def _n_threads() -> int:
+    # asked once: os.cpu_count() costs about half a millisecond in a
+    # container, and a dispatcher call asks a dozen times
     return min(os.cpu_count() or 1, 8)
 
 
-def _plane_width(bd) -> int:
-    lens = np.diff(bd.seq_off)
-    L = int(lens.max() if len(bd) else 1)
+def _plane_width(bd, rows=None) -> int:
+    if rows is None:
+        lens = np.diff(bd.seq_off)
+    else:
+        lens = bd.seq_off[rows + 1] - bd.seq_off[rows]
+    L = int(lens.max() if len(lens) else 1)
     return ((L + 127) // 128) * 128
+
+
+def _rows_arg(bd, rows):
+    """(n, rows as a contiguous int64 array or None, its pointer or None)
+    for a native packer: output row i is read rows[i], or read i."""
+    if rows is None:
+        return len(bd), None, None
+    rows = np.ascontiguousarray(rows, np.int64)
+    return len(rows), rows, rows.ctypes.data_as(ctypes.c_void_p)
 
 
 def _pack_reads_numpy(bd, codes, quals, refpos) -> None:
@@ -135,12 +151,14 @@ def _pack_reads_numpy(bd, codes, quals, refpos) -> None:
     refpos[rows, idx] = rp_flat
 
 
-def pack_reads(bd) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def pack_reads(bd, rows=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(codes, quals, refpos) padded (N, L) planes, L a multiple of 128:
     phaser_tpu's pack_reads (kernels/alleles.py:114-169), the native packer
-    or, without it, numpy."""
-    n = len(bd)
-    L = _plane_width(bd)
+    or, without it, numpy.  With `rows` (read indices) only those reads are
+    packed, row i from read rows[i], without gathering them first; the
+    other packers take it likewise."""
+    n, rows, rows_p = _rows_arg(bd, rows)
+    L = _plane_width(bd, rows)
     codes = np.zeros((n, L), np.uint8)
     quals = np.zeros((n, L), np.uint8)
     refpos = np.zeros((n, L), np.int32)
@@ -148,13 +166,15 @@ def pack_reads(bd) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         return codes, quals, refpos
     lib = _native_lib()
     if lib is None:
+        if rows is not None:
+            bd = bd.select(rows)
         _pack_reads_numpy(bd, codes, quals, refpos)
         return codes, quals, refpos
     ptr = ctypes.c_void_p
     keep, p = _read_arrays(bd)
     lib.pack_reads_native(
-        n, *p, L, codes.ctypes.data_as(ptr), quals.ctypes.data_as(ptr),
-        refpos.ctypes.data_as(ptr), _n_threads())
+        n, rows_p, *p, L, codes.ctypes.data_as(ptr),
+        quals.ctypes.data_as(ptr), refpos.ctypes.data_as(ptr), _n_threads())
     return codes, quals, refpos
 
 
@@ -188,13 +208,13 @@ def pack_codes_quals(bd, reuse: bool = False
     return codes, quals
 
 
-def pack_affine_masked(bd, baseq: int, reuse: bool = False):
+def pack_affine_masked(bd, baseq: int, reuse: bool = False, rows=None):
     """One-pass native masked-plane packing + affine classification
     (phaser_tpu kernels/alleles.py:454-491): (n, L) uint8 with 15 where the
     base is masked.  Returns (mcodes, is_affine, start, lo, hi) or None
     without the native library."""
-    n = len(bd)
-    L = _plane_width(bd)
+    n, rows, rows_p = _rows_arg(bd, rows)
+    L = _plane_width(bd, rows)
     lib = _native_lib() if n else None
     if lib is None or not hasattr(lib, "pack_affine_masked_native"):
         return None
@@ -209,20 +229,20 @@ def pack_affine_masked(bd, baseq: int, reuse: bool = False):
     ptr = ctypes.c_void_p
     keep, p = _read_arrays(bd)
     lib.pack_affine_masked_native(
-        n, *p, baseq, L, mcodes.ctypes.data_as(ptr),
+        n, rows_p, *p, baseq, L, mcodes.ctypes.data_as(ptr),
         is_aff.ctypes.data_as(ptr), start.ctypes.data_as(ptr),
         lo.ctypes.data_as(ptr), hi.ctypes.data_as(ptr), _n_threads())
     return mcodes, is_aff.astype(bool), start, lo, hi
 
 
-def pack_affine_nibble(bd, baseq: int, reuse: bool = False):
+def pack_affine_nibble(bd, baseq: int, reuse: bool = False, rows=None):
     """One-pass native nibble-packed masked plane + affine classification:
     (n, L/2) uint8, two masked base nibbles per byte (even base low).
     Returns (ncodes, is_affine, start, lo, hi) or None without the native
     library.  With reuse=True ncodes is a view of cached scratch,
     invalidated by the next call."""
-    n = len(bd)
-    L = _plane_width(bd)
+    n, rows, rows_p = _rows_arg(bd, rows)
+    L = _plane_width(bd, rows)
     lib = _native_lib() if n else None
     if lib is None or not hasattr(lib, "pack_affine_nibble_native"):
         return None
@@ -238,20 +258,20 @@ def pack_affine_nibble(bd, baseq: int, reuse: bool = False):
     ptr = ctypes.c_void_p
     keep, p = _read_arrays(bd)
     lib.pack_affine_nibble_native(
-        n, *p, baseq, Lh, ncodes.ctypes.data_as(ptr),
+        n, rows_p, *p, baseq, Lh, ncodes.ctypes.data_as(ptr),
         is_aff.ctypes.data_as(ptr), start.ctypes.data_as(ptr),
         lo.ctypes.data_as(ptr), hi.ctypes.data_as(ptr), _n_threads())
     return ncodes, is_aff.astype(bool), start, lo, hi
 
 
-def pack_delta_nibble(bd, baseq: int, reuse: bool = False):
+def pack_delta_nibble(bd, baseq: int, reuse: bool = False, rows=None):
     """int16 delta-encoded refpos packing for deletion / split-M reads:
     (n, L/2) masked nibble plane + (n, L) int16 delta plane.  Returns
     (ncodes, delta, ok, start, rp_min, rp_max) or None without the native
     library; rows with ok=False (affine / N/I/P / delta overflow) must be
     routed to other paths."""
-    n = len(bd)
-    L = _plane_width(bd)
+    n, rows, rows_p = _rows_arg(bd, rows)
+    L = _plane_width(bd, rows)
     lib = _native_lib() if n else None
     if lib is None or not hasattr(lib, "pack_delta_nibble_native"):
         return None
@@ -269,7 +289,7 @@ def pack_delta_nibble(bd, baseq: int, reuse: bool = False):
     ptr = ctypes.c_void_p
     keep, p = _read_arrays(bd)
     lib.pack_delta_nibble_native(
-        n, *p, baseq, Lh, ncodes.ctypes.data_as(ptr),
+        n, rows_p, *p, baseq, Lh, ncodes.ctypes.data_as(ptr),
         delta.ctypes.data_as(ptr), ok.ctypes.data_as(ptr),
         start.ctypes.data_as(ptr), rp_min.ctypes.data_as(ptr),
         rp_max.ctypes.data_as(ptr), _n_threads())
@@ -873,7 +893,16 @@ def _launch_planes(fn_name: str, counter: str, codes, quals, refpos,
                    baseq: int, ws: torch.Tensor, window: tuple, table: Table,
                    mode: tuple = ()) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launches a planes kernel: `window` holds the ints between ws and the
-    table ((win, block_rows) or (block_rows,)), `mode` those after mp."""
+    table ((win, block_rows) or (block_rows,)), `mode` those after mp.
+
+    A warp of these kernels takes 512 consecutive bases of the planes at a
+    time.  When L is a multiple of 4 and refpos and both outputs are
+    16-byte aligned (fresh torch allocations are), positions are loaded and
+    results stored as 16-byte vectors; any other L or alignment takes the
+    scalar instantiation, chosen by the launcher.  A window (`win` <= 256
+    entries from ws[b]) is staged in shared memory by 16-byte copies where
+    ws[b] is a multiple of 4 and the table columns are 16-byte aligned,
+    else entry by entry; a wider `win` must be the whole table (ws = [0])."""
     dev = codes.device
     N, L = codes.shape
     vidx = torch.empty((N, L), dtype=torch.int32, device=dev)

@@ -160,3 +160,88 @@ def delta_inputs(d: dict, baseq: int = 10):
     rp_max = np.where(some, np.where(aligned, refpos, 0).max(axis=1),
                       0).astype(np.int32)
     return ncodes, start, delta, rp_min, rp_max
+
+
+# ---------------------------------------------------------------------------
+# layouts for the unfused planes kernels (planes, planes_cmp)
+# ---------------------------------------------------------------------------
+
+PLANES_NAMES = ["odd_width", "spliced_unordered", "dup_positions",
+                "table_end", "pair_products"]
+
+
+def planes_layout(name: str, n_rows: int = 1000):
+    """Inputs of the kernel-level entries that reach what the vector planes
+    kernels treat apart: (codes, quals, refpos, vpos, ind, ni) in
+    phaser_tpu's public layout.  Reads lie in one narrow region per 256 rows, so
+    every 256-row block's table band fits the 256-entry window
+    (plan_windows_plane succeeds); the default n_rows is no multiple of the
+    row block.
+
+      odd_width          L = 122, no multiple of 4 (the kernels' scalar
+                         instantiation)
+      spliced_unordered  L = 120, no multiple of 16; every third row
+                         N-spliced (zeros in the middle, a jump after
+                         them), every fifth row descending
+      dup_positions      every seventh table entry repeats its predecessor
+                         (the search takes the first, cmp the last)
+      table_end          a 1003-entry table, reads under its last entries:
+                         the last window runs past the table, whose length
+                         is no multiple of 4
+      pair_products      a 36-entry table under reads around position 5000:
+                         the cmp kernel tests a position r against entries
+                         in pairs by (e0 - r)(e1 - r) == 0 modulo 2^32, and
+                         here pairs (r + 2^20, r + 2^20 + 2^12) and (r' +
+                         2^21, r' + 2^21 + 2^11) make that product vanish
+                         with neither factor zero, for r = 5000 (itself an
+                         entry of an earlier group) and r' = 5005 (no entry)
+    """
+    rng = np.random.default_rng(sum(map(ord, name)))
+    N = n_rows
+    if name == "pair_products":
+        L = 128
+        lows = [5000 + 1000 * a + d for a in range(4)
+                for d in (-30, -20, -10, 0, 10, 20, 30, 40)]
+        vpos = np.array(lows + [5000 + (1 << 20), 5000 + (1 << 20) + (1 << 12),
+                                5005 + (1 << 21), 5005 + (1 << 21) + (1 << 11)],
+                        np.int64)
+        M = len(vpos)
+        starts = np.sort(4900 + np.arange(N) % 90)
+        refpos = starts[:, None] + np.arange(L, dtype=np.int64)[None, :]
+        refpos[rng.random((N, L)) < 0.05] = 0
+        return (rng.integers(1, 16, size=(N, L)).astype(np.uint8),
+                rng.integers(0, 40, size=(N, L)).astype(np.uint8),
+                refpos.astype(np.int32), vpos.astype(np.int32),
+                rng.integers(1, 9, size=(M, 2)).astype(np.uint8),
+                np.full(M, 2, np.int8))
+    L = {"odd_width": 122, "spliced_unordered": 120}.get(name, 128)
+    M = 1003 if name == "table_end" else 4000
+    contig = 200_000 if name == "table_end" else 3_000_000
+    vpos = np.sort(rng.choice(np.arange(1, contig, dtype=np.int64), size=M,
+                              replace=False))
+    if name == "dup_positions":
+        k = np.arange(5, M, 7)
+        vpos[k] = vpos[k - 1]
+    if name == "table_end":
+        starts = np.sort(rng.integers(vpos[-120] - L, vpos[-1], size=N))
+    else:
+        # one region per 256-row block, so that no block straddles two
+        region_lo = np.sort(rng.integers(1, contig - 21_000 - L,
+                                         size=-(-N // 256)))
+        starts = np.concatenate([
+            np.sort(rng.integers(lo, lo + 20_000, size=256))
+            for lo in region_lo])[:N]
+    refpos = starts[:, None] + np.arange(L, dtype=np.int64)[None, :]
+    if name == "spliced_unordered":
+        spliced = np.arange(N) % 3 == 0
+        refpos[spliced, 50:] += 300
+        refpos[spliced, 40:50] = 0
+        flip = np.arange(N) % 5 == 0
+        refpos[flip] = refpos[flip, ::-1]
+    refpos[rng.random((N, L)) < 0.05] = 0
+    codes = rng.integers(1, 16, size=(N, L)).astype(np.uint8)
+    quals = rng.integers(0, 40, size=(N, L)).astype(np.uint8)
+    ind = rng.integers(1, 9, size=(M, 2)).astype(np.uint8)
+    ni = np.full(M, 2, np.int8)
+    return (codes, quals, refpos.astype(np.int32), vpos.astype(np.int32), ind,
+            ni)

@@ -20,9 +20,11 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-# process-wide device-path time: seconds spent preparing/launching device
-# programs, waiting on them, and fetching their results (mapper.dispatch,
-# engine.connections, engine.blocks all report here). Tracer snapshots this
+# process-wide device-path time.  mapper.dispatch reports the card's own
+# seconds (DeviceClock: CUDA events around its uploads, kernels and hit
+# fetches); engine.connections, engine.blocks and engine.phasing report
+# host-clock seconds around device work that ends in a fetch
+# (device_section). Tracer snapshots this
 # around a run so the summary can state what fraction of wall-clock the
 # device path actually consumed under --device cuda, so a claim that the
 # card carries the run stays falsifiable.
@@ -60,6 +62,55 @@ def device_section():
         yield
     finally:
         add_device_time(time.perf_counter() - t0)
+
+
+class DeviceClock:
+    """Device seconds of the work a caller enqueues on one device.
+
+    On a CUDA device `span()` brackets what is enqueued inside it with two
+    CUDA events on the current stream, and `collect()` sums the events'
+    elapsed times once the work has finished: the card's own clock, which
+    host-side packing between two spans does not reach.  (The host time
+    between a span's first and last enqueue, some microseconds, is inside
+    it when the stream is idle.)  On the CPU, where the "device" work runs
+    inside the call, a span is host-clock time."""
+
+    def __init__(self, dev):
+        self._dev = dev
+        self._cuda = dev.type == "cuda"
+        self._pairs = []
+        self._host = 0.0
+
+    @contextlib.contextmanager
+    def span(self):
+        if not self._cuda:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._host += time.perf_counter() - t0
+            return
+        import torch
+        stream = torch.cuda.current_stream(self._dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        try:
+            yield
+        finally:
+            end.record(stream)
+            self._pairs.append((start, end))
+
+    def collect(self) -> float:
+        """Seconds of the spans since the last collect (waits for their
+        work to finish), also added to the process and thread totals."""
+        pairs, self._pairs = self._pairs, []
+        seconds, self._host = self._host, 0.0
+        for start, end in pairs:
+            end.synchronize()
+            seconds += start.elapsed_time(end) / 1e3
+        add_device_time(seconds)
+        return seconds
 
 
 @dataclass
