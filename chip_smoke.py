@@ -66,7 +66,26 @@ Phases (any failure exits non-zero; nothing here imports jax):
      processes sharing the card (each reports device time), and
      --process_slow 1 without and with --threads 2 against the host's
      --process_slow 1 run.  Each run's wall is printed beside the card's
-     name and power limit.
+     name and power limit;
+  8. the downstream tools, each through its CLI's `main` in this process,
+     at the shape of the repo's pop benchmark (BENCH_pop_r05.json,
+     testing/popdata.py: 300 samples x 2,000 genes, 5,000 pairs, bs
+     10,000): gene_ae on a 6,000-row haplotypic_counts file, expr_matrix
+     over 300 gene-AE files (both .bed.gz written, indexed and read back
+     through TabixFile), cis_var --engine torch --device cuda on all 5,000
+     pairs (the bootstrap's card time by CUDA events, its share of the
+     wall, its peak memory; then the same bootstrap twice more, warm and
+     equal, and a few of its cohorts on the CPU against the card),
+     cis_var --engine numpy and --engine torch
+     (twice) on the first 30 pairs (deterministic columns byte-equal
+     between the engines, CI bounds within 2.0, lower <= point <= upper,
+     the two torch files byte-equal), the auto gate's choice at 30 and
+     5,000 pairs, annotate on phase 6's phased VCF and the read -> variant
+     mapper CLI on a SAM of phase 6's first 100,000 reads (well-formed
+     outputs; byte-equality with phaser_tpu is held in the CPU tests, since
+     this machine need not have jax or pandas).  Each wall is printed
+     beside the card's name and power limit, and at the end neither jax,
+     phaser_tpu nor pandas may have been imported.
 
 Each kernel's `launches` comes from the run of its own path: the e2e cuda
 run for the three nibble/plane kernels, the no-nibble-packer dispatcher run
@@ -129,6 +148,15 @@ SUB_ROWS = 1 << 18
 CHROM_READS = 5_000_000      # testing/benchdata.py chromosome-scale workload
 CHROM_HETS = 100_000
 E2E_READS = 1_000_000        # bench_engine.py's input-read count
+POP_SAMPLES, POP_GENES = 300, 2000   # BENCH_pop_r05.json, BASELINE config 5
+POP_PAIRS, POP_BS, POP_SUBSET = 5000, 10000, 30
+POP_DET = ["gene", "var_id", "var_chr", "var_pos", "var_het_n", "var_hom_n",
+           "het_hom_pvalue", "var_het_afc", "var_het_abs_afc", "var_hom_afc",
+           "var_hom_abs_afc", "var_het_afcs", "var_hom_afcs",
+           "var_het_ref_counts", "var_het_alt_counts",
+           "var_hom_hap1_counts", "var_hom_hap2_counts",
+           "var_het_sample_ids", "var_hom_sample_ids"]
+MAPPER_READS = 100_000
 MAIN_PATH = ("affine_nibble", "delta_nibble", "plane")  # the dispatcher's
 
 
@@ -1387,6 +1415,220 @@ def sharded_phase(fx, device, smi):
           "--process_slow 1 host run byte for byte", flush=True)
 
 
+def tool_main(module, argv):
+    """A CLI's `main(argv)` in this process: (exit code, stdout, wall s)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def tsv_columns(path):
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    head = lines[0].split("\t")
+    rows = [l.split("\t") for l in lines[1:]]
+    check(all(len(r) == len(head) for r in rows), "%s: ragged rows" % path)
+    return {h: [r[i] for r in rows] for i, h in enumerate(head)}
+
+
+def downstream_phase(tmp, fx, smi):
+    """Phase 8 (see the module docstring)."""
+    import numpy as np
+    import torch
+    from phaser_tpu_torch.analysis import cis_var
+    from phaser_tpu_torch.cli import (annotate_main, cis_var_main,
+                                      expr_matrix_main, gene_ae_main,
+                                      mapper_main)
+    from phaser_tpu_torch.io import bgzf, tabix
+    from phaser_tpu_torch.kernels import bootstrap
+    from phaser_tpu_torch.testing import popdata
+
+    d = os.path.join(tmp, "pop")
+    os.makedirs(d)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    gdir, features = popdata.make_gene_ae_dir(d, rng, POP_SAMPLES, POP_GENES)
+    hap = popdata.make_hap_counts(d, rng, POP_GENES)
+    vcf, pairs, smap = popdata.make_cis_var_inputs(d, rng, POP_SAMPLES,
+                                                   POP_GENES, POP_PAIRS)
+    sub = popdata.head_pairs(pairs, POP_SUBSET,
+                             os.path.join(d, "pairs_sub.txt"))
+    print("   fixture: %d gene-AE files x %d genes, %d haplotypic-count "
+          "rows, %d pairs over %d samples, %.1f s"
+          % (POP_SAMPLES, POP_GENES, 3 * POP_GENES, POP_PAIRS, POP_SAMPLES,
+             time.perf_counter() - t0), flush=True)
+    walls = {}
+
+    o = os.path.join(d, "gene_ae.txt")
+    rc, out, walls["gene_ae"] = tool_main(gene_ae_main, [
+        "--haplotypic_counts", hap, "--features", features, "--o", o])
+    check(rc == 0, "gene_ae failed:\n" + out[-2000:])
+    cols = tsv_columns(o)
+    check(len(cols) == 12 and len(cols["name"]) == POP_GENES and
+          sum(int(x) for x in cols["totalCount"]) > 0,
+          "gene_ae output is not one row per gene")
+    print("   gene_ae: %d rows in, %d genes out, wall %.3f s on %s"
+          % (3 * POP_GENES, POP_GENES, walls["gene_ae"], smi), flush=True)
+
+    mat = os.path.join(d, "matrix")
+    rc, out, walls["expr_matrix"] = tool_main(expr_matrix_main, [
+        "--gene_ae_dir", gdir, "--features", features, "--o", mat])
+    check(rc == 0, "expr_matrix failed:\n" + out[-2000:])
+    lo = 1000 + 2000 * (POP_GENES // 2)         # genes every 2,000 bp
+    hi = lo + 2000 * max(POP_GENES // 20, 5)
+    for sfx in (".bed.gz", ".gw_phased.bed.gz"):
+        rows = bgzf.read_text_auto(mat + sfx).decode().splitlines()
+        check(len(rows) == POP_GENES + 1 and
+              len(rows[0].split("\t")) == 4 + POP_SAMPLES,
+              "matrix %s is not genes x samples" % sfx)
+        tf = tabix.TabixFile(mat + sfx)
+        got = list(tf.fetch("chr20", lo, hi))
+        want = [r for r in rows[1:] if int(r.split("\t")[2]) > lo
+                and int(r.split("\t")[1]) < hi]
+        check(got == want and len(want) >= 5,
+              "matrix %s: the .tbi does not read back its rows" % sfx)
+    print("   expr_matrix: %d files, 2 matrices of %d x %d written, indexed "
+          "and read back through TabixFile, wall %.3f s on %s"
+          % (POP_SAMPLES, POP_GENES, POP_SAMPLES, walls["expr_matrix"], smi),
+          flush=True)
+
+    gates = {n: cis_var.resolve_engine("auto", "cuda", n, POP_BS)
+             for n in (POP_SUBSET, POP_PAIRS)}
+    print("   auto gate (crossover pairs x bs %d): %d pairs -> %s, %d pairs "
+          "-> %s" % (cis_var.AUTO_CROSSOVER, POP_SUBSET, gates[POP_SUBSET],
+                     POP_PAIRS, gates[POP_PAIRS]), flush=True)
+    bed = mat + ".gw_phased.bed.gz"
+
+    def cis(name, pairs_path, engine):
+        out_path = os.path.join(d, name + ".txt")
+        argv = ["--bed", bed, "--vcf", vcf, "--pairs", pairs_path, "--map",
+                smap, "--o", out_path, "--bs", str(POP_BS), "--bs_seed", "7",
+                "--engine", engine]
+        if engine == "torch":
+            argv += ["--device", "cuda"]
+        before = dict(bootstrap.STATS)
+        torch.cuda.reset_peak_memory_stats()
+        rc, out, wall = tool_main(cis_var_main, argv)
+        check(rc == 0, "cis_var %s failed:\n%s" % (name, out[-2000:]))
+        walls[name] = wall
+        ran = {k: bootstrap.STATS[k] - before[k] for k in before}
+        return out_path, ran, torch.cuda.max_memory_allocated()
+
+    # keep the cohorts of the full run, to time the same bootstrap warm
+    real_bootstrap = bootstrap.bootstrap_cis_device
+    cohorts = []
+
+    def recording(cs, *a, **k):
+        cohorts.extend(cs)
+        return real_bootstrap(cs, *a, **k)
+    bootstrap.bootstrap_cis_device = recording
+    try:
+        full, ran, peak = cis("cis_var_torch", pairs, "torch")
+    finally:
+        bootstrap.bootstrap_cis_device = real_bootstrap
+    card_s = ran["device_s"]
+    cols = tsv_columns(full)
+    check(ran["calls"] == 1 and len(cols["gene"]) == POP_PAIRS,
+          "the torch run made %d bootstrap calls for %d rows"
+          % (ran["calls"], len(cols["gene"])))
+    # the least the card could take: the (rows, bs) float32 medians written
+    # once and read once (the draws' arithmetic over 67 T/s is less)
+    bound_ms = bound_of(2 * 4 * ran["rows"] * POP_BS, 0)[0]
+    lo, mid, hi = (np.array([float(v) for v in cols[c]]) for c in (
+        "var_het_afc_lower", "var_het_afc", "var_het_afc_upper"))
+    check(np.isfinite(lo).all() and (lo <= mid + 1e-6).all() and
+          (mid <= hi + 1e-6).all(), "torch CI bounds out of order")
+    print("   cis_var --engine torch --device cuda, %d pairs x bs %d (%d "
+          "non-empty cohorts in %d chunks): wall %.3f s, bootstrap on the "
+          "card %.4f s (CUDA events; %.2f%% of the wall; bound %.4f ms by "
+          "bytes), peak device memory %.1f MB, on %s"
+          % (POP_PAIRS, POP_BS, ran["rows"], ran["chunks"],
+             walls["cis_var_torch"], card_s,
+             100.0 * card_s / walls["cis_var_torch"], bound_ms, peak / 1e6,
+             smi), flush=True)
+    warm, results = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        before = bootstrap.STATS["device_s"]
+        results.append(np.array(real_bootstrap(cohorts, POP_BS, seed=7,
+                                               device="cuda")))
+        warm.append(bootstrap.STATS["device_s"] - before)
+    warm_peak = torch.cuda.max_memory_allocated()
+    check(np.array_equal(results[0], results[1], equal_nan=True),
+          "one seed gave two bootstraps on the card")
+    # the draws follow the cohort set, so both devices get the same few
+    few = cohorts[:4 * POP_SUBSET]
+    on = {dev: np.array(real_bootstrap(few, POP_BS, seed=7, device=dev))
+          for dev in ("cuda", "cpu")}
+    cpu_gap = float(np.nanmax(np.abs(on["cpu"] - on["cuda"])[:, :2]))
+    print("   the same bootstrap again, warm: %.4f / %.4f s on the card "
+          "(CUDA events), peak device memory %.1f MB, the two equal; cpu "
+          "against cuda on %d cohorts: CI bounds at most %.4f apart (other "
+          "streams), on %s" % (warm[0], warm[1], warm_peak / 1e6, len(few),
+                               cpu_gap, smi), flush=True)
+
+    np_out, _, _ = cis("cis_var_numpy_sub", sub, "numpy")
+    t1, ran1, _ = cis("cis_var_torch_sub", sub, "torch")
+    t2, _, _ = cis("cis_var_torch_sub_again", sub, "torch")
+    card1 = ran1["device_s"]
+    A, B = tsv_columns(np_out), tsv_columns(t1)
+    for c in POP_DET:
+        check(A[c] == B[c], "column %s differs between numpy and torch" % c)
+    het_n = np.array([int(x) for x in A["var_het_n"]])
+    worst = 0.0
+    for c in ("var_het_afc_lower", "var_het_afc_upper", "var_hom_afc_lower",
+              "var_hom_afc_upper"):
+        a = np.array([float(v) for v in A[c]])
+        b = np.array([float(v) for v in B[c]])
+        worst = max(worst, float(np.abs(a - b)[het_n > 3].max()))
+    check(worst < 2.0, "torch CI bounds %.3f away from numpy's" % worst)
+    with open(t1, "rb") as fa, open(t2, "rb") as fb:
+        check(fa.read() == fb.read(), "one seed gave two torch files")
+    per_np = walls["cis_var_numpy_sub"] / POP_SUBSET
+    per_t = walls["cis_var_torch_sub"] / POP_SUBSET
+    print("   %d pairs: numpy %.3f s, torch %.3f / %.3f s (card %.4f s); "
+          "deterministic columns byte-equal, CI bounds within %.3f, the two "
+          "torch files byte-equal; per pair numpy %.4f s, torch %.4f s "
+          "(%d pairs: %.4f s), on %s"
+          % (POP_SUBSET, walls["cis_var_numpy_sub"],
+             walls["cis_var_torch_sub"], walls["cis_var_torch_sub_again"],
+             card1, worst, per_np, per_t, POP_PAIRS,
+             walls["cis_var_torch"] / POP_PAIRS, smi), flush=True)
+
+    cadd = popdata.write_cadd(fx["vcf"], os.path.join(d, "cadd.tsv.gz"),
+                              gene_span=2_000, n_genes=1_000_000)
+    o = os.path.join(d, "compound_hets.txt")
+    rc, out, walls["annotate"] = tool_main(annotate_main, [
+        "--geno_vcf", os.path.join(fx["dir"], "cuda.vcf.gz"), "--sample",
+        fx["sample"], "--cadd_file", cadd, "--o", o])
+    check(rc == 0, "annotate failed:\n" + out[-2000:])
+    cols = tsv_columns(o)
+    check(len(cols) == 16 and len(cols["ensg"]) > 0 and
+          set(cols["configuration"]) <= {"cis", "trans"},
+          "annotate output is not well formed")
+    print("   annotate: %d compound-het rows from phase 6's phased VCF, wall "
+          "%.3f s on %s" % (len(cols["ensg"]), walls["annotate"], smi),
+          flush=True)
+
+    table, sam = popdata.mapper_inputs(fx["vcf"], fx["bam"], d, MAPPER_READS)
+    o = os.path.join(d, "read_variant_map.tsv")
+    t0 = time.perf_counter()
+    rc = mapper_main.run(table, 10, o, 1, 0, sam.splitlines())
+    walls["read_variant_map"] = time.perf_counter() - t0
+    check(rc == 0, "the read -> variant mapper failed")
+    with open(o) as fh:
+        rows = [l.split("\t") for l in fh.read().splitlines()]
+    check(len(rows) > 1000 and len({len(r) for r in rows}) == 1,
+          "mapper output is not well formed")
+    print("   read -> variant mapper: %d reads, %d rows, wall %.3f s on %s"
+          % (MAPPER_READS, len(rows), walls["read_variant_map"], smi),
+          flush=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "phaser_tpu_torch")):
         raise SmokeError("run chip_smoke.py from a checkout of the repository")
@@ -1463,11 +1705,16 @@ def main() -> int:
         phase(7, "sharded runners")
         sharded_phase(fixture, "cuda", smi)
         torch.cuda.synchronize()
+
+        phase(8, "downstream tools at the pop benchmark's shape")
+        downstream_phase(tmp, fixture, smi)
+        torch.cuda.synchronize()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    check("jax" not in sys.modules and "phaser_tpu" not in sys.modules,
-          "jax or the JAX package was imported")
+    check(not {"jax", "phaser_tpu", "pandas"} & set(sys.modules),
+          "jax, the JAX package or pandas was imported")
+    print("   not imported: jax, phaser_tpu, pandas", flush=True)
     kernels = []
     print("   kernel            ms (on the card, kernel alone)  plain ms  "
           "bound ms (by)  share of bound (of the time on the card)  "

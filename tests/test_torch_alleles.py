@@ -14,6 +14,10 @@ ranges: JAX's windowed programs are fed planned windows, the port gets none
 (the delta program gets the packer's per-row [rp_min, rp_max] instead).
 """
 
+import fcntl
+import os
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +27,7 @@ import jax.numpy as jnp
 import datagen
 from phaser_tpu.engine import varmap as jax_varmap
 from phaser_tpu.io import bam as jax_bamio
+from phaser_tpu.io import native as jax_native
 from phaser_tpu.io import vcf as jax_vcfio
 from phaser_tpu.kernels import alleles as J
 from phaser_tpu_torch.engine import varmap
@@ -169,6 +174,54 @@ CASES = {"affine_nibble": _affine_case, "delta_nibble": _delta_case,
          "plane": _plane_case}
 
 
+@pytest.fixture(scope="module")
+def jax_native_so(tmp_path_factory):
+    """None when phaser_tpu's native IO library loads; otherwise the path
+    of a copy built for this module.  phaser_tpu's nibble packers return
+    None without the library, and phaser_tpu builds it in place at first
+    use: when several test processes start on a fresh checkout, one can
+    load the file while another is still writing it and keep no library
+    for good.  The copy is the same source built with phaser_tpu's
+    compiler line into this module's temporary directory, under a file
+    lock; nothing under phaser_tpu/ is written."""
+    if jax_native.get_lib() is not None:
+        return None
+    so = str(tmp_path_factory.mktemp("jax_native") / "libphaser_io.so")
+    with open(so + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+               "-std=c++17", "-o", so + ".tmp", jax_native._SRC, "-lz",
+               "-lpthread"]
+        for libdir in ("/lib/x86_64-linux-gnu", "/usr/lib/x86_64-linux-gnu",
+                       "/usr/lib", "/usr/local/lib"):
+            if os.path.exists(os.path.join(libdir, "libdeflate.so")):
+                cmd.append("-ldeflate")
+                break
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300)
+        if res.returncode != 0 and "-ldeflate" in cmd:
+            cmd.remove("-ldeflate")
+            cmd.insert(1, "-DPHASER_NO_LIBDEFLATE")
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=300)
+        assert res.returncode == 0, res.stderr[-2000:]
+        os.replace(so + ".tmp", so)
+    return so
+
+
+@pytest.fixture
+def jax_native_lib(jax_native_so, monkeypatch):
+    """phaser_tpu's native IO library loaded for the test (the module's
+    copy when the in-place one failed to load)."""
+    if jax_native_so is None:
+        return
+    monkeypatch.setattr(jax_native, "_SO", jax_native_so)
+    monkeypatch.setattr(jax_native, "_tried", False)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    assert jax_native.get_lib() is not None
+
+
+@pytest.mark.usefixtures("jax_native_lib")
 @pytest.mark.parametrize("program", sorted(CASES))
 def test_program_matches_jax(tmp_path, program):
     """Each program's plain version (a range join with no window) == the
@@ -185,6 +238,7 @@ def test_program_matches_jax(tmp_path, program):
         _assert_same_hits(got, want)
 
 
+@pytest.mark.usefixtures("jax_native_lib")
 @pytest.mark.parametrize("program", sorted(CASES))
 def test_capacity_overflow_keeps_exact_count(tmp_path, program):
     """Past capacity the hit counter stays exact and only `cap` hits are

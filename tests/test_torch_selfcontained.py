@@ -1,7 +1,8 @@
-"""phaser_tpu_torch stands on its own: with jax, jaxlib and phaser_tpu
-refused by the import system every module imports and the three runners
-finish; no source line imports them; and the native IO library builds once
-and loads whole when several processes ask for it at the same moment."""
+"""phaser_tpu_torch stands on its own: with jax, jaxlib, phaser_tpu and
+pandas refused by the import system every module imports, the three
+runners finish and so do the five downstream CLIs; no source line imports
+them; and the native IO library builds once and loads whole when several
+processes ask for it at the same moment."""
 
 import os
 import re
@@ -13,12 +14,12 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "phaser_tpu_torch")
 
-# refuses the JAX packages and the JAX implementation of phaser
+# refuses the JAX packages, the JAX implementation of phaser and pandas
 REFUSE = '''
 import sys
 
 class _Refuse:
-    names = ("jax", "jaxlib", "phaser_tpu")
+    names = ("jax", "jaxlib", "phaser_tpu", "pandas")
 
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in self.names:
@@ -32,7 +33,8 @@ sys.meta_path.insert(0, _Refuse())
 def _run(code, tmp_path, timeout=600, **env):
     env = dict(os.environ, PYTHONPATH=REPO,
                PHASER_TPU_TORCH_CACHE=str(tmp_path / "cache"), **env)
-    res = subprocess.run([sys.executable, "-c", REFUSE + code], cwd=REPO,
+    code = REFUSE + "REFUSE_SRC = %r\n" % REFUSE + code
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=timeout)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
@@ -97,8 +99,108 @@ print("RUNNER_OK")
     assert "RUNNER_OK" in out and "COMPLETED" in out
 
 
+TOOLS = {
+    "gene_ae": "gene_ae_main",
+    "expr_matrix": "expr_matrix_main",
+    "cis_var": "cis_var_main",
+    "annotate": "annotate_main",
+    "read_variant_map": "mapper_main",
+}
+
+
+@pytest.mark.parametrize("tool", sorted(TOOLS))
+def test_downstream_cli_finishes_without_jax_pandas_or_phaser_tpu(tmp_path,
+                                                                  tool):
+    """`python -m phaser_tpu_torch.cli.<tool>` in a process that refuses
+    jax, phaser_tpu and pandas, on inputs made by the port's own fixture
+    generators: exit code 0 and a well-formed output."""
+    d = str(tmp_path)
+    out = _run('''
+import os, runpy, subprocess
+import numpy as np
+from phaser_tpu_torch.cli import expr_matrix_main
+from phaser_tpu_torch.testing import datagen, popdata
+d, tool = %r, %r
+rng = np.random.default_rng(1)
+gdir, features = popdata.make_gene_ae_dir(d, rng, 6, 20)
+vcf, bam, data = datagen.write_fixture_dir(
+    d, seed=3, contigs=("chr20",), contig_len=20000,
+    n_variants_per_contig=60, n_reads_per_contig=300)
+o = os.path.join(d, "out")
+stdin = None
+if tool == "gene_ae":
+    argv = ["--haplotypic_counts", popdata.make_hap_counts(d, rng, 20),
+            "--features", features, "--o", o]
+elif tool == "expr_matrix":
+    argv = ["--gene_ae_dir", gdir, "--features", features, "--o", o]
+elif tool == "cis_var":
+    assert expr_matrix_main.main(["--gene_ae_dir", gdir, "--features",
+                                  features, "--o", os.path.join(d, "m")]) == 0
+    pv, pairs, smap = popdata.make_cis_var_inputs(d, rng, 6, 20, 12)
+    argv = ["--bed", os.path.join(d, "m.gw_phased.bed.gz"), "--vcf", pv,
+            "--pairs", pairs, "--map", smap, "--o", o, "--bs", "200",
+            "--min_cov", "2", "--engine", "numpy"]
+elif tool == "annotate":
+    cadd = popdata.write_cadd(vcf, os.path.join(d, "cadd.tsv.gz"),
+                              gene_span=1500)
+    argv = ["--geno_vcf", vcf, "--sample", data.sample, "--cadd_file", cadd,
+            "--o", o]
+else:
+    table, sam = popdata.mapper_inputs(vcf, bam, d, 400)
+    argv = ["--variant_table", table, "--baseq", "10", "--o", o]
+    stdin = sam
+code = REFUSE_SRC + "import runpy; runpy.run_module(%%r, run_name='__main__')"
+res = subprocess.run(
+    [sys.executable, "-c", code %% ("phaser_tpu_torch.cli." + %r)] + argv,
+    input=stdin, capture_output=True, text=True, timeout=300,
+    env=dict(os.environ))
+assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+if tool == "expr_matrix":
+    from phaser_tpu_torch.io import bgzf, tabix
+    for sfx in (".bed.gz", ".gw_phased.bed.gz"):
+        rows = bgzf.read_text_auto(o + sfx).decode().splitlines()
+        assert len(rows) == 21 and len(rows[0].split("\\t")) == 10, rows[0]
+        got = list(tabix.TabixFile(o + sfx).fetch("chr20", 0, 10 ** 6))
+        assert got == rows[1:], (got[:2], rows[1:3])
+else:
+    with open(o) as f:
+        lines = f.read().splitlines()
+    assert len(lines) > 1, lines
+    width = len(lines[0].split("\\t"))
+    assert all(len(l.split("\\t")) == width for l in lines), tool
+bad = [k for k in sys.modules if k.split(".")[0] in _Refuse.names]
+assert not bad, bad
+print("TOOL_OK")
+''' % (d, tool, TOOLS[tool]), tmp_path)
+    assert "TOOL_OK" in out
+
+
+PORT_SCRIPTS = ["phaser-torch", "phaser-torch-gene-ae",
+                "phaser-torch-expr-matrix", "phaser-torch-cis-var",
+                "phaser-torch-annotate", "phaser-torch-read-variant-map"]
+
+
+@pytest.mark.parametrize("script", PORT_SCRIPTS)
+def test_console_script_names_a_port_main(script):
+    """pyproject.toml installs each port CLI under a name of its own, and
+    the entry point is the `main` of a phaser_tpu_torch module."""
+    import importlib
+    import tomllib
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
+        project = tomllib.load(fh)["project"]
+    target = project["scripts"][script]
+    module, func = target.split(":")
+    assert module.startswith("phaser_tpu_torch.cli.")
+    assert callable(getattr(importlib.import_module(module), func))
+    assert project["optional-dependencies"]["torch"] == ["torch"]
+    assert not any(v.startswith("phaser_tpu_torch")
+                   for k, v in project["scripts"].items()
+                   if not k.startswith("phaser-torch"))
+
+
 def test_no_source_line_imports_jax_or_phaser_tpu():
-    pat = re.compile(r"^\s*(from|import)\s+(phaser_tpu|jax|jaxlib)(\.|\s|$)")
+    pat = re.compile(
+        r"^\s*(from|import)\s+(phaser_tpu|jax|jaxlib|pandas)(\.|\s|$)")
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
