@@ -85,11 +85,31 @@ Phases (any failure exits non-zero; nothing here imports jax):
      outputs; byte-equality with phaser_tpu is held in the CPU tests, since
      this machine need not have jax or pandas).  Each wall is printed
      beside the card's name and power limit, and at the end neither jax,
-     phaser_tpu nor pandas may have been imported.
+     phaser_tpu nor pandas may have been imported;
+  9. the sharded step and the multi-process scaffolding (dist/): (a)
+     dist.mesh.sharded_phasing_step on a one-shard mesh on the card, with
+     the connection tests' p-values of its merged band
+     (connection_p_values), at one shard's full width: 262,144 rows x 128
+     bases on three inputs, phase 3's reads with its 100,000-het table,
+     scaling_bench._gen's dense layout (a variant about every 8 bp) over
+     100,000 variants, and phase 6's first contig; counts zeroed just
+     before each run and read just after, every step kernel launched; the
+     first 4,096 rows of each against dist/dryrun.py's numpy and scipy
+     recomputations (counts, band, scores equal, p-values within 1e-10,
+     prune equal); each step kernel (planes_table, band_counts,
+     conflict_prune, binom_cdf) against its plain version on the step's
+     own tensors (max_abs_err 0 for the integer kernels, <= 1e-12 for the
+     float64 ones, prune equal) and timed; (b) dryrun.dryrun_multichip(4,
+     "cuda"); (c) two `python -m phaser_tpu_torch.dist.multihost --device
+     cuda` ranks over Gloo on phase 6's fixture, their counts equal to one
+     process's; (d) `python -m phaser_tpu_torch.dist.scaling_bench
+     --devices 1,2 --device cuda --reads-per-device 262144`, its JSON line
+     printed.
 
 Each kernel's `launches` comes from the run of its own path: the e2e cuda
 run for the three nibble/plane kernels, the no-nibble-packer dispatcher run
-for affine_masked, and phase 4's entry calls for the planes kernels.
+for affine_masked, phase 4's entry calls for the planes kernels, and phase
+9's step runs (with their p-values) for the four step kernels.
 
 Each kernel's `ms` is the wrapper call timed with CUDA events over 20 calls
 (the packed buffer's fill included, and host overhead where the host cannot
@@ -112,9 +132,15 @@ with a table entry in their range, one 32-byte sector of a code plane per
 hit, 8 B per hit written; for the planes kernels 4 B of refpos read and 8 B
 written per base, 2 B of codes and quals per hit, the table entries under
 the launch's windows), and the line printed before the record also gives
-the "every input byte once" figure.  `library_ms` is
+the "every input byte once" figure.  The step kernels' bounds: for
+band_counts the planes read once (8 B a base) and the counts and band
+written once, or a test per base and per ordered hit pair; for
+conflict_prune and binom_cdf their inputs and outputs once, or the float64
+operations of the fraction terms these inputs actually take over 34 T/s
+(the card's float64 rate outside the tensor cores).  `library_ms` is
 null throughout: no single PyTorch call classifies bases against the table
-and compacts the hits (`torch.searchsorted` is only the lookup).
+and compacts the hits (`torch.searchsorted` is only the lookup), forms the
+within-row pairs, or has an incomplete beta.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -131,7 +157,6 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "phaser_tpu_torch/csrc/alleles.cu"
 REPLACES = {  # the TPU program each kernel (or kernel mode) replaces
     "affine_nibble": "phaser_tpu/kernels/alleles.py:975",
     "delta_nibble": "phaser_tpu/kernels/alleles.py:424",
@@ -140,7 +165,31 @@ REPLACES = {  # the TPU program each kernel (or kernel mode) replaces
     "planes": "phaser_tpu/kernels/alleles.py:673",
     "planes_resident": "phaser_tpu/kernels/alleles.py:627",
     "planes_cmp": "phaser_tpu/kernels/alleles.py:757",
+    # the sharded step's programs (jnp inside phaser_tpu's shard_map step)
+    "planes_table": "phaser_tpu/kernels/alleles.py:33",
+    "band_counts": "phaser_tpu/dist/mesh.py:83",
+    "conflict_prune": "phaser_tpu/kernels/stats.py:46",
+    "binom_cdf": "phaser_tpu/kernels/stats.py:32",
 }
+SOURCES = dict.fromkeys(REPLACES, "phaser_tpu_torch/csrc/alleles.cu")
+SOURCES.update(band_counts="phaser_tpu_torch/csrc/mesh.cu",
+               conflict_prune="phaser_tpu_torch/csrc/stats.cu",
+               binom_cdf="phaser_tpu_torch/csrc/stats.cu")
+STEP_KERNELS = ("planes_table", "band_counts", "conflict_prune", "binom_cdf")
+STEP_ROWS = 1 << 18          # phase 9: rows of one shard's step
+STEP_CHECK_ROWS = 4096       # rows held against dist/dryrun.py's host code
+STEP_BAND, STEP_THRESHOLD = 8, 0.01
+# the input of phase 9 whose numbers go into the kernels' record, the one
+# where the kernel's work is real: the chromosome's reads for the allele
+# planes; the dense layout (a variant about every 8 bp, scaling_bench._gen)
+# for the pair band; phase 6's reads for the connection tests (the dense
+# layout's random codes mismatch 3 bases in 4, so no variant passes the
+# noise estimate's 5% rule, the noise rate is 0 and the edge rules decide
+# every test without a fraction)
+STEP_RECORD = {"planes_table": "chromosome", "band_counts": "dense",
+               "conflict_prune": "e2e", "binom_cdf": "e2e"}
+STEP_TOL = {"planes_table": 0, "band_counts": 0, "conflict_prune": 1e-12,
+            "binom_cdf": 1e-12}
 SUFFIXES = (".allelic_counts.txt", ".variant_connections.txt",
             ".allele_config.txt", ".haplotypes.txt",
             ".haplotypic_counts.txt", ".vcf.gz")
@@ -162,7 +211,13 @@ MAIN_PATH = ("affine_nibble", "delta_nibble", "plane")  # the dispatcher's
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 INT_OPS_PER_S = 67e12        # non-tensor rate (compares, index arithmetic)
+FP64_OPS_PER_S = 34e12       # H100 SXM float64 outside the tensor cores
 TABLE_ROW_BYTES = 16         # vpos, a0, a1, n_ind: 4 x int32 per entry
+# float64 operations of the incomplete beta (csrc/stats.cu): a term of
+# the continued fraction (two Lentz half-steps, two divisions each
+# counted as one), and the prefactor (three lgamma, log, log1p, exp)
+BETACF_TERM_FLOPS = 30
+BETACF_SETUP_FLOPS = 100
 
 
 class SmokeError(Exception):
@@ -174,6 +229,14 @@ def bound_of(n_bytes, n_ops):
     memory rate and the operations over the non-tensor rate."""
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
     t_o = n_ops / INT_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def fp64_bound(n_bytes, n_flops):
+    """bound_of for float64 arithmetic: the operations over the float64
+    rate."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = n_flops / FP64_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -234,7 +297,10 @@ KERNEL_FN = {  # the __global__ function behind each kernel entry
     "planes": "planes_windowed_kernel",
     "planes_resident": "planes_resident_kernel",
     "planes_cmp": "planes_cmp_kernel",
-    "planes_table": "planes_table_kernel"}  # the whole-table mode of planes
+    "planes_table": "planes_table_kernel",  # the whole-table mode of planes
+    "band_counts": "band_counts_kernel",
+    "conflict_prune": "conflict_prune_kernel",
+    "binom_cdf": "binom_cdf_kernel"}
 _profiler_warm = False
 
 
@@ -718,7 +784,13 @@ def chromosome_phase(tmp, device):
         bounds[name] = bound_of(need + out_bytes, ops) + \
             (bound_of(every + out_bytes, ops)[0],)
     torch.cuda.synchronize()
-    return results, bounds, masked_launches["affine_masked"], chrom_launches
+    # phase 9's chromosome-scale step input: the first 262,144 reads as
+    # refpos planes, and the het table
+    from phaser_tpu_torch.dist.multihost import table_arrays
+    step_input = K.pack_reads(bd, rows=np.arange(min(STEP_ROWS, len(bd)))) + \
+        table_arrays(vt)
+    return (results, bounds, masked_launches["affine_masked"], chrom_launches,
+            step_input)
 
 
 def branch_shapes_phase(device):
@@ -1299,31 +1371,25 @@ def same_outputs(got, want, what, vcf_text):
               % (what, sfx))
 
 
-def multihost_run(fx, prefix, device, n_procs=2, timeout=600):
-    """n_procs `python -m phaser_tpu_torch.dist.engine_multihost` engine
-    processes with position shards over one Gloo group, all on this
-    machine's card.  Returns (wall s, [device_s of each process])."""
+def free_port():
     import socket
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+        return sock.getsockname()[1]
+
+
+def run_ranks(cmds, timeout):
+    """Starts every command at once (output to files: a full pipe would
+    stall a rank in a collective), waits for all, and returns their
+    outputs; fails unless every one exits 0."""
     procs, logs = [], []
-    t0 = time.perf_counter()
     try:
-        for pid in range(n_procs):
-            # output to files: a full pipe would stall a rank in a collective
+        for cmd in cmds:
             logs.append(tempfile.TemporaryFile("w+"))
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "phaser_tpu_torch.dist.engine_multihost",
-                 "--vcf", fx["vcf"], "--bam", fx["bam"], "--sample",
-                 fx["sample"], "--o", prefix, "--num-processes", str(n_procs),
-                 "--process-id", str(pid), "--position-shards", "--device",
-                 device, "--coordinator", "localhost:%d" % port,
-                 "--timeout", "300"],
-                cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
                 stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
         rcs = [p.wait(timeout=timeout) for p in procs]
-        wall = time.perf_counter() - t0
         outs = []
         for fh in logs:
             fh.seek(0)
@@ -1335,8 +1401,25 @@ def multihost_run(fx, prefix, device, n_procs=2, timeout=600):
                 p.wait()
         for fh in logs:
             fh.close()
-    check(rcs == [0] * n_procs, "engine processes exited %s:\n%s"
+    check(rcs == [0] * len(cmds), "processes exited %s:\n%s"
           % (rcs, "\n".join(o[-2000:] for o in outs)))
+    return outs
+
+
+def multihost_run(fx, prefix, device, n_procs=2, timeout=600):
+    """n_procs `python -m phaser_tpu_torch.dist.engine_multihost` engine
+    processes with position shards over one Gloo group, all on this
+    machine's card.  Returns (wall s, [device_s of each process])."""
+    port = free_port()
+    t0 = time.perf_counter()
+    outs = run_ranks([
+        [sys.executable, "-m", "phaser_tpu_torch.dist.engine_multihost",
+         "--vcf", fx["vcf"], "--bam", fx["bam"], "--sample", fx["sample"],
+         "--o", prefix, "--num-processes", str(n_procs), "--process-id",
+         str(pid), "--position-shards", "--device", device, "--coordinator",
+         "localhost:%d" % port, "--timeout", "300"]
+        for pid in range(n_procs)], timeout)
+    wall = time.perf_counter() - t0
     device_s = []
     for out in outs:
         done = [l for l in out.splitlines()
@@ -1629,6 +1712,263 @@ def downstream_phase(tmp, fx, smi):
           flush=True)
 
 
+def step_kernels_vs_plain(name, args, step, smi, device):
+    """The four kernels of the sharded step against their plain versions
+    on the step's own tensors (one input set of phase 9): planes_table on
+    the step's read planes, band_counts on the planes it returned, and
+    conflict_prune and binom_cdf on the merged band.  Returns {kernel:
+    (max_abs_err, ms, plain_ms, (device_ms, kernel_ms, profiles))} and
+    {kernel: (bound_ms, bound_by)}."""
+    import numpy as np
+    import torch
+    from phaser_tpu_torch.dist import mesh as TM
+    from phaser_tpu_torch.kernels import alleles as K
+    from phaser_tpu_torch.kernels import stats as S
+
+    dev = torch.device(device)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in args]
+    N, L = t[0].shape
+    M = int(t[3].shape[0])
+    table = K._entry_table(*t)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    counts, pair = step[0], step[1]
+    vidx, allele = K.assign_alleles_device(*t, 10)
+    cfg = TM.band_configs(pair)
+    noise = S.noise_from_counts(counts)
+    sup, total, p_success = S._conflict_args(*cfg, noise)
+
+    def planes_err(got, want):
+        return max(int((g.long() - w.long()).abs().max()) for g, w in
+                   zip(got, want))
+
+    def bc_err(got, want):
+        return max(int((g - w).abs().max()) for g, w in zip(got, want))
+
+    def prune_err(got, want):
+        check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+              "conflict_prune: prune or uncertain differ from the plain "
+              "version's")
+        return float((got[0] - want[0]).abs().max())
+
+    def cdf_err(got, want):
+        return float((got - want).abs().max())
+    runs = {
+        "planes_table": (lambda: K.assign_alleles_device(*t, 10),
+                         lambda: K.planes_plain(*t[:3], 10, zero, M, N,
+                                                table), planes_err),
+        "band_counts": (lambda: TM.band_counts(vidx, allele, M, STEP_BAND),
+                        lambda: TM.band_counts_plain(vidx, allele, M,
+                                                     STEP_BAND), bc_err),
+        "conflict_prune": (lambda: S.prune_mask(*cfg, noise, STEP_THRESHOLD),
+                           lambda: S.conflict_prune_plain(*cfg, noise,
+                                                          STEP_THRESHOLD),
+                           prune_err),
+        "binom_cdf": (lambda: S.binom_cdf(sup, total, p_success),
+                      lambda: S.binom_cdf_plain(sup, total, p_success),
+                      cdf_err),
+    }
+    results = {}
+    for kname, (kernel, plain, err_of) in runs.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = err_of(got, want)
+        check(err <= STEP_TOL[kname], "%s (%s input): max_abs_err %g over "
+              "%g" % (kname, name, err, STEP_TOL[kname]))
+        p1 = time_ms(plain, 3)
+        k1 = time_ms(kernel, 20)
+        k2 = time_ms(kernel, 20)
+        p2 = time_ms(plain, 3)
+        on_card = device_ms(kname, kernel)
+        check(on_card is not None, "%s: the profiler saw no launch of %s"
+              % (kname, KERNEL_FN[kname]))
+        results[kname] = (err, (k1 + k2) / 2, (p1 + p2) / 2, on_card)
+
+    # bounds from this input: bytes each input read once and each output
+    # written once; operations as these inputs need them
+    hits = allele < 3
+    per_row = hits.sum(dim=1).double()
+    n_pairs = sup.numel()
+    _, c_terms = S.conflict_terms(*cfg, noise)
+    b_terms = S.binom_cdf_terms(sup, total, p_success)
+    steps = max(M.bit_length() - 1, 1)
+    bounds = {
+        # refpos read and both planes written (12 B a base), codes and
+        # quals under a hit, the table once; a search per base
+        "planes_table": bound_of(N * L * 12 + 2 * int(hits.sum()) +
+                                 M * TABLE_ROW_BYTES, N * L * 2 * steps),
+        # both planes read (8 B a base), counts and the band written once;
+        # a test per base and per ordered hit pair of a row
+        "band_counts": bound_of(N * L * 8 + M * 12 + M * STEP_BAND * 36,
+                                N * L * 2 + int((per_row ** 2).sum())),
+        # three int32 counts and the noise read, p and two flags written;
+        # float64 operations of the fractions these pairs take
+        "conflict_prune": fp64_bound(
+            n_pairs * 22 + 8, int(c_terms.sum()) * BETACF_TERM_FLOPS +
+            int((c_terms > 0).sum()) * BETACF_SETUP_FLOPS),
+        "binom_cdf": fp64_bound(
+            n_pairs * 32, int(b_terms.sum()) * BETACF_TERM_FLOPS +
+            int((b_terms > 0).sum()) * BETACF_SETUP_FLOPS),
+    }
+    for kname, (err, ms, plain_ms, (dev_ms, kernel_ms, _)) in \
+            results.items():
+        print("   [%s] %-14s max_abs_err %g  wrapper call %.4f ms; on the "
+              "card %.4f ms, kernel alone %.4f ms   plain %.4f ms   bound "
+              "%.4f ms (%s)   on %s"
+              % (name, kname, err, ms, dev_ms, kernel_ms, plain_ms,
+                 bounds[kname][0], bounds[kname][1], smi), flush=True)
+    print("   [%s] %d x %d bases, M %d: %d hits, %d pairs in the band, %d "
+          "pairs with support, fraction terms: conflict_prune %d (max %d), "
+          "binom_cdf %d (max %d)"
+          % (name, N, L, M, int(hits.sum()), int(pair.sum()),
+             int((sup > 0).sum()), int(c_terms.sum()), int(c_terms.max()),
+             int(b_terms.sum()), int(b_terms.max())), flush=True)
+    return results, bounds
+
+
+def step_subset_vs_host(args, device):
+    """The step on the first STEP_CHECK_ROWS rows against dist/dryrun.py's
+    numpy and scipy recomputations: counts, band and scores equal, the
+    p-values within 1e-10 of scipy, prune equal."""
+    import numpy as np
+    from phaser_tpu_torch.dist import dryrun
+    from phaser_tpu_torch.dist import mesh as TM
+
+    sub = [np.ascontiguousarray(a[:STEP_CHECK_ROWS]) for a in args[:3]] + \
+        list(args[3:])
+    step = TM.sharded_phasing_step(TM.make_mesh(1, device=device), *sub, 10,
+                                   band=STEP_BAND,
+                                   cc_threshold=STEP_THRESHOLD)
+    p = TM.connection_p_values(step[0], step[1]).cpu().numpy()
+    counts, pair, prune, scores = (x.cpu().numpy() for x in step)
+    ec, ep = dryrun._host_counts_band(*sub, 10, STEP_BAND)
+    check(np.array_equal(counts, ec) and np.array_equal(pair, ep),
+          "step counts or band differ from the numpy recomputation")
+    check(np.array_equal(scores, dryrun._host_scores(ep, 8, STEP_BAND)),
+          "step scores differ from the host's")
+    eprune, ep_p = dryrun._host_prune(ec, ep, STEP_THRESHOLD)
+    gap = float(np.abs(p - ep_p).max())
+    sure = np.abs(ep_p - STEP_THRESHOLD) > 1e-12
+    check(gap <= 1e-10 and np.array_equal(prune[sure], eprune[sure]),
+          "step p-values %g from scipy's, or prune differs" % gap)
+    return int(ec.sum()), int(ep.sum()), int(eprune.sum()), gap
+
+
+def sharded_step_phase(step_input, fx, smi, device):
+    """Phase 9 (see the module docstring).  Returns the four step kernels'
+    (results, bounds, launches on the step path)."""
+    import numpy as np
+    import torch
+    from phaser_tpu_torch.dist import dryrun
+    from phaser_tpu_torch.dist import mesh as TM
+    from phaser_tpu_torch.dist import multihost
+    from phaser_tpu_torch.dist.scaling_bench import _gen
+    from phaser_tpu_torch.kernels import alleles as K
+    from phaser_tpu_torch.kernels import stats as S
+
+    from phaser_tpu_torch.io import bam as bamio
+    from phaser_tpu_torch.kernels.alleles import pack_reads
+    bd = bamio.read_bam(fx["bam"])
+    inputs = {"chromosome": step_input,
+              "dense": _gen(STEP_ROWS, 128, CHROM_HETS),
+              "e2e": pack_reads(bd, rows=np.flatnonzero(
+                  bd.refid == 0)[:STEP_ROWS]) + multihost.device_table(
+                      fx["vcf"], fx["sample"], "")}
+    del bd
+    mesh = TM.make_mesh(1, device=device)
+    launches = dict.fromkeys(STEP_KERNELS, 0)
+    results, bounds = {}, {}
+    for name, args in inputs.items():
+        # (a) the step and its connection p-values, launches counted from 0
+        K.reset_launches()
+        TM.reset_launches()
+        S.reset_launches()
+        t0 = time.perf_counter()
+        step = TM.sharded_phasing_step(mesh, *args, 10, band=STEP_BAND,
+                                       cc_threshold=STEP_THRESHOLD)
+        p = TM.connection_p_values(step[0], step[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"planes_table": K.LAUNCHES["planes_table"],
+               "band_counts": TM.LAUNCHES["band_counts"],
+               "conflict_prune": S.LAUNCHES["conflict_prune"],
+               "binom_cdf": S.LAUNCHES["binom_cdf"]}
+        for k, n in run.items():
+            launches[k] += n
+        counts, pair, prune, scores = step
+        check(int(counts.sum()) > 0 and bool(torch.isfinite(p).all()) and
+              tuple(pair.shape) == (len(args[3]), STEP_BAND, 9) and
+              scores.shape[0] == 128,
+              "%s step: no hits, a p-value not finite, or a shape wrong"
+              % name)
+        print("   [%s] sharded_phasing_step + p-values, 1 shard: %.3f s "
+              "(first call of the input); %d hits, %d band pairs, %d pruned "
+              "of %d; launches %s; on %s"
+              % (name, wall, int(counts.sum()), int(pair.sum()),
+                 int(prune.sum()), prune.numel(), run, smi), flush=True)
+        n_hits, n_pairs, n_pruned, gap = step_subset_vs_host(args, device)
+        print("   [%s] first %d rows against dryrun._host_*: %d hits, %d band "
+              "pairs, %d pruned equal; p-values within %.2e of scipy"
+              % (name, STEP_CHECK_ROWS, n_hits, n_pairs, n_pruned, gap),
+              flush=True)
+        res, bnd = step_kernels_vs_plain(name, args, step, smi, device)
+        for kname in STEP_KERNELS:
+            if STEP_RECORD[kname] == name:
+                results[kname], bounds[kname] = res[kname], bnd[kname]
+        del step, p, counts, pair, prune, scores
+        torch.cuda.synchronize()
+    check(min(launches.values()) > 0,
+          "the step path skipped a kernel: %s" % launches)
+
+    # (b) the dry run: 4 shards in turn on the card, then the sharded engine
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(4, device)
+    torch.cuda.synchronize()
+    print("   [b] dryrun.dryrun_multichip(4, %r): passed, wall %.3f s on %s"
+          % (device, time.perf_counter() - t0, smi), flush=True)
+
+    # (c) the multihost CLI: two ranks over Gloo sharing the card
+    port = free_port()
+    out0 = os.path.join(fx["dir"], "multihost0.json")
+    argv = ["--bam", fx["bam"], "--vcf", fx["vcf"], "--sample",
+            fx["sample"], "--num-processes", "2", "--device", device,
+            "--coordinator", "localhost:%d" % port, "--timeout", "300"]
+    t0 = time.perf_counter()
+    outs = run_ranks([[sys.executable, "-m", "phaser_tpu_torch.dist.multihost"]
+                      + argv + ["--process-id", str(r)] +
+                      (["--o", out0] if r == 0 else []) for r in range(2)],
+                     timeout=600)
+    wall = time.perf_counter() - t0
+    with open(out0) as fh:
+        got = np.array(json.load(fh)["counts"])
+    t0 = time.perf_counter()
+    want = multihost.multiprocess_allele_counts(
+        fx["bam"], fx["vcf"], fx["sample"], 1, 0, device=device)
+    one = time.perf_counter() - t0
+    check(np.array_equal(got, want) and want.sum() > 0,
+          "the two multihost ranks' counts differ from one process's")
+    print("   [c] 2 x dist.multihost --device %s: wall %.3f s; one process "
+          "in this one %.3f s; counts equal (%d hits over %d variants); on "
+          "%s" % (device, wall, one, int(want.sum()), len(want), smi),
+          flush=True)
+
+    # (d) the weak-scaling bench, 1 and 2 ranks on the card
+    t0 = time.perf_counter()
+    outs = run_ranks([[sys.executable, "-m",
+                       "phaser_tpu_torch.dist.scaling_bench", "--devices",
+                       "1,2", "--device", device, "--reads-per-device",
+                       str(STEP_ROWS)]], timeout=600)
+    line = outs[0].strip().splitlines()[-1]
+    res = json.loads(line)
+    check(res["metric"] == "weak_scaling_efficiency" and
+          min(r["hits"] for r in res["per_device"].values()) > 0,
+          "scaling_bench printed no result: " + outs[0][-2000:])
+    print("   [d] scaling_bench --devices 1,2 --device %s "
+          "--reads-per-device %d: wall %.3f s on %s" %
+          (device, STEP_ROWS, time.perf_counter() - t0, smi), flush=True)
+    print("   " + line, flush=True)
+    return results, bounds, launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "phaser_tpu_torch")):
         raise SmokeError("run chip_smoke.py from a checkout of the repository")
@@ -1649,7 +1989,6 @@ def main() -> int:
     import threading
 
     from phaser_tpu_torch.io import native
-    from phaser_tpu_torch.kernels import alleles as K
     from phaser_tpu_torch.utils import build
     # one compiler per source, both started together
     failed = []
@@ -1667,7 +2006,7 @@ def main() -> int:
           % (failed[0] if failed else ""))
     print("   nvcc build: %.2f s -> %s"
           % (build.last_build_seconds, os.path.relpath(build.LIB_PATH, REPO)))
-    K._kernels()
+    build.get_lib()
     check(build.last_io_build_seconds is not None and
           native.get_lib() is not None,
           "the native IO library was not built here")
@@ -1679,7 +2018,7 @@ def main() -> int:
     os.environ["PHASER_TPU_TORCH_CACHE"] = os.path.join(tmp, "cache")
     try:
         phase(3, "kernel parity at chromosome scale")
-        results, bounds, masked_launches, chrom_launches = \
+        results, bounds, masked_launches, chrom_launches, step_input = \
             chromosome_phase(tmp, "cuda")
         branch_shapes_phase("cuda")
         small_delta_phase(tmp, "cuda")
@@ -1709,6 +2048,17 @@ def main() -> int:
         phase(8, "downstream tools at the pop benchmark's shape")
         downstream_phase(tmp, fixture, smi)
         torch.cuda.synchronize()
+
+        phase(9, "sharded step and multi-process scaffolding")
+        t0 = time.perf_counter()
+        step_results, step_bounds, step_launches = sharded_step_phase(
+            step_input, fixture, smi, "cuda")
+        results.update(step_results)
+        bounds.update(step_bounds)
+        launches.update(step_launches)
+        print("   phase 9 wall %.1f s on %s" % (time.perf_counter() - t0, smi),
+              flush=True)
+        torch.cuda.synchronize()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1718,22 +2068,27 @@ def main() -> int:
     kernels = []
     print("   kernel            ms (on the card, kernel alone)  plain ms  "
           "bound ms (by)  share of bound (of the time on the card)  "
-          "launches: 5M-read call / 1M-read e2e   [%s]" % smi)
+          "launches: 5M-read call / 1M-read e2e, or on phase 9's step path"
+          "   [%s]" % smi)
     for name, (err, ms, plain_ms, (dev_ms, kernel_ms, profiles)) in \
             results.items():
         bound_ms, bound_by = bounds[name][:2]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "device_ms": dev_ms, "kernel_ms": kernel_ms,
             "profiles": profiles})
         line = ("   %-15s %.4f (%.4f, %.4f)  %.4f  %.4f (%s)  %.1f%% (%.1f%%)  "
-                "%d / %d") % (
-            name, ms, dev_ms, kernel_ms, plain_ms, bound_ms, bound_by,
-            100.0 * bound_ms / ms, 100.0 * bound_ms / dev_ms,
-            chrom_launches.get(name, 0), e2e_launches.get(name, 0))
+                % (name, ms, dev_ms, kernel_ms, plain_ms, bound_ms, bound_by,
+                   100.0 * bound_ms / ms, 100.0 * bound_ms / dev_ms))
+        if name in STEP_KERNELS:
+            line += "%d on the step path (%s input)" % (launches[name],
+                                                        STEP_RECORD[name])
+        else:
+            line += "%d / %d" % (chrom_launches.get(name, 0),
+                                 e2e_launches.get(name, 0))
         if name == "affine_masked":
             line += "   (%d on the 5M-read call without the nibble packer)" \
                 % masked_launches

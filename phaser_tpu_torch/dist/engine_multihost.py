@@ -478,9 +478,9 @@ def _warm_up(device) -> None:
     if dev.type == "cuda":
         import torch
 
-        from ..kernels.alleles import _kernels
+        from ..utils import build
         torch.cuda.init()
-        _kernels()
+        build.get_lib()
 
 
 # ---------------------------------------------------------------------------

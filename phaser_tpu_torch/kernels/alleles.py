@@ -55,7 +55,7 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 # kernel launches per wrapper (CUDA launches only; plain runs do not count)
 LAUNCHES = {"affine_nibble": 0, "delta_nibble": 0, "plane": 0,
             "affine_masked": 0, "planes": 0, "planes_resident": 0,
-            "planes_cmp": 0}
+            "planes_cmp": 0, "planes_table": 0}
 
 
 def _next_pow2(n: int) -> int:
@@ -622,35 +622,16 @@ def planes_cmp_plain(codes, quals, refpos, baseq: int, ws, block_rows: int,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_declared = False
-
-
-def _kernels() -> ctypes.CDLL:
-    global _declared
-    from ..utils import build
-    lib = build.get_lib()
-    if not _declared:
-        lib.affine_nibble_launch.argtypes = (
-            [_P] * 4 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P])
-        lib.delta_nibble_launch.argtypes = (
-            [_P] * 5 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P])
-        lib.plane_launch.argtypes = (
-            [_P] * 3 + [_I, _I, _I] + [_P] * 4 + [_I, _P, _I, _P])
-        lib.affine_masked_launch.argtypes = (
-            [_P] * 4 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P])
-        lib.planes_launch.argtypes = (
-            [_P] * 3 + [_I, _I, _I, _P, _I, _I] + [_P] * 4 +
-            [_I, _I, _P, _P, _P])
-        lib.planes_cmp_launch.argtypes = (
-            [_P] * 3 + [_I, _I, _I, _P, _I] + [_P] * 4 + [_I, _P, _P, _P])
-        for fn in (lib.affine_nibble_launch, lib.delta_nibble_launch,
-                   lib.plane_launch, lib.affine_masked_launch,
-                   lib.planes_launch, lib.planes_cmp_launch):
-            fn.restype = ctypes.c_int
-        lib.kernel_error_string.argtypes = [_I]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _declared = True
-    return lib
+_ARGTYPES = {  # each launcher's C signature (csrc/alleles.cu)
+    "affine_nibble_launch": [_P] * 4 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P],
+    "delta_nibble_launch": [_P] * 5 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P],
+    "plane_launch": [_P] * 3 + [_I, _I, _I] + [_P] * 4 + [_I, _P, _I, _P],
+    "affine_masked_launch": [_P] * 4 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P],
+    "planes_launch": [_P] * 3 + [_I, _I, _I, _P, _I, _I] + [_P] * 4 +
+    [_I, _I, _P, _P, _P],
+    "planes_cmp_launch": [_P] * 3 + [_I, _I, _I, _P, _I] + [_P] * 4 +
+    [_I, _P, _P, _P],
+}
 
 
 def _on_cuda(dev: torch.device) -> bool:
@@ -719,12 +700,8 @@ def _new_packed(capacity: int, dev: torch.device) -> torch.Tensor:
 
 
 def _launch(fn_name: str, args) -> None:
-    lib = _kernels()
-    err = getattr(lib, fn_name)(*args)
-    if err != 0:
-        raise RuntimeError("%s failed: CUDA error %d (%s)"
-                           % (fn_name, err,
-                              lib.kernel_error_string(err).decode()))
+    from ..utils import build
+    build.launch(fn_name, _ARGTYPES[fn_name], args)
 
 
 def _stream(dev: torch.device) -> int:
@@ -927,7 +904,9 @@ def assign_alleles_device(codes: torch.Tensor, quals: torch.Tensor,
     n_ind (M,) int8.  Returns (vidx, allele) (N, L) int32: vidx = the
     lower-bound table index of a hit, else -1; allele 0/1 = individual
     allele index, 2 = OTHER, 3 = NO_HIT.  On CUDA tensors: the planes
-    kernel with one whole-table window."""
+    kernel with one whole-table window, counted as "planes_table" where
+    that is the whole-table mode (M > 256, `planes_table_kernel`), else as
+    "planes" (a table that fits one window)."""
     table = _entry_table(codes, quals, refpos, vpos, ind_codes, n_ind)
     N, L = codes.shape
     M = vpos.shape[0]
@@ -935,8 +914,10 @@ def assign_alleles_device(codes: torch.Tensor, quals: torch.Tensor,
     if not _on_cuda(codes.device) or M == 0 or N == 0:
         return planes_plain(codes, quals, refpos, baseq, ws, M, max(N, 1),
                             table)
-    return _launch_planes("planes_launch", "planes", codes, quals, refpos,
-                          baseq, ws, (M, max(N, 1)), table, (0,))
+    return _launch_planes("planes_launch",
+                          "planes_table" if M > _WIN else "planes", codes,
+                          quals, refpos, baseq, ws, (M, max(N, 1)), table,
+                          (0,))
 
 
 def compact_hits(vidx: torch.Tensor, allele: torch.Tensor, capacity: int

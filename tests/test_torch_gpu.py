@@ -1,7 +1,8 @@
 """The CUDA kernels of phaser_tpu_torch on a card, every test marked `gpu`:
 each kernel against its plain PyTorch version on the same inputs (integers,
 tolerance 0; packed hits after a (read, var) sort, since the kernels compact
-with atomics), the dispatcher on the card against the host mapper, and,
+with atomics; the float64 statistics kernels within 1e-12), the dispatcher
+and the sharded step on the card against the host mapper and the CPU, and,
 where jax is installed, the kernels against phaser_tpu's jnp programs.
 
 Nothing here imports jax or phaser_tpu at module level, and the file puts
@@ -124,7 +125,7 @@ def _planes_modes(arrays, device):
                                     *rx[:3], 10, zero, (122, N), rtable, (1,))
         return K.planes_plain(*rx[:3], 10, zero, 122, N, rtable)
     return (("windowed", "planes", windowed), ("cmp", "planes_cmp", cmp),
-            ("whole_table", "planes",
+            ("whole_table", "planes_table" if M > K._WIN else "planes",
              lambda: K.assign_alleles_device(*tx, 10)),
             ("resident", "planes_resident", resident))
 
@@ -252,3 +253,114 @@ def test_cuda_affine_masked_matches_jax(tmp_path, cuda):
     torch.cuda.synchronize()
     assert K.LAUNCHES["affine_masked"] == before + 1
     _assert_same_hits(got.cpu().numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the sharded step's kernels: band_counts (csrc/mesh.cu), binom_cdf and
+# conflict_prune (csrc/stats.cu)
+# ---------------------------------------------------------------------------
+
+def _planes_with_repeats(N, L, M, seed):
+    """(vidx, allele) planes with rows in no order, a variant repeated
+    inside every row and 30% non-hits (vidx -1, allele 3)."""
+    rng = np.random.default_rng(seed)
+    vidx = rng.integers(0, M, (N, L)).astype(np.int32)
+    vidx[:, 5] = vidx[:, 2]
+    allele = rng.integers(0, 3, (N, L)).astype(np.int32)
+    miss = rng.random((N, L)) < 0.3
+    vidx[miss], allele[miss] = -1, 3
+    return vidx, allele
+
+
+@pytest.mark.parametrize("shape", [(3001, 100, 500, 8), (517, 1000, 4000, 8),
+                                   (2048, 128, 300, 3), (1000, 64, 50, 0)])
+def test_band_counts_kernel_matches_plain(cuda, shape):
+    """band_counts on the card == its plain version (integers, tolerance 0):
+    an L that is no multiple of 32, an L that takes fewer warps a block,
+    band 0 (counts alone); one launch counted."""
+    from phaser_tpu_torch.dist import mesh as TM
+    N, L, M, band = shape
+    vidx, allele = _planes_with_repeats(N, L, M, seed=N)
+    want = TM.band_counts(_t(vidx), _t(allele), M, band)
+    before = TM.LAUNCHES["band_counts"]
+    got = TM.band_counts(_t(vidx, cuda), _t(allele, cuda), M, band)
+    torch.cuda.synchronize()
+    assert TM.LAUNCHES["band_counts"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.device.type == "cuda"
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert int(want[0].sum()) > 0
+
+
+def test_sharded_step_on_the_card_matches_cpu(cuda):
+    """sharded_phasing_step on a 2-shard mesh on the card == on the CPU
+    (scaling_bench's dense layout): counts, pair and scores equal, prune
+    equal; the path launched planes_table, band_counts and
+    conflict_prune."""
+    from phaser_tpu_torch.dist import mesh as TM
+    from phaser_tpu_torch.dist.scaling_bench import _gen
+    from phaser_tpu_torch.kernels import stats as S
+    args = _gen(4096, 128, 2048)
+    want = TM.sharded_phasing_step(TM.make_mesh(2, device="cpu"), *args, 10)
+    K.reset_launches()
+    TM.reset_launches()
+    S.reset_launches()
+    got = TM.sharded_phasing_step(TM.make_mesh(2, device=cuda), *args, 10)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["planes_table"] == 2
+    assert TM.LAUNCHES["band_counts"] == 2
+    assert S.LAUNCHES["conflict_prune"] == 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert int(want[1].sum()) > 0 and 0 < int(want[2].sum())
+
+
+def test_binom_cdf_kernel_matches_plain(cuda):
+    """binom_cdf on the card == its plain version on the same CUDA tensors
+    within 1e-12 (float64 both, one lgamma), and within 1e-10 of the plain
+    version on the CPU (whose lgamma differs in the last bits of terms that
+    reach 1e5 at n = 10,000), with the edge rules (k >= n, k < 0, p of 0
+    and 1, fractional k)."""
+    from phaser_tpu_torch.kernels import stats as S
+    rng = np.random.default_rng(3)
+    n = rng.integers(0, 10_000, 20_000).astype(np.float64)
+    k = np.floor(n * rng.random(20_000)) + rng.integers(-2, 3, 20_000)
+    k[::97] += 0.5
+    p = rng.uniform(0.0, 1.0, 20_000)
+    p[::101], p[::103] = 0.0, 1.0
+    on_cpu = S.binom_cdf(_t(k), _t(n), _t(p)).numpy()
+    want = S.binom_cdf_plain(_t(k, cuda), _t(n, cuda), _t(p, cuda))
+    before = S.LAUNCHES["binom_cdf"]
+    got = S.binom_cdf(_t(k, cuda), _t(n, cuda), _t(p, cuda))
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["binom_cdf"] == before + 1
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(got.cpu().numpy(), on_cpu, rtol=0, atol=1e-10)
+
+
+def test_conflict_prune_kernel_matches_plain(cuda):
+    """The fused conflict test on the card == its plain version: p within
+    1e-12, prune and uncertain equal (no p lies within 1e-12 of these
+    thresholds), the noise rate read from the card."""
+    from phaser_tpu_torch.kernels import stats as S
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 60, 50_000).astype(np.int32)
+    b = rng.integers(0, 12, 50_000).astype(np.int32)
+    o = rng.integers(0, 9, 50_000).astype(np.int32)
+    a[::11] = b[::11] = 0
+    o[::13] = 0
+    for thr in (0.01, 0.2):
+        want = S.prune_mask(_t(a), _t(b), _t(o), 0.0037, thr)
+        noise = torch.tensor(0.0037, dtype=torch.float64, device=cuda)
+        before = S.LAUNCHES["conflict_prune"]
+        got = S.prune_mask(_t(a, cuda), _t(b, cuda), _t(o, cuda), noise, thr)
+        torch.cuda.synchronize()
+        assert S.LAUNCHES["conflict_prune"] == before + 1
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                                   rtol=0, atol=1e-12)
+        for g, w in zip(got[1:], want[1:]):
+            assert g.dtype == torch.bool
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+        assert 0 < int(want[1].sum()) < len(a)

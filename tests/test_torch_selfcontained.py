@@ -255,6 +255,24 @@ def test_native_library_builds_once_for_concurrent_processes(tmp_path):
     assert left == ["libphaser_io.so", "libphaser_io.so.lock"], left
 
 
+def test_read_only_install_builds_into_the_cache(tmp_path):
+    """The package's _build/ cannot be made (its parent is a file, which
+    no user, root included, can create a directory under): the IO library
+    is built into $PHASER_TPU_TORCH_CACHE/build and loaded from there, and
+    the kernel library's path follows it."""
+    blocker = tmp_path / "package"
+    blocker.write_text("a file where the package directory would be")
+    code = ("from phaser_tpu_torch.utils import build\n"
+            "build.PKG_BUILD_DIR = %r\n" % str(blocker / "_build") + LOAD +
+            'print("KERNELS", build.LIB_PATH)\n')
+    out = _run(code, tmp_path)
+    cache = str(tmp_path / "cache" / "build")
+    assert "built=1" in out and ("path=%s/libphaser_io.so" % cache) in out
+    assert ("KERNELS %s/libphaser_kernels.so" % cache) in out
+    assert sorted(os.listdir(cache)) == ["libphaser_io.so",
+                                         "libphaser_io.so.lock"]
+
+
 def test_native_library_that_does_not_load_is_rebuilt(tmp_path):
     """A library file that is newer than the source but does not load (one
     carried over from another machine) is built again, not worked around."""
