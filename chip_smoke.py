@@ -90,16 +90,23 @@ Phases (any failure exits non-zero; nothing here imports jax):
      dist.mesh.sharded_phasing_step on a one-shard mesh on the card, with
      the connection tests' p-values of its merged band
      (connection_p_values), at one shard's full width: 262,144 rows x 128
-     bases on three inputs, phase 3's reads with its 100,000-het table,
+     bases on four inputs, phase 3's reads with its 100,000-het table,
      scaling_bench._gen's dense layout (a variant about every 8 bp) over
-     100,000 variants, and phase 6's first contig; counts zeroed just
-     before each run and read just after, every step kernel launched; the
-     first 4,096 rows of each against dist/dryrun.py's numpy and scipy
-     recomputations (counts, band, scores equal, p-values within 1e-10,
-     prune equal); each step kernel (planes_table, band_counts,
-     conflict_prune, binom_cdf) against its plain version on the step's
-     own tensors (max_abs_err 0 for the integer kernels, <= 1e-12 for the
-     float64 ones, prune equal) and timed; (b) dryrun.dryrun_multichip(4,
+     100,000 variants with its rows in random order ("dense") and sorted
+     by start ("dense_sorted", as a BAM-sorted shard arrives), and phase
+     6's first contig; counts zeroed just before each run and read just
+     after, every step kernel launched; the first 4,096 rows of each
+     against dist/dryrun.py's numpy and scipy recomputations (counts,
+     band, scores equal, p-values within 1e-10, prune equal); each step
+     kernel (planes_table, band_counts, the connection-test tail
+     band_prune, binom_cdf) against its plain version on the step's own
+     tensors (max_abs_err 0 for the integer kernels, <= 1e-12 for the
+     float64 ones, prune and uncertain equal), prune_mask's route through
+     the same test body too, all timed; band_counts' blocks that took
+     their shared-memory window (some on dense_sorted, none on dense);
+     the tail before (band_configs, noise_from_counts, prune_mask) and
+     after (band_prune) in turns, by CUDA events and by the profiler's
+     device activities a call (band_prune at most 2); (b) dryrun.dryrun_multichip(4,
      "cuda"); (c) two `python -m phaser_tpu_torch.dist.multihost --device
      cuda` ranks over Gloo on phase 6's fixture, their counts equal to one
      process's; (d) `python -m phaser_tpu_torch.dist.scaling_bench
@@ -117,9 +124,13 @@ enqueue as fast as the card runs), as in every earlier record.  `device_ms`
 is what one call keeps the card busy (torch.profiler's device time of the
 __global__ function plus the launcher's buffer fills), `kernel_ms` the
 __global__ function alone, `profiles` how many profiler windows it took to
-see the function (1 unless a window came back without device records; one
-discarded window with a launch in it precedes the first measured one).
-`plain_ms` is event-timed.  The share of bound
+see the function in a whole window (each window profiles its calls as the
+active step after a discarded warm-up step of the same calls, and is whole
+when its device records equal the runtime's enqueues: late in a long
+process a window has come back short of its first device records), and
+`whole` whether the window it was read from was whole (after five windows
+the last one that saw the function; phase 9 fails when a step kernel's or
+the tail's window is not whole).  `plain_ms` is event-timed.  The share of bound
 is taken against `ms`.
 
 Each kernel's `bound_ms` is the larger of the bytes this run's inputs need
@@ -135,7 +146,8 @@ the launch's windows), and the line printed before the record also gives
 the "every input byte once" figure.  The step kernels' bounds: for
 band_counts the planes read once (8 B a base) and the counts and band
 written once, or a test per base and per ordered hit pair; for
-conflict_prune and binom_cdf their inputs and outputs once, or the float64
+conflict_prune (the tail, band_prune: the counts and the band read, p and
+two flags written) and binom_cdf their inputs and outputs once, or the float64
 operations of the fraction terms these inputs actually take over 34 T/s
 (the card's float64 rate outside the tensor cores).  `library_ms` is
 null throughout: no single PyTorch call classifies bases against the table
@@ -168,6 +180,9 @@ REPLACES = {  # the TPU program each kernel (or kernel mode) replaces
     # the sharded step's programs (jnp inside phaser_tpu's shard_map step)
     "planes_table": "phaser_tpu/kernels/alleles.py:33",
     "band_counts": "phaser_tpu/dist/mesh.py:83",
+    # since the tail's redesign: band_prune, which also replaces
+    # noise_from_counts (:75) and the band's configurations
+    # (phaser_tpu/dist/mesh.py:111)
     "conflict_prune": "phaser_tpu/kernels/stats.py:46",
     "binom_cdf": "phaser_tpu/kernels/stats.py:32",
 }
@@ -189,7 +204,8 @@ STEP_BAND, STEP_THRESHOLD = 8, 0.01
 STEP_RECORD = {"planes_table": "chromosome", "band_counts": "dense",
                "conflict_prune": "e2e", "binom_cdf": "e2e"}
 STEP_TOL = {"planes_table": 0, "band_counts": 0, "conflict_prune": 1e-12,
-            "binom_cdf": 1e-12}
+            "prune_mask": 1e-12, "binom_cdf": 1e-12}
+TAIL_MAX_LAUNCHES = 2        # band_prune's device activities a call
 SUFFIXES = (".allelic_counts.txt", ".variant_connections.txt",
             ".allele_config.txt", ".haplotypes.txt",
             ".haplotypic_counts.txt", ".vcf.gz")
@@ -299,54 +315,69 @@ KERNEL_FN = {  # the __global__ function behind each kernel entry
     "planes_cmp": "planes_cmp_kernel",
     "planes_table": "planes_table_kernel",  # the whole-table mode of planes
     "band_counts": "band_counts_kernel",
-    "conflict_prune": "conflict_prune_kernel",
+    # the tail (band_prune): the noise sums, then the test on the band
+    "conflict_prune": ("noise_partials_kernel", "conflict_test_kernel"),
+    "prune_mask": "conflict_test_kernel",   # the same test on three arrays
     "binom_cdf": "binom_cdf_kernel"}
 _profiler_warm = False
 
 
 def device_ms(name, fn, iters=20):
-    """(device ms, kernel ms, profiles) per call from torch.profiler: the
-    device time of the kernel's __global__ function plus the launcher's
-    memsets, of the function alone, and how many profiles it took to see
-    the function (a profile now and then comes back without its device
-    records; the count goes into the kernels' record); None when three
-    profiles report no device time for it."""
+    """(device ms, kernel ms, profiles, whole) per call from torch.profiler:
+    the device time of the kernel's __global__ function plus the launcher's
+    memsets, of the function alone, how many windows it took to see the
+    function in a whole one (utils/trace.profile_window), and whether that
+    window was whole (after PROFILE_TRIES windows the last one that saw the
+    function at all, whole False); the last two go into the kernels'
+    record.  None when no window saw the function."""
     global _profiler_warm
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from phaser_tpu_torch.utils.trace import PROFILE_TRIES, profile_window
+    fns = KERNEL_FN[name] if isinstance(KERNEL_FN[name], tuple) else \
+        (KERNEL_FN[name],)
     fn()
     torch.cuda.synchronize()
     if not _profiler_warm:
-        # the first window of a process has come back without device
-        # records: a discarded window with a launch in it comes first
+        # the first profile of a process comes back without device records
+        # now and then: one discarded window with a launch in it first
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]):
             fn()
             torch.cuda.synchronize()
         _profiler_warm = True
-    for attempt in (1, 2, 3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+    seen = None
+    for attempt in range(1, PROFILE_TRIES + 1):
+        avgs, device, runtime = profile_window(fn, iters)
         kernel_us = fill_us = 0.0
         keys = []
-        for e in prof.key_averages():
+        for e in avgs:
             d = getattr(e, "self_device_time_total",
                         getattr(e, "self_cuda_time_total", 0))
-            if KERNEL_FN[name] in e.key:
+            if any(f in e.key for f in fns):
                 kernel_us += d
             elif "memset" in e.key.lower():
                 fill_us += d
             if d:
                 keys.append(e.key[:60])
         if kernel_us:
-            return ((kernel_us + fill_us) / iters / 1e3,
-                    kernel_us / iters / 1e3, attempt)
-        print("   profile without %s; device records: %s"
-              % (KERNEL_FN[name], keys), flush=True)
-    return None
+            seen = ((kernel_us + fill_us) / iters / 1e3,
+                    kernel_us / iters / 1e3, attempt, device == runtime)
+            if seen[3]:
+                return seen
+        print("   profile of %s not whole (%d device records, %d runtime "
+              "enqueues); device records: %s"
+              % (KERNEL_FN[name], device, runtime, keys[:8]), flush=True)
+    return seen
+
+
+def device_all(fn, iters=20):
+    """utils/trace.device_activity: (card ms, device activities, whole) a
+    call of fn, every kernel, fill and copy it enqueues."""
+    from phaser_tpu_torch.utils.trace import device_activity
+    return device_activity(fn, iters, log=lambda line: print(
+        "   tail " + line, flush=True))
 
 
 def kernel_vs_plain(name, kernel, plain, n_rows):
@@ -1715,10 +1746,14 @@ def downstream_phase(tmp, fx, smi):
 def step_kernels_vs_plain(name, args, step, smi, device):
     """The four kernels of the sharded step against their plain versions
     on the step's own tensors (one input set of phase 9): planes_table on
-    the step's read planes, band_counts on the planes it returned, and
-    conflict_prune and binom_cdf on the merged band.  Returns {kernel:
-    (max_abs_err, ms, plain_ms, (device_ms, kernel_ms, profiles))} and
-    {kernel: (bound_ms, bound_by)}."""
+    the step's read planes, band_counts on the planes it returned (and
+    its blocks that took the shared-memory window), the connection-test
+    tail band_prune ("conflict_prune": two kernels), prune_mask's route
+    through the same test body and binom_cdf on the merged band; then the
+    tail before (the three calls) and after (band_prune) in turns.
+    Returns {kernel: (max_abs_err, ms, plain_ms, (device_ms, kernel_ms,
+    profiles, whole))}, {kernel: (bound_ms, bound_by)} and the tail's and the
+    window's numbers."""
     import numpy as np
     import torch
     from phaser_tpu_torch.dist import mesh as TM
@@ -1733,7 +1768,7 @@ def step_kernels_vs_plain(name, args, step, smi, device):
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     counts, pair = step[0], step[1]
     vidx, allele = K.assign_alleles_device(*t, 10)
-    cfg = TM.band_configs(pair)
+    cfg = S.band_configs(pair)
     noise = S.noise_from_counts(counts)
     sup, total, p_success = S._conflict_args(*cfg, noise)
 
@@ -1746,8 +1781,8 @@ def step_kernels_vs_plain(name, args, step, smi, device):
 
     def prune_err(got, want):
         check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-              "conflict_prune: prune or uncertain differ from the plain "
-              "version's")
+              "the connection test: prune or uncertain differ from the "
+              "plain version's")
         return float((got[0] - want[0]).abs().max())
 
     def cdf_err(got, want):
@@ -1759,10 +1794,14 @@ def step_kernels_vs_plain(name, args, step, smi, device):
         "band_counts": (lambda: TM.band_counts(vidx, allele, M, STEP_BAND),
                         lambda: TM.band_counts_plain(vidx, allele, M,
                                                      STEP_BAND), bc_err),
-        "conflict_prune": (lambda: S.prune_mask(*cfg, noise, STEP_THRESHOLD),
-                           lambda: S.conflict_prune_plain(*cfg, noise,
-                                                          STEP_THRESHOLD),
+        "conflict_prune": (lambda: S.band_prune(counts, pair, STEP_THRESHOLD),
+                           lambda: S.band_prune_plain(counts, pair,
+                                                      STEP_THRESHOLD),
                            prune_err),
+        "prune_mask": (lambda: S.prune_mask(*cfg, noise, STEP_THRESHOLD),
+                       lambda: S.conflict_prune_plain(*cfg, noise,
+                                                      STEP_THRESHOLD),
+                       prune_err),
         "binom_cdf": (lambda: S.binom_cdf(sup, total, p_success),
                       lambda: S.binom_cdf_plain(sup, total, p_success),
                       cdf_err),
@@ -1781,7 +1820,34 @@ def step_kernels_vs_plain(name, args, step, smi, device):
         on_card = device_ms(kname, kernel)
         check(on_card is not None, "%s: the profiler saw no launch of %s"
               % (kname, KERNEL_FN[kname]))
+        check(on_card[3], "%s: no profiler window of %d came back whole"
+              % (kname, on_card[2]))
         results[kname] = (err, (k1 + k2) / 2, (p1 + p2) / 2, on_card)
+
+    # band_counts' blocks, and those that added in their window
+    TM.reset_launches()
+    TM.band_counts(vidx, allele, M, STEP_BAND)
+    window = TM.read_stats()
+    # the tail before and after, in turns: CUDA events around the calls,
+    # the profiler's device activities of a call
+    three = lambda: S.prune_mask(*S.band_configs(pair),  # noqa: E731
+                                 S.noise_from_counts(counts), STEP_THRESHOLD)
+    after = lambda: S.band_prune(counts, pair, STEP_THRESHOLD)  # noqa: E731
+    t_before = [time_ms(three, 20)]
+    t_after = [time_ms(after, 20), time_ms(after, 20)]
+    t_before.append(time_ms(three, 20))
+    card_before, card_after = device_all(three), device_all(after)
+    check(card_before is not None and card_after is not None,
+          "the profiler saw no device activity of the tail")
+    check(card_before[2] and card_after[2], "no whole profiler window of "
+          "the tail, before (%s) or after (%s)" % (card_before[2],
+                                                   card_after[2]))
+    check(card_after[1] <= TAIL_MAX_LAUNCHES, "band_prune took %g device "
+          "activities a call, over %d" % (card_after[1], TAIL_MAX_LAUNCHES))
+    tail = {"before_ms": sum(t_before) / 2, "after_ms": sum(t_after) / 2,
+            "before_card_ms": card_before[0],
+            "before_launches": card_before[1],
+            "after_card_ms": card_after[0], "after_launches": card_after[1]}
 
     # bounds from this input: bytes each input read once and each output
     # written once; operations as these inputs need them
@@ -1800,29 +1866,44 @@ def step_kernels_vs_plain(name, args, step, smi, device):
         # a test per base and per ordered hit pair of a row
         "band_counts": bound_of(N * L * 8 + M * 12 + M * STEP_BAND * 36,
                                 N * L * 2 + int((per_row ** 2).sum())),
-        # three int32 counts and the noise read, p and two flags written;
+        # the tail: the counts and the band read, p and two flags written;
         # float64 operations of the fractions these pairs take
         "conflict_prune": fp64_bound(
+            M * 12 + n_pairs * (36 + 10), int(c_terms.sum()) *
+            BETACF_TERM_FLOPS + int((c_terms > 0).sum()) *
+            BETACF_SETUP_FLOPS),
+        # three int32 counts and the noise read, p and two flags written
+        "prune_mask": fp64_bound(
             n_pairs * 22 + 8, int(c_terms.sum()) * BETACF_TERM_FLOPS +
             int((c_terms > 0).sum()) * BETACF_SETUP_FLOPS),
         "binom_cdf": fp64_bound(
             n_pairs * 32, int(b_terms.sum()) * BETACF_TERM_FLOPS +
             int((b_terms > 0).sum()) * BETACF_SETUP_FLOPS),
     }
-    for kname, (err, ms, plain_ms, (dev_ms, kernel_ms, _)) in \
+    for kname, (err, ms, plain_ms, (dev_ms, kernel_ms, _, _)) in \
             results.items():
         print("   [%s] %-14s max_abs_err %g  wrapper call %.4f ms; on the "
               "card %.4f ms, kernel alone %.4f ms   plain %.4f ms   bound "
-              "%.4f ms (%s)   on %s"
+              "%.4f ms (%s), %.1f%% of the time on the card   on %s"
               % (name, kname, err, ms, dev_ms, kernel_ms, plain_ms,
-                 bounds[kname][0], bounds[kname][1], smi), flush=True)
+                 bounds[kname][0], bounds[kname][1],
+                 100.0 * bounds[kname][0] / dev_ms, smi), flush=True)
+    print("   [%s] band_counts: %d blocks, %d took the shared-memory window"
+          % (name, window["blocks"], window["window_blocks"]), flush=True)
+    print("   [%s] the tail, before (band_configs + noise_from_counts + "
+          "prune_mask): call %.4f ms, on the card %.4f ms in %g device "
+          "activities; after (band_prune): call %.4f ms, on the card %.4f "
+          "ms in %g; whole profiler windows; on %s"
+          % (name, tail["before_ms"], tail["before_card_ms"],
+             tail["before_launches"], tail["after_ms"],
+             tail["after_card_ms"], tail["after_launches"], smi), flush=True)
     print("   [%s] %d x %d bases, M %d: %d hits, %d pairs in the band, %d "
           "pairs with support, fraction terms: conflict_prune %d (max %d), "
           "binom_cdf %d (max %d)"
           % (name, N, L, M, int(hits.sum()), int(pair.sum()),
              int((sup > 0).sum()), int(c_terms.sum()), int(c_terms.max()),
              int(b_terms.sum()), int(b_terms.max())), flush=True)
-    return results, bounds
+    return results, bounds, tail, window
 
 
 def step_subset_vs_host(args, device):
@@ -1855,7 +1936,8 @@ def step_subset_vs_host(args, device):
 
 def sharded_step_phase(step_input, fx, smi, device):
     """Phase 9 (see the module docstring).  Returns the four step kernels'
-    (results, bounds, launches on the step path)."""
+    (results, bounds, launches on the step path, extra keys of their
+    records: band_counts' window blocks, the tail before and after)."""
     import numpy as np
     import torch
     from phaser_tpu_torch.dist import dryrun
@@ -1868,15 +1950,19 @@ def sharded_step_phase(step_input, fx, smi, device):
     from phaser_tpu_torch.io import bam as bamio
     from phaser_tpu_torch.kernels.alleles import pack_reads
     bd = bamio.read_bam(fx["bam"])
+    dense = _gen(STEP_ROWS, 128, CHROM_HETS)
+    by_start = np.argsort(dense[2][:, 0], kind="stable")
     inputs = {"chromosome": step_input,
-              "dense": _gen(STEP_ROWS, 128, CHROM_HETS),
+              "dense": dense,
+              "dense_sorted": tuple(a[by_start] for a in dense[:3]) +
+              dense[3:],
               "e2e": pack_reads(bd, rows=np.flatnonzero(
                   bd.refid == 0)[:STEP_ROWS]) + multihost.device_table(
                       fx["vcf"], fx["sample"], "")}
     del bd
     mesh = TM.make_mesh(1, device=device)
     launches = dict.fromkeys(STEP_KERNELS, 0)
-    results, bounds = {}, {}
+    results, bounds, extra = {}, {}, {}
     for name, args in inputs.items():
         # (a) the step and its connection p-values, launches counted from 0
         K.reset_launches()
@@ -1910,10 +1996,22 @@ def sharded_step_phase(step_input, fx, smi, device):
               "pairs, %d pruned equal; p-values within %.2e of scipy"
               % (name, STEP_CHECK_ROWS, n_hits, n_pairs, n_pruned, gap),
               flush=True)
-        res, bnd = step_kernels_vs_plain(name, args, step, smi, device)
+        res, bnd, tail, window = step_kernels_vs_plain(name, args, step, smi,
+                                                       device)
+        if name == "dense_sorted":
+            check(window["window_blocks"] > 0, "no band_counts block took "
+                  "its shared-memory window on position-sorted rows")
+        if name == "dense":
+            check(window["window_blocks"] == 0, "band_counts blocks took "
+                  "the window on rows in random order")
         for kname in STEP_KERNELS:
             if STEP_RECORD[kname] == name:
                 results[kname], bounds[kname] = res[kname], bnd[kname]
+        if STEP_RECORD["band_counts"] == name:
+            extra["band_counts"] = {"window_blocks": window["window_blocks"],
+                                    "blocks": window["blocks"]}
+        if STEP_RECORD["conflict_prune"] == name:
+            extra["conflict_prune"] = tail
         del step, p, counts, pair, prune, scores
         torch.cuda.synchronize()
     check(min(launches.values()) > 0,
@@ -1966,7 +2064,7 @@ def sharded_step_phase(step_input, fx, smi, device):
           "--reads-per-device %d: wall %.3f s on %s" %
           (device, STEP_ROWS, time.perf_counter() - t0, smi), flush=True)
     print("   " + line, flush=True)
-    return results, bounds, launches
+    return results, bounds, launches, extra
 
 
 def main() -> int:
@@ -2051,8 +2149,8 @@ def main() -> int:
 
         phase(9, "sharded step and multi-process scaffolding")
         t0 = time.perf_counter()
-        step_results, step_bounds, step_launches = sharded_step_phase(
-            step_input, fixture, smi, "cuda")
+        step_results, step_bounds, step_launches, step_extra = \
+            sharded_step_phase(step_input, fixture, smi, "cuda")
         results.update(step_results)
         bounds.update(step_bounds)
         launches.update(step_launches)
@@ -2070,8 +2168,8 @@ def main() -> int:
           "bound ms (by)  share of bound (of the time on the card)  "
           "launches: 5M-read call / 1M-read e2e, or on phase 9's step path"
           "   [%s]" % smi)
-    for name, (err, ms, plain_ms, (dev_ms, kernel_ms, profiles)) in \
-            results.items():
+    for name, (err, ms, plain_ms, (dev_ms, kernel_ms, profiles, whole)) \
+            in results.items():
         bound_ms, bound_by = bounds[name][:2]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -2079,7 +2177,8 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "device_ms": dev_ms, "kernel_ms": kernel_ms,
-            "profiles": profiles})
+            "profiles": profiles, "whole": whole,
+            **step_extra.get(name, {})})
         line = ("   %-15s %.4f (%.4f, %.4f)  %.4f  %.4f (%s)  %.1f%% (%.1f%%)  "
                 % (name, ms, dev_ms, kernel_ms, plain_ms, bound_ms, bound_by,
                    100.0 * bound_ms / ms, 100.0 * bound_ms / dev_ms))

@@ -16,21 +16,22 @@ program, so a `Mesh` names how the shards run:
   and the int32 counts go through host memory for the collective.  Integer
   sums are exact, so the merge is exact either way.
 
-A shard's counts come from two kernels: `assign_alleles_device` (the
-planes kernel in its whole-table mode, kernels/alleles.py) and
-`band_counts` (csrc/mesh.cu `band_counts_kernel`), which replaces the jnp
-scatter-adds of the JAX shard body and never forms its (N, L, L) pair grid.
-After the merge the connection tests stay on the card
-(kernels/stats.py: `noise_from_counts`, then the fused `conflict_prune`
-kernel), and the phase configurations of the first `score_block` variants
-are scored by kernels/phasescore.py.  `connection_p_values` gives the
-tests' p-values themselves (the `binom_cdf` kernel).  On CPU tensors every
-kernel runs its plain version.
+A shard's counts come from two kernels: `assign_alleles_device` (the planes
+kernel in its whole-table mode, kernels/alleles.py) and `band_counts`
+(csrc/mesh.cu `band_counts_kernel`), which replaces the jnp scatter-adds of
+the JAX shard body and never forms its (N, L, L) pair grid.  After the merge
+the connection tests stay on the card (kernels/stats.py `band_prune`: the
+noise rate and the tests of the merged band in two launches), and the phase
+configurations of the first `score_block` variants are scored by
+kernels/phasescore.py.  `connection_p_values` gives the tests' p-values
+themselves (the `binom_cdf` kernel).  On CPU tensors every kernel runs its
+plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -42,11 +43,41 @@ from ..utils.counters import bump
 
 # kernel launches of band_counts (CUDA launches only)
 LAUNCHES = {"band_counts": 0}
+# band_counts' blocks (CUDA launches only): all of them, and those that
+# added in their shared-memory window (read_stats folds in the card's count)
+STATS = {"blocks": 0, "window_blocks": 0}
 PLAIN_CHUNK_ELEMENTS = 1 << 26   # (rows, L, L) elements a plain chunk forms
+MAX_ROW_BASES = 6144             # the kernel's shared-memory row
+_WINDOW_BLOCKS = {}              # device -> int32 (1,) the kernel adds to
+_window_lock = threading.Lock()
 
 
 def reset_launches() -> None:
+    """Zeroes LAUNCHES and STATS (and the card's window-block counts)."""
     LAUNCHES["band_counts"] = 0
+    with _window_lock:
+        for k in STATS:
+            STATS[k] = 0
+        for t in _WINDOW_BLOCKS.values():
+            t.zero_()
+
+
+def read_stats() -> dict:
+    """STATS with the blocks that took the window on each card added in
+    (a read of the card, so it waits for the launches before it)."""
+    with _window_lock:
+        for t in _WINDOW_BLOCKS.values():
+            STATS["window_blocks"] += int(t.item())
+            t.zero_()
+        return dict(STATS)
+
+
+def _window_counter(dev: torch.device) -> torch.Tensor:
+    with _window_lock:
+        if dev not in _WINDOW_BLOCKS:
+            _WINDOW_BLOCKS[dev] = torch.zeros(1, dtype=torch.int32,
+                                              device=dev)
+        return _WINDOW_BLOCKS[dev]
 
 
 @dataclass(frozen=True)
@@ -160,8 +191,9 @@ def band_counts(vidx: torch.Tensor, allele: torch.Tensor, n_vars: int,
     """A shard's (n_vars, 3) allele counts and (n_vars, band, 9) pair
     counts, both int32, from its (N, L) int32 vidx / allele planes
     (assign_alleles_device's outputs).  band = 0 gives the counts alone.
-    On CUDA tensors the band_counts kernel; on CPU tensors its plain
-    version."""
+    On CUDA tensors the band_counts kernel (STATS counts its blocks, and
+    those that added in their shared-memory window); on CPU tensors its
+    plain version."""
     dev = vidx.device
     if vidx.dim() != 2 or vidx.shape != allele.shape:
         raise ValueError("vidx %s and allele %s must be (N, L) planes of one "
@@ -182,18 +214,21 @@ def band_counts(vidx: torch.Tensor, allele: torch.Tensor, n_vars: int,
     if N * L >= (1 << 31) or n_vars * max(band, 1) * 9 >= (1 << 31):
         raise ValueError("planes of %d x %d or %d variants x band %d exceed "
                          "the kernel's int32 indexing" % (N, L, n_vars, band))
-    if L > 6144:
+    if L > MAX_ROW_BASES:
         raise ValueError("rows of %d bases exceed the kernel's shared-memory "
-                         "row (6,144 bases)" % L)
+                         "row (%d bases)" % (L, MAX_ROW_BASES))
     P, I = ctypes.c_void_p, ctypes.c_int
     counts = torch.empty((n_vars, 3), dtype=torch.int32, device=dev)
     pair = torch.empty((n_vars, band, 9), dtype=torch.int32, device=dev)
     v, a = vidx.contiguous(), allele.contiguous()
-    build.launch("band_counts_launch", [P, P, I, I, I, I, P, P, P],
+    blocks = ctypes.c_int(0)
+    build.launch("band_counts_launch", [P, P, I, I, I, I, P, P, P, P, P],
                  (v.data_ptr(), a.data_ptr(), N, L, n_vars, band,
                   counts.data_ptr(), pair.data_ptr(),
+                  _window_counter(dev).data_ptr(), ctypes.addressof(blocks),
                   torch.cuda.current_stream(dev).cuda_stream))
     bump(LAUNCHES, "band_counts")
+    bump(STATS, "blocks", blocks.value)
     return counts, pair
 
 
@@ -250,23 +285,14 @@ def _sharded_counts(mesh: Mesh, inputs, baseq: int, band: int):
     return counts, pair
 
 
-def band_configs(pair: torch.Tensor):
-    """(cis, trans, other) support of every banded pair: configurations
-    0+4, 1+3 and the other five (phaser_tpu dist/mesh.py:111-114)."""
-    cfg_a = pair[:, :, 0] + pair[:, :, 4]
-    cfg_b = pair[:, :, 1] + pair[:, :, 3]
-    other = (pair[:, :, 2] + pair[:, :, 5] + pair[:, :, 6] +
-             pair[:, :, 7] + pair[:, :, 8])
-    return cfg_a, cfg_b, other
-
-
 def connection_p_values(counts: torch.Tensor, pair: torch.Tensor
                         ) -> torch.Tensor:
     """(M, band) float64 p-values of the connection tests on merged counts
     (the column variant_connections.txt prints), on the tensors' device:
     the noise rate, then conflicting_config_p (the binom_cdf kernel on the
     card)."""
-    from ..kernels.stats import conflicting_config_p, noise_from_counts
+    from ..kernels.stats import (band_configs, conflicting_config_p,
+                                 noise_from_counts)
     return conflicting_config_p(*band_configs(pair),
                                 noise_from_counts(counts))
 
@@ -280,7 +306,7 @@ def sharded_phasing_step(mesh: Mesh, codes, quals, refpos, vpos, ind_codes,
       banded pair-configuration counts (variant pairs within `band` table
       entries, a dense (M, band, 9) band) -> summed over the shards ->
       on the card: the global noise estimate from the merged counts, the
-      banded connection tests and pruning (kernels/stats.py) -> the
+      banded connection tests and pruning (kernels/stats.py band_prune) -> the
       2^(K-1) phase-configuration scores of the first K = `score_block`
       variants.
 
@@ -291,13 +317,12 @@ def sharded_phasing_step(mesh: Mesh, codes, quals, refpos, vpos, ind_codes,
     pair (M, band, 9) int32, prune (M, band) bool, scores (2^(K-1),)
     float64), all on the mesh's device and equal on every rank."""
     from ..kernels.phasescore import enumerate_scores
-    from ..kernels.stats import noise_from_counts, prune_mask
+    from ..kernels.stats import band_prune
 
     inputs = _step_inputs(mesh, codes, quals, refpos, vpos, ind_codes, n_ind)
     counts, pair = _sharded_counts(mesh, inputs, baseq, band)
 
-    _, prune, _ = prune_mask(*band_configs(pair), noise_from_counts(counts),
-                             cc_threshold)
+    _, prune, _ = band_prune(counts, pair, cc_threshold)
 
     # a cis-support allele adjacency of the first K variants from the merged
     # band (dryrun._host_scores rebuilds it on the host)

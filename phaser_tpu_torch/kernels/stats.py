@@ -11,20 +11,22 @@ Here it is float64 throughout, within 1e-10 of scipy for n up to 10,000:
 the card's float64 costs nothing at (M, band) sizes.
 
 Where it runs: dist.mesh.sharded_phasing_step, after the shards' counts are
-merged: the noise estimate, the banded connection tests and the pruning
-stay on the card.  The engine's host path keeps scipy (variant_connections
-prints every p at full precision), as in phaser_tpu.
+merged: band_prune takes the noise estimate, the banded connection tests and
+the pruning on the card in two launches.  The engine's host path keeps scipy
+(variant_connections prints every p at full precision), as in phaser_tpu.
 
-On CUDA tensors binom_cdf and prune_mask launch the hand kernels of
-csrc/stats.cu (`binom_cdf_kernel`, the fused `conflict_prune_kernel`); on
-CPU tensors they run the plain versions below, which carry out the same
-recurrence with the same constants.  torch has no incomplete beta: the
-plain version is the modified Lentz evaluation of the continued fraction
-(Numerical Recipes' betacf), vectorized with a convergence mask per
-element, with the symmetry switch at x > (a+1)/(a+b+2) and the prefactor
-from torch.lgamma.  The fraction needs O(sqrt(max(a, b))) terms there:
-at most 110 for n = 10,000 and 237 for n = 100,000 (k at the mean, where
-it is longest), so BETACF_MAX_ITER = 1000 holds n up to about 800,000.
+On CUDA tensors binom_cdf, prune_mask and band_prune launch the hand kernels
+of csrc/stats.cu (`binom_cdf_kernel`; the fused `conflict_test_kernel`,
+which band_prune runs on the merged band after `noise_partials_kernel`: the
+step's whole connection-test tail in two launches); on CPU tensors they run
+the plain versions below, which carry out the same recurrence with the same
+constants.  torch has no incomplete beta: the plain version is the modified
+Lentz evaluation of the continued fraction (Numerical Recipes' betacf),
+vectorized with a convergence mask per element, with the symmetry switch at
+x > (a+1)/(a+b+2) and the prefactor from torch.lgamma.  The fraction needs
+O(sqrt(max(a, b))) terms there: at most 110 for n = 10,000 and 237 for n =
+100,000 (k at the mean, where it is longest), so BETACF_MAX_ITER = 1000
+holds n up to about 800,000.
 
 `uncertain` marks the pairs whose p lies within `refine_band` of the
 threshold, as in phaser_tpu; in float64 their decisions are exact too.
@@ -44,8 +46,11 @@ BETACF_MAX_ITER = 1000   # csrc/stats.cu kMaxIter
 BETACF_EPS = 1e-15       # kEps: a term's factor within this of 1 ends it
 BETACF_TINY = 1e-300     # kTiny: Lentz's guard against a zero denominator
 
-# kernel launches per wrapper (CUDA launches only; plain runs do not count)
+# kernel launches per wrapper (CUDA launches only; plain runs do not count);
+# "conflict_prune" counts the connection-test kernels: one a prune_mask
+# call, two a band_prune call
 LAUNCHES = {"binom_cdf": 0, "conflict_prune": 0}
+NOISE_PARTIALS = 128     # blocks of band_prune's noise sums, at most
 
 
 def reset_launches() -> None:
@@ -157,6 +162,25 @@ def conflict_prune_plain(config_a, config_b, other, noise_e,
     return p, p < threshold, (p - threshold).abs() < refine_band
 
 
+def band_configs(pair: torch.Tensor):
+    """(cis, trans, other) support of every pair of the merged (M, band, 9)
+    band: configurations 0+4, 1+3 and the other five (phaser_tpu
+    dist/mesh.py:111-114; band_prune's test body forms the same sums)."""
+    cfg_a = pair[:, :, 0] + pair[:, :, 4]
+    cfg_b = pair[:, :, 1] + pair[:, :, 3]
+    other = (pair[:, :, 2] + pair[:, :, 5] + pair[:, :, 6] +
+             pair[:, :, 7] + pair[:, :, 8])
+    return cfg_a, cfg_b, other
+
+
+def band_prune_plain(counts, pair, threshold: float,
+                     refine_band: float = 1e-3):
+    """The step's connection-test tail as three calls: the cis / trans /
+    other support of the band, the noise rate of the counts, the test."""
+    return conflict_prune_plain(*band_configs(pair), noise_from_counts(counts),
+                                threshold, refine_band)
+
+
 def binom_cdf_terms(k, n, p) -> torch.Tensor:
     """Continued-fraction terms binom_cdf takes per element (the
     operations of the kernel's bound)."""
@@ -226,10 +250,11 @@ def prune_mask(config_a: torch.Tensor, config_b: torch.Tensor,
     phaser.py:696-707).  Returns (p float64, prune = p < threshold,
     uncertain = |p - threshold| < refine_band).
 
-    On CUDA tensors the fused conflict_prune kernel: the three counts must
-    be int32 tensors of one shape, and noise_e a float64 tensor of one
-    element on the same card (noise_from_counts gives it there, so the
-    host never waits for it).  On CPU tensors any numeric types."""
+    On CUDA tensors the fused conflict test (band_prune's test body, on
+    three arrays): the three counts must be int32 tensors of one shape, and
+    noise_e a float64 tensor of one element on the same card
+    (noise_from_counts gives it there, so the host never waits for it).  On
+    CPU tensors any numeric types."""
     dev = config_a.device
     if not _on_cuda(dev):
         return conflict_prune_plain(config_a, config_b, other, noise_e,
@@ -262,6 +287,48 @@ def prune_mask(config_a: torch.Tensor, config_b: torch.Tensor,
                   float(refine_band), count, p.data_ptr(), prune.data_ptr(),
                   uncertain.data_ptr(), _stream(dev)))
     bump(LAUNCHES, "conflict_prune")
+    return p, prune, uncertain
+
+
+def band_prune(counts: torch.Tensor, pair: torch.Tensor, threshold: float,
+               refine_band: float = 1e-3):
+    """The sharded step's connection-test tail from the merged (M, 3) int32
+    counts and (M, band, 9) int32 band: (p float64, prune = p < threshold,
+    uncertain = |p - threshold| < refine_band), each (M, band), as
+    prune_mask(*band_configs(pair), noise_from_counts(counts), threshold)
+    gives them.  On CUDA tensors two launches (the noise rate's int64 sums,
+    then the test of every (v, d) on the band's 9 words); on CPU tensors
+    band_prune_plain."""
+    dev = counts.device
+    if not _on_cuda(dev):
+        return band_prune_plain(counts, pair, threshold, refine_band)
+    M = counts.shape[0]
+    if tuple(counts.shape) != (M, 3) or pair.dim() != 3 or \
+            pair.shape[0] != M or pair.shape[2] != 9:
+        raise ValueError("counts %s and pair %s must be (M, 3) and (M, band, "
+                         "9)" % (tuple(counts.shape), tuple(pair.shape)))
+    for name, t in (("counts", counts), ("pair", pair)):
+        if t.device != dev or t.dtype != torch.int32:
+            raise ValueError("%s must be int32 on %s, not %s on %s"
+                             % (name, dev, t.dtype, t.device))
+    band = pair.shape[1]
+    if M * band * 9 >= (1 << 31):
+        raise ValueError("a band of %d x %d exceeds int32 indexing"
+                         % (M, band))
+    c, b = counts.contiguous(), pair.contiguous()
+    partials = torch.empty(2 * NOISE_PARTIALS, dtype=torch.int64, device=dev)
+    p = torch.empty((M, band), dtype=torch.float64, device=dev)
+    prune = torch.empty((M, band), dtype=torch.bool, device=dev)
+    uncertain = torch.empty((M, band), dtype=torch.bool, device=dev)
+    launches = ctypes.c_int(0)
+    build.launch("band_prune_launch",
+                 [_P, _P, _I, _I, _D, _D, _P, _I, _P, _P, _P, _P, _P],
+                 (c.data_ptr(), b.data_ptr(), M, band, float(threshold),
+                  float(refine_band), partials.data_ptr(), NOISE_PARTIALS,
+                  p.data_ptr(), prune.data_ptr(), uncertain.data_ptr(),
+                  ctypes.addressof(launches), _stream(dev)))
+    if launches.value:
+        bump(LAUNCHES, "conflict_prune", launches.value)
     return p, prune, uncertain
 
 

@@ -245,3 +245,84 @@ def planes_layout(name: str, n_rows: int = 1000):
     ni = np.full(M, 2, np.int8)
     return (codes, quals, refpos.astype(np.int32), vpos.astype(np.int32), ind,
             ni)
+
+
+# ---------------------------------------------------------------------------
+# the sharded step's planes: inputs on which band_counts' design branches
+# ---------------------------------------------------------------------------
+
+BAND_NAMES = ["random_repeats", "descending_in_row", "sorted", "reversed",
+              "long_rows", "odd_length"]
+
+
+def _sorted_band_planes(rng, n_rows, l, spacing, span):
+    """Rows sorted by start, a variant every `spacing` bases of the
+    reference, 15% of them no hit, alleles at random."""
+    start = np.sort(rng.integers(0, span, n_rows))
+    pos = start[:, None] + np.arange(l)[None, :]
+    keep = (pos % spacing == 0) & (rng.random((n_rows, l)) >= 0.15)
+    vidx = np.where(keep, pos // spacing, -1).astype(np.int32)
+    allele = np.where(keep, rng.integers(0, 3, (n_rows, l)), 3
+                      ).astype(np.int32)
+    return vidx, allele, (span + l) // spacing + 1
+
+
+def band_planes(name: str):
+    """(vidx, allele) (N, L) int32 planes and the variant count M of one
+    of BAND_NAMES (non-hits vidx -1, allele 3):
+      random_repeats     rows in no order, a variant repeated inside every
+                         row, 30% non-hits (rows the forward walk refuses);
+      descending_in_row  sorted rows, every 5th one reversed along the row
+                         (its hit variants decrease) and every 7th with a
+                         variant repeated at two positions;
+      sorted             3,000 position-sorted rows over 3,000 variants: far
+                         more than one block's shared-memory window;
+      reversed           the same rows in reverse order (no block takes its
+                         window);
+      long_rows          4 sorted rows of 6,144 bases (the kernel's longest);
+      odd_length         sorted rows of 77 bases (no multiple of 32)."""
+    # the reversed rows are the sorted ones
+    rng = np.random.default_rng(sum(map(ord, "sorted" if name == "reversed"
+                                        else name)))
+    if name == "random_repeats":
+        N, L, M = 3001, 100, 500
+        vidx = rng.integers(0, M, (N, L)).astype(np.int32)
+        vidx[:, 5] = vidx[:, 2]
+        allele = rng.integers(0, 3, (N, L)).astype(np.int32)
+        miss = rng.random((N, L)) < 0.3
+        vidx[miss], allele[miss] = -1, 3
+        return vidx, allele, M
+    if name == "long_rows":
+        return _sorted_band_planes(rng, 4, 6144, 16, 20_000)
+    if name == "odd_length":
+        return _sorted_band_planes(rng, 2000, 77, 5, 12_000)
+    vidx, allele, M = _sorted_band_planes(rng, 3000, 128, 8, 24_000)
+    if name == "reversed":
+        return vidx[::-1].copy(), allele[::-1].copy(), M
+    if name == "descending_in_row":
+        vidx[::5] = vidx[::5, ::-1]
+        allele[::5] = allele[::5, ::-1]
+        rep = np.arange(1, len(vidx), 7)
+        for r in rep:
+            h = np.flatnonzero(vidx[r] >= 0)
+            if len(h) > 1:
+                vidx[r, h[-1]], allele[r, h[-1]] = vidx[r, h[0]], 1
+    elif name != "sorted":
+        raise ValueError("no band layout %r" % name)
+    return vidx, allele, M
+
+
+def band_tail(m: int, band: int, seed: int):
+    """Merged (m, 3) counts and (m, band, 9) band of int32 for the
+    connection-test tail: matches about 40 a variant and mismatches about
+    0.4 (a noise rate near 0.5%), cis support about 12 a pair beside a
+    little (0.15 each) of every configuration, so that the tests take
+    continued fractions and some pairs are pruned."""
+    rng = np.random.default_rng(seed)
+    counts = np.stack([rng.poisson(20, m), rng.poisson(20, m),
+                       rng.poisson(0.4, m)], axis=1).astype(np.int32)
+    pair = rng.poisson(0.15, (m, band, 9)).astype(np.int32)
+    pair[:, :, (0, 4)] += rng.poisson(6, (m, band, 2)).astype(np.int32)
+    counts[::97] = 0
+    pair[::89] = 0
+    return counts, pair

@@ -113,6 +113,68 @@ class DeviceClock:
         return seconds
 
 
+# torch.profiler windows: how many a measurement may take to come back whole,
+# and the runtime calls that enqueue work on the card, as the profiler names
+# them
+PROFILE_TRIES = 5
+RUNTIME_ENQUEUES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                    "cuLaunchKernel", "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
+def profile_window(fn, iters: int):
+    """(key averages of `iters` calls of fn, device records, runtime
+    enqueues) from one torch.profiler window of CPU and CUDA activities.
+    Late in a long process a window has come back short of its first two
+    dozen device records, so the calls are profiled as the active step of
+    a schedule whose warm-up step (the same calls, traced and discarded)
+    takes that loss; the window is whole when the two counts agree."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # the schedule's own step marker is a device record too: not the calls'
+    avgs = [e for e in prof.key_averages()
+            if not e.key.startswith("ProfilerStep")]
+    device = sum(e.count for e in avgs if e.device_type == DeviceType.CUDA)
+    runtime = sum(e.count for e in avgs if e.device_type != DeviceType.CUDA
+                  and e.key.startswith(RUNTIME_ENQUEUES))
+    return avgs, device, runtime
+
+
+def device_activity(fn, iters: int = 20, tries: int = PROFILE_TRIES,
+                    log=None):
+    """(card ms, device activities, whole) a call of fn from torch.profiler:
+    the device time of every kernel, fill and copy it enqueues, summed, and
+    their count, from the first whole window of `tries` (profile_window);
+    after them the last window that saw any activity, with whole False;
+    None when none did.  `log` receives a line for each window that is not
+    whole."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    seen = None
+    for _ in range(tries):
+        avgs, device, runtime = profile_window(fn, iters)
+        if device:
+            us = sum(e.device_time_total for e in avgs
+                     if e.device_type == DeviceType.CUDA)
+            seen = (us / iters / 1e3, device / iters, device == runtime)
+            if seen[2]:
+                return seen
+        if log is not None:
+            log("profile not whole (%d device records, %d runtime enqueues)"
+                % (device, runtime))
+    return seen
+
+
 @dataclass
 class StageStat:
     name: str

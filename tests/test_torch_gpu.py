@@ -292,11 +292,78 @@ def test_band_counts_kernel_matches_plain(cuda, shape):
     assert int(want[0].sum()) > 0
 
 
+@pytest.mark.parametrize("band", [0, 1, 8, 16])
+@pytest.mark.parametrize("name", layouts.BAND_NAMES)
+def test_band_counts_kernel_on_its_branches(cuda, name, band):
+    """band_counts on the card == its plain version (tolerance 0) on the
+    inputs its design branches on (testing/layouts.band_planes: rows whose
+    variants decrease, variants repeated in a row, sorted rows over many
+    shared-memory windows and the same rows reversed, rows of 6,144 bases
+    and of 77); one launch counted, and the blocks that took the window:
+    some on sorted rows (of 6,144 bases only at band 0: two such rows span
+    more variants than a wider band's window holds), none on reversed
+    rows."""
+    from phaser_tpu_torch.dist import mesh as TM
+    vidx, allele, M = layouts.band_planes(name)
+    want = TM.band_counts(_t(vidx), _t(allele), M, band)
+    TM.reset_launches()
+    got = TM.band_counts(_t(vidx, cuda), _t(allele, cuda), M, band)
+    stats = TM.read_stats()
+    assert TM.LAUNCHES["band_counts"] == 1 and stats["blocks"] > 0
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.device.type == "cuda"
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert int(want[0].sum()) > 0
+    if band:
+        assert int(want[1].sum()) > 0
+    if name in ("sorted", "descending_in_row", "odd_length") or \
+            (name == "long_rows" and band == 0):
+        assert stats["window_blocks"] > 0, stats
+    if name == "reversed":
+        assert stats["window_blocks"] == 0, stats
+
+
+@pytest.mark.parametrize("m", [7120, 100_000])
+def test_band_prune_matches_three_call_tail(cuda, m):
+    """band_prune on the card == the three calls it replaces (band_configs,
+    noise_from_counts, prune_mask's plain version) on the same CUDA
+    tensors: p within 1e-12, prune and uncertain equal; two launches
+    counted; and equal to the tail on the CPU."""
+    from phaser_tpu_torch.kernels import stats as S
+    counts, pair = layouts.band_tail(m, 8, seed=m)
+    c, b = _t(counts, cuda), _t(pair, cuda)
+    want = S.conflict_prune_plain(*S.band_configs(b),
+                                  S.noise_from_counts(c), 0.01)
+    on_cpu = S.band_prune(_t(counts), _t(pair), 0.01)
+    before = S.LAUNCHES["conflict_prune"]
+    got = S.band_prune(c, b, 0.01)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["conflict_prune"] == before + 2
+    assert got[0].dtype == torch.float64 and tuple(got[0].shape) == (m, 8)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=0, atol=1e-12)
+    for g, w, h in zip(got[1:], want[1:], on_cpu[1:]):
+        assert g.dtype == torch.bool
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+        np.testing.assert_array_equal(g.cpu().numpy(), h.numpy())
+    assert 0 < int(want[1].sum()) < want[1].numel()
+
+
+def test_band_prune_of_an_empty_band_launches_nothing(cuda):
+    from phaser_tpu_torch.kernels import stats as S
+    counts = torch.ones((5, 3), dtype=torch.int32, device=cuda)
+    pair = torch.zeros((5, 0, 9), dtype=torch.int32, device=cuda)
+    before = S.LAUNCHES["conflict_prune"]
+    p, prune, unc = S.band_prune(counts, pair, 0.01)
+    assert S.LAUNCHES["conflict_prune"] == before
+    assert tuple(p.shape) == tuple(prune.shape) == (5, 0)
+
+
 def test_sharded_step_on_the_card_matches_cpu(cuda):
     """sharded_phasing_step on a 2-shard mesh on the card == on the CPU
     (scaling_bench's dense layout): counts, pair and scores equal, prune
-    equal; the path launched planes_table, band_counts and
-    conflict_prune."""
+    equal; the path launched planes_table, band_counts and band_prune's
+    two connection-test kernels."""
     from phaser_tpu_torch.dist import mesh as TM
     from phaser_tpu_torch.dist.scaling_bench import _gen
     from phaser_tpu_torch.kernels import stats as S
@@ -309,7 +376,7 @@ def test_sharded_step_on_the_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert K.LAUNCHES["planes_table"] == 2
     assert TM.LAUNCHES["band_counts"] == 2
-    assert S.LAUNCHES["conflict_prune"] == 1
+    assert S.LAUNCHES["conflict_prune"] == 2   # band_prune's two launches
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
     assert int(want[1].sum()) > 0 and 0 < int(want[2].sum())

@@ -15,6 +15,7 @@ from phaser_tpu.dist import mesh as JM
 from phaser_tpu_torch.dist import dryrun
 from phaser_tpu_torch.dist import mesh as TM
 from phaser_tpu_torch.dist.scaling_bench import _gen
+from phaser_tpu_torch.testing import layouts
 
 
 def _kernels_166(seed=0, N=64, L=128, M=50, span=5000):
@@ -120,6 +121,41 @@ def test_band_counts_plain_matches_row_loop(band, monkeypatch):
         assert want_p.sum() > 0
 
 
+def _row_loop_np(vidx, allele, n_vars, band):
+    """_row_loop with each row's pairs formed by numpy."""
+    counts = np.zeros((n_vars, 3), np.int64)
+    pair = np.zeros((n_vars, band, 9), np.int64)
+    for v_row, a_row in zip(vidx, allele):
+        h = a_row < 3
+        v, a = v_row[h].astype(np.int64), a_row[h].astype(np.int64)
+        np.add.at(counts, (v, a), 1)
+        if band:
+            d = v[None, :] - v[:, None]
+            i, j = np.nonzero((d >= 1) & (d <= band))
+            np.add.at(pair, (v[i], d[i, j] - 1, a[i] * 3 + a[j]), 1)
+    return counts, pair
+
+
+@pytest.mark.parametrize("band", [0, 1, 8, 16])
+@pytest.mark.parametrize("name", layouts.BAND_NAMES)
+def test_band_counts_plain_on_kernel_branches(name, band):
+    """band_counts_plain against a row loop on the inputs the kernel's
+    design branches on (testing/layouts.band_planes): rows whose variants
+    decrease, a variant repeated in a row, position-sorted rows spanning
+    many shared-memory windows and the same rows reversed, L = 6,144 and
+    L = 77; tolerance 0."""
+    vidx, allele, M = layouts.band_planes(name)
+    counts, pair = TM.band_counts(torch.from_numpy(vidx),
+                                  torch.from_numpy(allele), M, band)
+    want_c, want_p = _row_loop_np(vidx, allele, M, band)
+    np.testing.assert_array_equal(counts.numpy(), want_c)
+    np.testing.assert_array_equal(pair.numpy(), want_p)
+    assert want_c.sum() > 0 and (band == 0 or want_p.sum() > 0)
+    if name == "sorted":
+        # the rows reach far more variants than one block's window holds
+        assert int(vidx.max()) - int(vidx[vidx >= 0].min()) > 2000
+
+
 def test_band_counts_of_no_rows():
     e = torch.empty((0, 128), dtype=torch.int32)
     counts, pair = TM.band_counts(e, e, 7, 8)
@@ -134,6 +170,32 @@ def test_band_counts_refuses_bad_planes():
         TM.band_counts(v, v[:, :4], 3, 2)
     with pytest.raises(ValueError):
         TM.band_counts(v, v, 3, -1)
+
+
+@pytest.mark.parametrize("name", sorted(INPUTS))
+def test_band_prune_matches_jax_outside_its_uncertain_band(name):
+    """The step's connection-test tail, band_prune (plain on the CPU), on
+    the merged counts and band of each input: its decisions equal
+    phaser_tpu's noise_from_counts + prune_mask outside the pairs JAX's
+    float32 marks uncertain, and its p within JAX's 2e-4."""
+    from phaser_tpu.kernels import stats as J
+    from phaser_tpu_torch.kernels import stats as S
+    args = INPUTS[name]()
+    thr = 0.01
+    counts, pair = TM._sharded_counts(
+        TM.make_mesh(2, device="cpu"),
+        TM._step_inputs(TM.make_mesh(2, device="cpu"), *args), 10, 8)
+    p, prune, uncertain = (x.numpy() for x in S.band_prune(counts, pair,
+                                                           thr))
+    b = pair.numpy().astype(np.float32)
+    jp, jprune, junc = (np.asarray(x) for x in J.prune_mask(
+        b[:, :, 0] + b[:, :, 4], b[:, :, 1] + b[:, :, 3],
+        b[:, :, (2, 5, 6, 7, 8)].sum(axis=2),
+        J.noise_from_counts(counts.numpy()), thr))
+    np.testing.assert_array_equal(prune[~junc], jprune[~junc])
+    np.testing.assert_allclose(p, jp, rtol=0, atol=2e-4)
+    assert p.shape == prune.shape == uncertain.shape == (len(args[3]), 8)
+    assert int(counts.sum()) > 0
 
 
 def test_mesh_helpers_match_jax():

@@ -215,3 +215,35 @@ def test_jax_float32_error_is_above_its_stated_1e6_and_port_is_not():
     assert 1e-6 < errs["n < 200"][0] < 2e-4
     assert errs["n < 2000"][0] > errs["n < 200"][0]
     assert errs["connection test"][0] > 1e-6
+
+
+@pytest.mark.parametrize("m,seed,thr", [(7120, 1, 0.01), (3000, 2, 0.2),
+                                        (500, 3, 1e-4)])
+def test_band_prune_plain_is_the_three_call_tail(m, seed, thr):
+    """band_prune on CPU tensors (its plain version) equals the three calls
+    the step made before it (band_configs, noise_from_counts, the plain
+    conflict test) bit for bit, on a band whose tests take fractions."""
+    from phaser_tpu_torch.kernels.stats import band_configs
+    from phaser_tpu_torch.testing.layouts import band_tail
+    counts, pair = (torch.from_numpy(x) for x in band_tail(m, 8, seed))
+    got = S.band_prune(counts, pair, thr)
+    want = S.conflict_prune_plain(*band_configs(pair),
+                                  S.noise_from_counts(counts), thr)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    _, terms = S.conflict_terms(*band_configs(pair),
+                                S.noise_from_counts(counts))
+    assert int(terms.sum()) > 0 and 0 < int(got[1].sum()) < got[1].numel()
+
+
+def test_band_prune_refuses_bad_input_and_counts_no_cpu_launch():
+    meta = torch.empty((4, 3), device="meta", dtype=torch.int32)
+    with pytest.raises(ValueError):
+        S.band_prune(meta, meta.view(4, 1, 3), 0.01)
+    before = dict(S.LAUNCHES)
+    counts = torch.tensor([[5, 4, 0], [3, 3, 1]], dtype=torch.int32)
+    pair = torch.zeros((2, 2, 9), dtype=torch.int32)
+    pair[0, 0, 0] = 4
+    p, prune, unc = S.band_prune(counts, pair, 0.01)
+    assert S.LAUNCHES == before
+    assert tuple(p.shape) == (2, 2) and p.dtype == torch.float64
