@@ -99,16 +99,26 @@ Phases (any failure exits non-zero; nothing here imports jax):
      against dist/dryrun.py's numpy and scipy recomputations (counts,
      band, scores equal, p-values within 1e-10, prune equal); each step
      kernel (planes_table, band_counts, the connection-test tail
-     band_prune, binom_cdf) against its plain version on the step's own
-     tensors (max_abs_err 0 for the integer kernels, <= 1e-12 for the
-     float64 ones, prune and uncertain equal), prune_mask's route through
-     the same test body too, all timed; band_counts' blocks that took
+     band_prune, binom_cdf as conflicting_config_p launches it) against
+     its plain version on the step's own tensors (max_abs_err 0 for the
+     integer kernels, <= 1e-12 for the float64 ones, prune and uncertain
+     equal), prune_mask's route through the same test body and binom_cdf
+     on int32 counts and a 0-d p too, all timed (the statistics kernels
+     and their plain versions from a cold L2); band_counts' blocks that took
      their shared-memory window (some on dense_sorted, none on dense);
      the tail before (band_configs, noise_from_counts, prune_mask) and
      after (band_prune) in turns, by CUDA events and by the profiler's
-     device activities a call (band_prune at most 2); (b) dryrun.dryrun_multichip(4,
-     "cuda"); (c) two `python -m phaser_tpu_torch.dist.multihost --device
-     cuda` ranks over Gloo on phase 6's fixture, their counts equal to one
+     device activities a call (band_prune at most 2); conflicting_config_p's
+     device activities a call (one binom_cdf launch), and the launch floor
+     (an empty kernel on the same grid: the mean of its profiler records,
+     and whether their window was whole); then
+     binom_cdf and band_prune on the long continued fractions of
+     testing/layouts.py (binom_long, band_long) against their plain
+     versions, with their bounds and launch floors, and the log-factorial
+     table's entries that the kernels' lgamma replaced; (b)
+     dryrun.dryrun_multichip(4, "cuda"); (c) two `python -m
+     phaser_tpu_torch.dist.multihost --device cuda` ranks over Gloo on
+     phase 6's fixture, their counts equal to one
      process's; (d) `python -m phaser_tpu_torch.dist.scaling_bench
      --devices 1,2 --device cuda --reads-per-device 262144`, its JSON line
      printed.
@@ -148,8 +158,18 @@ band_counts the planes read once (8 B a base) and the counts and band
 written once, or a test per base and per ordered hit pair; for
 conflict_prune (the tail, band_prune: the counts and the band read, p and
 two flags written) and binom_cdf their inputs and outputs once, or the float64
-operations of the fraction terms these inputs actually take over 34 T/s
-(the card's float64 rate outside the tensor cores).  `library_ms` is
+operations of the fraction terms these inputs actually take
+(kernels/stats.py BETACF_TERM_FLOPS a term, BETACF_SETUP_FLOPS a live
+element) over 34 T/s (the card's float64 rate outside the tensor cores).
+binom_cdf's record is the instantiation the step path launches
+(conflicting_config_p: three int32 counts read, p written).  Their inputs
+would sit in the 50 MB L2 call after call, where bytes over the memory
+rate bound nothing, so both records (ms, the card times, plain_ms) are
+taken from a cold L2: each call after a flush (L2_FLUSH_BYTES written) and
+a synchronize, the flush outside the timed span and outside the kernel's
+profiler time.  The binom_cdf and conflict_prune records also hold, under
+"inputs", the same numbers on phase 3's reads, phase 6's contig and the
+long fractions, each with its launch floor.  `library_ms` is
 null throughout: no single PyTorch call classifies bases against the table
 and compacts the hits (`torch.searchsorted` is only the lookup), forms the
 within-row pairs, or has an incomplete beta.
@@ -160,6 +180,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line, and
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import shutil
@@ -204,7 +225,8 @@ STEP_BAND, STEP_THRESHOLD = 8, 0.01
 STEP_RECORD = {"planes_table": "chromosome", "band_counts": "dense",
                "conflict_prune": "e2e", "binom_cdf": "e2e"}
 STEP_TOL = {"planes_table": 0, "band_counts": 0, "conflict_prune": 1e-12,
-            "prune_mask": 1e-12, "binom_cdf": 1e-12}
+            "prune_mask": 1e-12, "binom_cdf": 1e-12,
+            "binom_cdf_operands": 1e-12}
 TAIL_MAX_LAUNCHES = 2        # band_prune's device activities a call
 SUFFIXES = (".allelic_counts.txt", ".variant_connections.txt",
             ".allele_config.txt", ".haplotypes.txt",
@@ -228,12 +250,9 @@ MAIN_PATH = ("affine_nibble", "delta_nibble", "plane")  # the dispatcher's
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 INT_OPS_PER_S = 67e12        # non-tensor rate (compares, index arithmetic)
 FP64_OPS_PER_S = 34e12       # H100 SXM float64 outside the tensor cores
+L2_FLUSH_BYTES = 128 << 20   # written before a cold call: over the 50 MB L2
+COLD = ("binom_cdf", "conflict_prune", "prune_mask")   # timed from cold L2
 TABLE_ROW_BYTES = 16         # vpos, a0, a1, n_ind: 4 x int32 per entry
-# float64 operations of the incomplete beta (csrc/stats.cu): a term of
-# the continued fraction (two Lentz half-steps, two divisions each
-# counted as one), and the prefactor (three lgamma, log, log1p, exp)
-BETACF_TERM_FLOPS = 30
-BETACF_SETUP_FLOPS = 100
 
 
 class SmokeError(Exception):
@@ -306,6 +325,47 @@ def time_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+_flush_buf = None
+
+
+def l2_flush():
+    """Enqueues a write of L2_FLUSH_BYTES (a float32 add, not a memset, so
+    that device_ms does not count it), which evicts what the L2 held."""
+    global _flush_buf
+    import torch
+    if _flush_buf is None:
+        _flush_buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                                 device="cuda")
+    _flush_buf.add_(1.0)
+
+
+def time_cold_ms(fn, iters):
+    """fn's mean time by CUDA events, each call from a cold L2 on an idle
+    card: the flush and a synchronize before each call, outside its span."""
+    import torch
+    fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        l2_flush()
+        torch.cuda.synchronize()
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        total += t0.elapsed_time(t1)
+    return total / iters
+
+
+def cold(fn):
+    """fn after an L2 flush: what device_ms profiles for a cold call."""
+    def call():
+        l2_flush()
+        return fn()
+    return call
+
+
 KERNEL_FN = {  # the __global__ function behind each kernel entry
     "affine_nibble": "affine_nibble_kernel",
     "delta_nibble": "delta_nibble_kernel", "plane": "plane_kernel",
@@ -318,7 +378,9 @@ KERNEL_FN = {  # the __global__ function behind each kernel entry
     # the tail (band_prune): the noise sums, then the test on the band
     "conflict_prune": ("noise_partials_kernel", "conflict_test_kernel"),
     "prune_mask": "conflict_test_kernel",   # the same test on three arrays
-    "binom_cdf": "binom_cdf_kernel"}
+    "binom_cdf": "binom_cdf_kernel",
+    "binom_cdf_operands": "binom_cdf_kernel",   # on k, n, p descriptors
+    "launch_floor": "empty_grid_kernel"}   # an empty kernel on a grid
 _profiler_warm = False
 
 
@@ -1749,8 +1811,10 @@ def step_kernels_vs_plain(name, args, step, smi, device):
     the step's read planes, band_counts on the planes it returned (and
     its blocks that took the shared-memory window), the connection-test
     tail band_prune ("conflict_prune": two kernels), prune_mask's route
-    through the same test body and binom_cdf on the merged band; then the
-    tail before (the three calls) and after (band_prune) in turns.
+    through the same test body, binom_cdf as the step path launches it
+    (conflicting_config_p on the merged band's counts) and on int32
+    counts with a 0-d p ("binom_cdf_operands"); then the tail before (the
+    three calls) and after (band_prune) in turns.
     Returns {kernel: (max_abs_err, ms, plain_ms, (device_ms, kernel_ms,
     profiles, whole))}, {kernel: (bound_ms, bound_by)} and the tail's and the
     window's numbers."""
@@ -1771,6 +1835,7 @@ def step_kernels_vs_plain(name, args, step, smi, device):
     cfg = S.band_configs(pair)
     noise = S.noise_from_counts(counts)
     sup, total, p_success = S._conflict_args(*cfg, noise)
+    sup32, total32 = sup.int(), total.int()
 
     def planes_err(got, want):
         return max(int((g.long() - w.long()).abs().max()) for g, w in
@@ -1802,9 +1867,11 @@ def step_kernels_vs_plain(name, args, step, smi, device):
                        lambda: S.conflict_prune_plain(*cfg, noise,
                                                       STEP_THRESHOLD),
                        prune_err),
-        "binom_cdf": (lambda: S.binom_cdf(sup, total, p_success),
-                      lambda: S.binom_cdf_plain(sup, total, p_success),
-                      cdf_err),
+        "binom_cdf": (lambda: S.conflicting_config_p(*cfg, noise),
+                      lambda: S.conflict_terms(*cfg, noise)[0], cdf_err),
+        "binom_cdf_operands": (
+            lambda: S.binom_cdf(sup32, total32, p_success),
+            lambda: S.binom_cdf_plain(sup32, total32, p_success), cdf_err),
     }
     results = {}
     for kname, (kernel, plain, err_of) in runs.items():
@@ -1813,11 +1880,12 @@ def step_kernels_vs_plain(name, args, step, smi, device):
         err = err_of(got, want)
         check(err <= STEP_TOL[kname], "%s (%s input): max_abs_err %g over "
               "%g" % (kname, name, err, STEP_TOL[kname]))
-        p1 = time_ms(plain, 3)
-        k1 = time_ms(kernel, 20)
-        k2 = time_ms(kernel, 20)
-        p2 = time_ms(plain, 3)
-        on_card = device_ms(kname, kernel)
+        timer = time_cold_ms if kname in COLD else time_ms
+        p1 = timer(plain, 3)
+        k1 = timer(kernel, 20)
+        k2 = timer(kernel, 20)
+        p2 = timer(plain, 3)
+        on_card = device_ms(kname, cold(kernel) if kname in COLD else kernel)
         check(on_card is not None, "%s: the profiler saw no launch of %s"
               % (kname, KERNEL_FN[kname]))
         check(on_card[3], "%s: no profiler window of %d came back whole"
@@ -1868,18 +1936,42 @@ def step_kernels_vs_plain(name, args, step, smi, device):
                                 N * L * 2 + int((per_row ** 2).sum())),
         # the tail: the counts and the band read, p and two flags written;
         # float64 operations of the fractions these pairs take
-        "conflict_prune": fp64_bound(
-            M * 12 + n_pairs * (36 + 10), int(c_terms.sum()) *
-            BETACF_TERM_FLOPS + int((c_terms > 0).sum()) *
-            BETACF_SETUP_FLOPS),
+        "conflict_prune": fp64_bound(M * 12 + n_pairs * (36 + 10),
+                                     fraction_flops(c_terms)),
         # three int32 counts and the noise read, p and two flags written
-        "prune_mask": fp64_bound(
-            n_pairs * 22 + 8, int(c_terms.sum()) * BETACF_TERM_FLOPS +
-            int((c_terms > 0).sum()) * BETACF_SETUP_FLOPS),
-        "binom_cdf": fp64_bound(
-            n_pairs * 32, int(b_terms.sum()) * BETACF_TERM_FLOPS +
-            int((b_terms > 0).sum()) * BETACF_SETUP_FLOPS),
+        "prune_mask": fp64_bound(n_pairs * 22 + 8, fraction_flops(c_terms)),
+        # the step path's binom_cdf (conflicting_config_p): three int32
+        # counts and the noise read, p written; the conflict test's terms
+        "binom_cdf": fp64_bound(n_pairs * 20 + 8, fraction_flops(c_terms)),
+        # int32 k and n read, p once (a 0-d tensor), p written
+        "binom_cdf_operands": fp64_bound(n_pairs * 16 + 8,
+                                         fraction_flops(b_terms)),
     }
+    # conflicting_config_p's device activities a call (one binom_cdf
+    # launch, nothing formed before it); the launch floor (an empty kernel
+    # on the grid of the band's pairs)
+    # (a window that is not whole only loses records, so at most one)
+    route_card = device_all(lambda: S.conflicting_config_p(*cfg, noise))
+    check(route_card is not None and route_card[1] <= 1,
+          "conflicting_config_p (%s input): %s device activities a call, "
+          "not one launch" % (name, route_card))
+    stats_extra = {
+        "elements": n_pairs, "live": int((c_terms > 0).sum()),
+        "terms": int(c_terms.sum()),
+        "operands_live": int((b_terms > 0).sum()),
+        "operands_terms": int(b_terms.sum()),
+        "operands_max_abs_err": results["binom_cdf_operands"][0],
+        "route_card": route_card}
+    stats_extra["launch_floor_ms"], stats_extra["launch_floor_whole"] = \
+        launch_floor(n_pairs)
+    print("   [%s] conflicting_config_p: %.4f ms on the card in %g device "
+          "activity a call (window %s); launch floor (an empty kernel on the "
+          "grid of %d) %.4f ms (window %s); on %s"
+          % (name, route_card[0], route_card[1],
+             "whole" if route_card[2] else "not whole", n_pairs,
+             stats_extra["launch_floor_ms"], "whole" if
+             stats_extra["launch_floor_whole"] else "not whole", smi),
+          flush=True)
     for kname, (err, ms, plain_ms, (dev_ms, kernel_ms, _, _)) in \
             results.items():
         print("   [%s] %-14s max_abs_err %g  wrapper call %.4f ms; on the "
@@ -1899,11 +1991,135 @@ def step_kernels_vs_plain(name, args, step, smi, device):
              tail["after_card_ms"], tail["after_launches"], smi), flush=True)
     print("   [%s] %d x %d bases, M %d: %d hits, %d pairs in the band, %d "
           "pairs with support, fraction terms: conflict_prune %d (max %d), "
-          "binom_cdf %d (max %d)"
+          "binom_cdf on int32 operands %d (max %d)"
           % (name, N, L, M, int(hits.sum()), int(pair.sum()),
              int((sup > 0).sum()), int(c_terms.sum()), int(c_terms.max()),
              int(b_terms.sum()), int(b_terms.max())), flush=True)
-    return results, bounds, tail, window
+    del results["binom_cdf_operands"], bounds["binom_cdf_operands"]
+    return results, bounds, tail, window, stats_extra
+
+
+def fraction_flops(terms):
+    """The float64 operations of the incomplete beta's fractions and
+    prefactors that these terms (binom_cdf_terms, conflict_terms) count."""
+    from phaser_tpu_torch.kernels import stats as S
+    return int(terms.sum()) * S.BETACF_TERM_FLOPS + \
+        int((terms > 0).sum()) * S.BETACF_SETUP_FLOPS
+
+
+def launch_floor(count):
+    """(card ms, whole) of an empty kernel on binom_cdf_kernel's (and the
+    conflict test's) grid for `count` elements: what a launch costs
+    before any work.  The mean device time of the kernel's profiler
+    records, from the first whole window of PROFILE_TRIES
+    (utils/trace.profile_window), else from the last window that held any,
+    whole False: a window short of records still times each record it
+    holds, and the flag goes beside the floor."""
+    import torch
+    from phaser_tpu_torch.utils import build
+    from phaser_tpu_torch.utils.trace import PROFILE_TRIES, profile_window
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = lambda: build.launch("empty_grid_launch",  # noqa: E731
+                              [ctypes.c_int, ctypes.c_void_p],
+                              (count, stream))
+    fn()
+    torch.cuda.synchronize()
+    seen = None
+    for _ in range(PROFILE_TRIES):
+        avgs, device, runtime = profile_window(fn, 20)
+        recs = [e for e in avgs if KERNEL_FN["launch_floor"] in e.key]
+        n = sum(e.count for e in recs)
+        if n:
+            seen = (sum(e.device_time_total for e in recs) / n / 1e3,
+                    device == runtime)
+            if seen[1]:
+                return seen
+        print("   profile of the empty kernel on %d elements not whole (%d "
+              "device records, %d runtime enqueues)" % (count, device,
+                                                        runtime), flush=True)
+    check(seen is not None, "the profiler saw no empty kernel on %d elements"
+          % count)
+    return seen
+
+
+def long_fraction_kernels(smi):
+    """binom_cdf and the tail (band_prune) on the long fractions of
+    testing/layouts.py (binom_long: 65,536 cdfs, n 1,000-10,000, k near
+    the mean, p_success 0.97-0.994; band_long: 8,192 x 8 such tests at a
+    noise rate of 0.3%), where the chain and not the launch sets the time:
+    binom_cdf on binom_long's int32 k and n, binom_cdf as the step path
+    launches it (conflicting_config_p) on band_long's counts, band_prune
+    on band_long; against their plain versions (p within 1e-12, prune
+    equal where |p - threshold| > 1e-12), timed from a cold L2, with their
+    bounds and launch floors.  Returns {name: record}."""
+    import torch
+    from phaser_tpu_torch.kernels import stats as S
+    from phaser_tpu_torch.testing import layouts
+    dev = torch.device("cuda")
+    k, n, p = (torch.from_numpy(x).to(dev) for x in layouts.binom_long())
+    counts, pair = (torch.from_numpy(x).to(dev)
+                    for x in layouts.band_long())
+    cfg = S.band_configs(pair)
+    noise = S.noise_from_counts(counts)
+    b_terms = S.binom_cdf_terms(k, n, p)
+    c_terms = S.conflict_terms(*cfg, noise)[1]
+    runs = {
+        # int32 k and n, float64 p read, p written
+        "binom_cdf_operands": (lambda: S.binom_cdf(k, n, p),
+                               lambda: S.binom_cdf_plain(k, n, p),
+                               fp64_bound(k.numel() * 24,
+                                          fraction_flops(b_terms)), b_terms),
+        # three int32 counts and the noise read, p written
+        "binom_cdf": (lambda: S.conflicting_config_p(*cfg, noise),
+                      lambda: S.conflict_terms(*cfg, noise)[0],
+                      fp64_bound(c_terms.numel() * 20 + 8,
+                                 fraction_flops(c_terms)), c_terms),
+        "conflict_prune": (lambda: S.band_prune(counts, pair,
+                                                STEP_THRESHOLD),
+                           lambda: S.band_prune_plain(counts, pair,
+                                                      STEP_THRESHOLD),
+                           fp64_bound(counts.numel() * 4 + pair.numel() * 4 +
+                                      c_terms.numel() * 10,
+                                      fraction_flops(c_terms)), c_terms)}
+    out = {}
+    for kname, (kernel, plain, bound, terms) in runs.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if kname != "conflict_prune":
+            err = float((got - want).abs().max())
+        else:
+            err = float((got[0] - want[0]).abs().max())
+            sure = (want[0] - STEP_THRESHOLD).abs() > 1e-12
+            check(torch.equal(got[1][sure], want[1][sure]), "band_prune on "
+                  "band_long: prune differs outside the uncertain band")
+        check(err <= STEP_TOL[kname], "%s on the long fractions: max_abs_err "
+              "%g over %g" % (kname, err, STEP_TOL[kname]))
+        p1, k1, k2, p2 = (time_cold_ms(plain, 3), time_cold_ms(kernel, 20),
+                          time_cold_ms(kernel, 20), time_cold_ms(plain, 3))
+        on_card = device_ms(kname, cold(kernel))
+        check(on_card is not None and on_card[3], "%s: no whole profiler "
+              "window on the long fractions" % kname)
+        rec = {"elements": terms.numel(), "live": int((terms > 0).sum()),
+               "terms": int(terms.sum()), "max_terms": int(terms.max()),
+               "max_abs_err": err, "ms": (k1 + k2) / 2,
+               "plain_ms": (p1 + p2) / 2, "device_ms": on_card[0],
+               "kernel_ms": on_card[1], "bound_ms": bound[0],
+               "bound_by": bound[1]}
+        rec["launch_floor_ms"], rec["launch_floor_whole"] = launch_floor(
+            terms.numel())
+        out[kname] = rec
+        print("   [long] %-14s max_abs_err %g  wrapper call %.4f ms; on the "
+              "card %.4f ms, kernel alone %.4f ms   plain %.4f ms   bound "
+              "%.4f ms (%s), %.1f%% of the time on the card; launch floor "
+              "%.4f ms (window %s); %d elements, %d fraction terms (max %d)"
+              "   on %s"
+              % (kname, err, rec["ms"], rec["device_ms"], rec["kernel_ms"],
+                 rec["plain_ms"], rec["bound_ms"], rec["bound_by"],
+                 100.0 * rec["bound_ms"] / rec["device_ms"],
+                 rec["launch_floor_ms"], "whole" if rec["launch_floor_whole"]
+                 else "not whole", rec["elements"], rec["terms"],
+                 rec["max_terms"], smi), flush=True)
+    return out
 
 
 def step_subset_vs_host(args, device):
@@ -1962,7 +2178,9 @@ def sharded_step_phase(step_input, fx, smi, device):
     del bd
     mesh = TM.make_mesh(1, device=device)
     launches = dict.fromkeys(STEP_KERNELS, 0)
-    results, bounds, extra = {}, {}, {}
+    results, bounds = {}, {}
+    extra = {k: {"inputs": {}} for k in ("binom_cdf", "conflict_prune")}
+    table_launches = 0
     for name, args in inputs.items():
         # (a) the step and its connection p-values, launches counted from 0
         K.reset_launches()
@@ -1980,6 +2198,7 @@ def sharded_step_phase(step_input, fx, smi, device):
                "binom_cdf": S.LAUNCHES["binom_cdf"]}
         for k, n in run.items():
             launches[k] += n
+        table_launches += S.LAUNCHES["lgamma_table"]
         counts, pair, prune, scores = step
         check(int(counts.sum()) > 0 and bool(torch.isfinite(p).all()) and
               tuple(pair.shape) == (len(args[3]), STEP_BAND, 9) and
@@ -1996,8 +2215,8 @@ def sharded_step_phase(step_input, fx, smi, device):
               "pairs, %d pruned equal; p-values within %.2e of scipy"
               % (name, STEP_CHECK_ROWS, n_hits, n_pairs, n_pruned, gap),
               flush=True)
-        res, bnd, tail, window = step_kernels_vs_plain(name, args, step, smi,
-                                                       device)
+        res, bnd, tail, window, stats_extra = step_kernels_vs_plain(
+            name, args, step, smi, device)
         if name == "dense_sorted":
             check(window["window_blocks"] > 0, "no band_counts block took "
                   "its shared-memory window on position-sorted rows")
@@ -2011,11 +2230,31 @@ def sharded_step_phase(step_input, fx, smi, device):
             extra["band_counts"] = {"window_blocks": window["window_blocks"],
                                     "blocks": window["blocks"]}
         if STEP_RECORD["conflict_prune"] == name:
-            extra["conflict_prune"] = tail
+            extra["conflict_prune"].update(tail)
+        if name in ("chromosome", "e2e"):
+            # the statistics kernels' other inputs, beside the record's own
+            for kname in ("binom_cdf", "conflict_prune"):
+                extra[kname]["inputs"][name] = dict(
+                    stats_extra, max_abs_err=res[kname][0], ms=res[kname][1],
+                    plain_ms=res[kname][2], device_ms=res[kname][3][0],
+                    kernel_ms=res[kname][3][1], bound_ms=bnd[kname][0],
+                    bound_by=bnd[kname][1])
         del step, p, counts, pair, prune, scores
         torch.cuda.synchronize()
     check(min(launches.values()) > 0,
           "the step path skipped a kernel: %s" % launches)
+    for kname, rec in long_fraction_kernels(smi).items():
+        if kname == "binom_cdf_operands":
+            extra["binom_cdf"]["inputs"]["long_operands"] = rec
+        else:
+            extra[kname]["inputs"]["long"] = rec
+    extra["binom_cdf"]["lgamma_table"] = {
+        "launches": table_launches,
+        "mismatches": S.lgamma_table_mismatches(torch.device(device))}
+    print("   lgamma table: %d entries, %d of torch.lgamma's replaced by the "
+          "kernels' lgamma" % (S.LGAMMA_TABLE_SIZE,
+                               extra["binom_cdf"]["lgamma_table"]
+                               ["mismatches"]), flush=True)
 
     # (b) the dry run: 4 shards in turn on the card, then the sharded engine
     t0 = time.perf_counter()

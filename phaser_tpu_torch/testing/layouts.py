@@ -326,3 +326,41 @@ def band_tail(m: int, band: int, seed: int):
     counts[::97] = 0
     pair[::89] = 0
     return counts, pair
+
+
+def binom_long(count: int = 65_536, seed: int = 0):
+    """(k int32, n int32, p float64) of `count` binomial cdfs whose
+    continued fractions are long (about 35-110 terms): n from 1,000 to
+    10,000, p at the connection test's values (p_success 0.97-0.994, noise
+    rates of 0.1-0.5%) and k within a standard deviation of the mean n p,
+    where the fraction is longest.  The input on which the chain, not the
+    launch, sets a binom_cdf kernel's time."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(1000, 10_001, count)
+    p = rng.uniform(0.97, 0.994, count)
+    sd = np.sqrt(n * p * (1 - p))
+    k = np.clip(np.rint(n * p + rng.uniform(-1, 1, count) * sd), 0, n - 1)
+    return k.astype(np.int32), n.astype(np.int32), p
+
+
+LONG_NOISE = (6, 2000)   # band_long's noise rate as mismatches / (2 x reads)
+
+
+def band_long(m: int = 8192, band: int = 8, seed: int = 0):
+    """Merged (m, 3) counts and (m, band, 9) band of int32 whose connection
+    tests are binom_long's long fractions: every variant 497 + 497 matches
+    and 6 mismatches (a noise rate of 6 / 2,000 = 0.3%, p_success 0.98191),
+    every pair n from 1,000 to 10,000 reads, k of them cis (configuration
+    0, the supporting count) within a standard deviation of the mean and
+    the rest in configuration 2."""
+    rng = np.random.default_rng(seed)
+    e = LONG_NOISE[0] / LONG_NOISE[1]
+    ps = 1.0 - (6.0 * e + 10.0 * (e * e))
+    counts = np.tile(np.array([497, 497, 6], np.int32), (m, 1))
+    n = rng.integers(1000, 10_001, (m, band))
+    sd = np.sqrt(n * ps * (1 - ps))
+    k = np.clip(np.rint(n * ps + rng.uniform(-1, 1, n.shape) * sd), 1, n - 1)
+    pair = np.zeros((m, band, 9), np.int32)
+    pair[:, :, 0] = k
+    pair[:, :, 2] = n - k
+    return counts, pair

@@ -3,11 +3,17 @@ band_counts kernel of the first port (one warp a row, every ordered hit pair
 walked as q = i * nh + j with a division, one device-memory atomic an
 in-band pair) with one part taken out at a time, beside the current
 band_counts kernel and builds of csrc/mesh.cu with its compile-time
-switches; and the connection-test tail three ways (the three calls,
-band_prune's two launches, one cooperative launch).
+switches; the connection-test tail three ways (the three calls,
+band_prune's two launches, one cooperative launch); and binom_cdf and the
+tail's test body part by part (csrc/stats.cu beside builds of this
+script's STATS_SOURCE, its variants: the earlier design, and the current
+one with one part swapped, STATS_VARIANTS).
 
     python -m phaser_tpu_torch.testing.step_kernels_ablation [--rows 262144]
         [--vars 100000] [--reads 5000000] [--iters 20]
+        [--sections band_counts,tail,binom]
+        [--binom-inputs e2e,chromosome,long,one_live,live_873]
+        [--sass-out FILE]
 
 Inputs, smoke phase 9's three band_counts inputs at one shard's width:
 phase 3's reads ("chromosome": testing/benchdata.py's 5M reads of 100 bp,
@@ -16,17 +22,31 @@ and scaling_bench._gen's dense layout (a variant about every 8 bp) with its
 rows in random order ("dense") and sorted by start ("dense_sorted"); for
 the tail, counts and a band drawn from a seed at 7,120 and 100,000
 variants (testing/layouts.band_tail: a noise rate near 0.5%, so the tests
-take fractions).  The first port's kernel and its ablations are built here
-from the source below, and csrc/mesh.cu once a VARIANTS entry with its
-defines, one nvcc each, all started together, into a temporary directory
-that is removed at the end.  Every exact variant is held against
-band_counts_plain.  Each function is timed as a wrapper call with CUDA
-events in turns (every function, then again in reverse order) and on the
-card by torch.profiler over a whole window (utils/trace.device_activity:
-every device activity a call, summed, and their count).  The SASS of the
-current kernel library is searched for the reductions (RED) and returning
-atomics (ATOM / ATOMG) of band_counts_kernel.  Needs a CUDA GPU; prints
-one JSON line last.
+take fractions).  The binom section takes the connection tests of the
+step's merged band on phase 6's first contig ("e2e", regenerated alone by
+testing/datagen.py at chip_smoke.py's shape, about 90 s) and on phase 3's
+reads, the long fractions of testing/layouts.py (binom_long for binom_cdf,
+band_long for the tail), and the live elements of phase 6's contig alone
+(the one with the most terms; 873 of them in four blocks); beside each an
+empty kernel on the same grid (the launch floor), and on the step's inputs
+conflicting_config_p's route as the earlier design built it (float64
+copies of the counts and of p, then two passes) and as it is (one
+launch on the counts).  The first port's kernel and its ablations are
+built here from the source below, csrc/mesh.cu once a VARIANTS entry with
+its defines, and csrc/stats.cu and STATS_SOURCE once a STATS_VARIANTS
+entry, one nvcc each, all started together, into a temporary directory
+that is removed at the end.  Every exact variant is held against its plain
+version (band_counts_plain; binom_cdf_plain and band_prune_plain: p within
+1e-12, prune equal wherever |p - threshold| > 1e-12).  Each function is
+timed as a wrapper call with CUDA events in turns (every function, then
+again in reverse order) and on the card by torch.profiler over a whole
+window (utils/trace.device_activity: every device activity a call,
+summed, and their count).  The SASS of the current kernel library is
+searched for the reductions (RED) and returning atomics (ATOM / ATOMG) of
+band_counts_kernel, and that of every STATS_VARIANTS build for the float64
+instructions, divisions and branches of its binom_cdf kernel on float64
+operands (`--sass-out` writes csrc/stats.cu's whole function).  Needs a
+CUDA GPU; prints one JSON line last.
 """
 
 from __future__ import annotations
@@ -152,7 +172,7 @@ __global__ void band_prune_coop(const int32_t* __restrict__ counts, int m,
                                 const int32_t* __restrict__ pair, int count,
                                 double threshold, double refine_band,
                                 long long* __restrict__ partials,
-                                double* __restrict__ p,
+                                LgTable tab, double* __restrict__ p,
                                 uint8_t* __restrict__ prune,
                                 uint8_t* __restrict__ uncertain) {
   __shared__ long long s_sum[2][kThreads / 32];
@@ -187,8 +207,7 @@ __global__ void band_prune_coop(const int32_t* __restrict__ counts, int m,
     if (threadIdx.x == 0) s_e = e;
   }
   __syncthreads();
-  const double e = s_e;
-  const double p_success = 1.0 - (6.0 * e + 10.0 * (e * e));
+  const double p_success = p_success_of(s_e);
   for (long long i0 = (long long)blockIdx.x * blockDim.x; i0 < count;
        i0 += (long long)gridDim.x * blockDim.x) {
     const long long w0 = i0 * 9;
@@ -199,8 +218,11 @@ __global__ void band_prune_coop(const int32_t* __restrict__ counts, int m,
     const long long i = i0 + threadIdx.x;
     if (i < count) {
       const int32_t* w = s_words + threadIdx.x * 9;
-      double pv = conflict_p(w[0] + w[4], w[1] + w[3],
-                             w[2] + w[5] + w[6] + w[7] + w[8], p_success);
+      double pv;
+      Job job;
+      if (conflict_job(w[0] + w[4], w[1] + w[3],
+                       w[2] + w[5] + w[6] + w[7] + w[8], p_success, pv, job))
+        pv = betainc(job, tab);
       p[i] = pv;
       prune[i] = pv < threshold;
       uncertain[i] = fabs(pv - threshold) < refine_band;
@@ -234,12 +256,13 @@ int coop_blocks(int count) {
 
 int coop_launch(const void* counts, const void* pair, int m, int band,
                 double threshold, double refine_band, void* partials,
-                int blocks, void* p, void* prune, void* uncertain,
-                void* stream) {
+                int blocks, const void* table, int table_size, void* p,
+                void* prune, void* uncertain, void* stream) {
   int count = m * band;
+  LgTable tab = table_of(table, table_size);
   void* args[] = {(void*)&counts, (void*)&m, (void*)&pair, (void*)&count,
                   (void*)&threshold, (void*)&refine_band, (void*)&partials,
-                  (void*)&p, (void*)&prune, (void*)&uncertain};
+                  (void*)&tab, (void*)&p, (void*)&prune, (void*)&uncertain};
   cudaError_t e = cudaLaunchCooperativeKernel((void*)band_prune_coop, blocks,
                                               kThreads, args, 0,
                                               (cudaStream_t)stream);
@@ -255,19 +278,364 @@ VARIANTS = {
     "2_blocks_an_sm": ["-DBAND_COUNTS_BLOCKS_PER_SM=2"],
     "1_block_an_sm": ["-DBAND_COUNTS_BLOCKS_PER_SM=1"],
 }
+# The binom_cdf kernel and the tail's test body as variants of csrc/stats.cu
+# (which this source includes for everything the variants do not swap): the
+# earlier design (the first port's: Lentz's fraction, lgamma computed, two
+# call sites of the fraction, the band staged word by word) and the current
+# design with one part swapped at a time, by the defines of STATS_VARIANTS:
+#   V_FRACTION=0   Lentz's fraction (two dependent divisions a half-step)
+#   V_FRACTION=1   the recurrence with one reciprocal a term, rescaled only
+#                  past 2^+-64
+#   V_NO_TABLE     the prefactor's three lgamma computed, no table
+#   V_TWO_CALLS    the fraction called at two sites, one each side of the
+#                  switch point
+#   V_BAND_SCALAR  the band's words staged one by one
+#   V_QUEUE        the block's live elements gathered (warp ballot, one
+#                  shared counter) so that fractions run in full warps
+#   V_TABLE_SMEM=n the table's first n entries staged in shared memory
+# With no define a variant is csrc/stats.cu's design, built here beside it
+# ("control").  Exported: variant_binom_launch and variant_band_prune_launch,
+# with csrc/stats.cu's binom_cdf_launch and band_prune_launch arguments.
+STATS_SOURCE = r'''
+#include "%(stats)s"
+
+namespace {
+
+#ifndef V_FRACTION
+#define V_FRACTION 2
+#endif
+
+__device__ __forceinline__ double v_not_tiny(double v) {
+  return fabs(v) < kTiny ? kTiny : v;
+}
+
+#if V_FRACTION == 0
+__device__ double v_betacf(double a, double b, double x) {
+  double qab = a + b, qap = a + 1.0, qam = a - 1.0;
+  double c = 1.0;
+  double d = 1.0 / v_not_tiny(1.0 - qab * x / qap);
+  double h = d;
+  for (int m = 1; m <= kMaxIter; ++m) {
+    double m2 = 2.0 * m;
+    double aa = m * (b - m) * x / ((qam + m2) * (a + m2));
+    d = 1.0 / v_not_tiny(1.0 + aa * d);
+    c = v_not_tiny(1.0 + aa / c);
+    h *= d * c;
+    aa = -(a + m) * (qab + m) * x / ((a + m2) * (qap + m2));
+    d = 1.0 / v_not_tiny(1.0 + aa * d);
+    c = v_not_tiny(1.0 + aa / c);
+    double del = d * c;
+    h *= del;
+    if (fabs(del - 1.0) < kEps) break;
+  }
+  return h;
+}
+#elif V_FRACTION == 1
+__device__ __forceinline__ void v_half_step(double al, double& A0,
+                                            double& B0, double& A1,
+                                            double& B1, double& det) {
+  const double A2 = fma(al, A0, A1);
+  double B2 = fma(al, B0, B1);
+  det *= -al;
+  if (fabs(B2) < kTiny * fabs(B1)) {
+    B2 = kTiny * B1;
+    det = A2 * B1 - A1 * B2;
+  }
+  A0 = A1;
+  B0 = B1;
+  A1 = A2;
+  B1 = B2;
+}
+
+__device__ double v_betacf(double a, double b, double x) {
+  const double qab = a + b, qap = a + 1.0, qam = a - 1.0;
+  double A0 = 1.0, B0 = 1.0;
+  double A1 = 1.0, B1 = v_not_tiny(1.0 - qab * x / qap);
+  double det = 1.0 - B1;
+  for (int m = 1; m <= kMaxIter; ++m) {
+    const double m2 = 2.0 * m;
+    const double ne = m * (b - m) * x, de = (qam + m2) * (a + m2);
+    const double no = -(a + m) * (qab + m) * x, dn = (a + m2) * (qap + m2);
+    const double r = 1.0 / (de * dn);
+    v_half_step(ne * dn * r, A0, B0, A1, B1, det);
+    v_half_step(no * de * r, A0, B0, A1, B1, det);
+    if (fabs(det) < kStopEps * fabs(B1 * A0)) break;
+    const int e = (int)((__double_as_longlong(B1) >> 52) & 0x7ff) - 1023;
+    if (e > 64 || e < -64) {
+      const double s = __longlong_as_double((long long)(1023 - e) << 52);
+      A0 *= s;
+      B0 *= s;
+      A1 *= s;
+      B1 *= s;
+      det *= s * s;
+    }
+  }
+  return A1 / B1;
+}
+#else
+__device__ double v_betacf(double a, double b, double x) {
+  return betacf(a, b, x);
+}
+#endif
+
+struct VTable {
+  const double* t;
+  int size;
+  const double* s;
+  int s_size;
+};
+
+__device__ __forceinline__ double v_lg(double v, const VTable& tab) {
+#ifndef V_NO_TABLE
+  if (v >= 1.0 && v < (double)tab.size && v == floor(v)) {
+    const int i = (int)v;
+#ifdef V_TABLE_SMEM
+    if (i < tab.s_size) return tab.s[i];
+#endif
+    return __ldg(tab.t + i);
+  }
+#endif
+  return lgamma(v);
+}
+
+__device__ double v_betainc(const Job& j, const VTable& tab) {
+  const double a = j.a, b = j.b, x = j.x;
+  double s = __dsub_rn(__dsub_rn(v_lg(a + b, tab), v_lg(a, tab)),
+                       v_lg(b, tab));
+  s = __dadd_rn(s, __dmul_rn(a, log(x)));
+  s = __dadd_rn(s, __dmul_rn(b, log1p(-x)));
+  const double front = exp(s);
+  const bool lower = x < (a + 1.0) / (a + b + 2.0);
+#ifdef V_TWO_CALLS
+  if (lower) return front * v_betacf(a, b, x) / a;
+  return 1.0 - front * v_betacf(b, a, 1.0 - x) / b;
+#else
+  const double cf = v_betacf(lower ? a : b, lower ? b : a,
+                             lower ? x : 1.0 - x);
+  return lower ? front * cf / a : 1.0 - front * cf / b;
+#endif
+}
+
+// Every thread of the block calls this once, with its element's edge
+// rules taken; write(t, v) stores the value of thread t's element.
+template <class Write>
+__device__ __forceinline__ void v_run_jobs(bool live, const Job& job,
+                                           VTable tab, Write write) {
+#ifdef V_TABLE_SMEM
+  __shared__ double s_tab[V_TABLE_SMEM];
+  if (__syncthreads_or(live)) {
+    const int n = min(V_TABLE_SMEM, tab.size);
+    for (int j = threadIdx.x; j < n; j += blockDim.x) s_tab[j] = tab.t[j];
+    tab.s = s_tab;
+    tab.s_size = n;
+    __syncthreads();
+  }
+#endif
+#ifdef V_QUEUE
+  __shared__ Job s_job[kThreads];
+  __shared__ int s_thread[kThreads];
+  __shared__ int s_n;
+  if (threadIdx.x == 0) s_n = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  int base = 0;
+  if (lane == 0 && ballot) base = atomicAdd(&s_n, __popc(ballot));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (live) {
+    const int slot = base + __popc(ballot & ((1u << lane) - 1u));
+    s_job[slot] = job;
+    s_thread[slot] = threadIdx.x;
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < s_n)
+    write(s_thread[threadIdx.x], v_betainc(s_job[threadIdx.x], tab));
+#else
+  if (live) write(threadIdx.x, v_betainc(job, tab));
+#endif
+}
+
+template <class TK, class TN>
+__global__ void __launch_bounds__(kThreads)
+    v_binom_cdf_kernel(BinomOperands<TK, TN> src, int count, VTable tab,
+                       double* __restrict__ out) {
+  const int i0 = blockIdx.x * blockDim.x;
+  const int i = i0 + threadIdx.x;
+  bool live = false;
+  Job job{};
+  if (i < count) {
+    double v;
+    live = src.job(i, v, job);
+    if (!live) out[i] = v;
+  }
+  v_run_jobs(live, job, tab, [&](int t, double v) { out[i0 + t] = v; });
+}
+
+__global__ void v_conflict_test_kernel(Band9 in, NoisePartials noise,
+                                       double threshold, double refine_band,
+                                       int count, VTable tab,
+                                       double* __restrict__ p,
+                                       uint8_t* __restrict__ prune,
+                                       uint8_t* __restrict__ uncertain) {
+  __shared__ double s_e;
+  __shared__ __align__(16) int32_t s_words[kThreads * 9];
+  const int i0 = blockIdx.x * blockDim.x;
+  const int i = i0 + threadIdx.x;
+  if (threadIdx.x < 32) {
+    double e = noise.get(threadIdx.x);
+    if (threadIdx.x == 0) s_e = e;
+  }
+  const int32_t* src = in.pair + (long long)i0 * 9;
+  const int n_words = (int)min((long long)blockDim.x * 9,
+                               (long long)(count - i0) * 9);
+  int k0 = 0;
+#ifndef V_BAND_SCALAR
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = n_words >> 2;
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(s_words);
+#pragma unroll 3
+    for (int k = threadIdx.x; k < n4; k += blockDim.x) d4[k] = __ldg(s4 + k);
+    k0 = n4 << 2;
+  }
+#endif
+  for (int k = k0 + threadIdx.x; k < n_words; k += blockDim.x)
+    s_words[k] = src[k];
+  __syncthreads();
+  auto write = [&](int t, double pv) {
+    p[i0 + t] = pv;
+    prune[i0 + t] = pv < threshold;
+    uncertain[i0 + t] = fabs(pv - threshold) < refine_band;
+  };
+  bool live = false;
+  Job job{};
+  if (i < count) {
+    const int32_t* w = s_words + threadIdx.x * 9;
+    double v;
+    live = conflict_job(w[0] + w[4], w[1] + w[3],
+                        w[2] + w[5] + w[6] + w[7] + w[8], p_success_of(s_e),
+                        v, job);
+    if (!live) write(threadIdx.x, v);
+  }
+  v_run_jobs(live, job, tab, write);
+}
+
+template <class TK, class TN>
+void v_launch_binom(const long long* desc, int count, VTable tab,
+                    double* out, cudaStream_t s) {
+  BinomOperands<TK, TN> src;
+  src.shape.ndim = (int)desc[0];
+  for (int d = 0; d < kMaxDims; ++d) src.shape.size[d] = (int)desc[1 + d];
+  const long long* w = desc + 1 + kMaxDims;
+  src.k = operand_of<TK>(w);
+  src.n = operand_of<TN>(w + kOperandWords);
+  src.p = operand_of<double>(w + 2 * kOperandWords);
+  v_binom_cdf_kernel<<<grid_for(count), kThreads, 0, s>>>(src, count, tab,
+                                                           out);
+}
+
+}  // namespace
+
+extern "C" {
+int variant_binom_launch(const long long* desc, int count, const void* table,
+                         int table_size, void* out, void* stream) {
+  if (count > 0) {
+    const int tk = (int)desc[1 + kMaxDims + 1];
+    const int tn = (int)desc[1 + kMaxDims + kOperandWords + 1];
+    const VTable tab{(const double*)table, table_size, nullptr, 0};
+    cudaStream_t s = (cudaStream_t)stream;
+    double* o = (double*)out;
+    if (tk == 1 && tn == 1)
+      v_launch_binom<int32_t, int32_t>(desc, count, tab, o, s);
+    else if (tk == 1)
+      v_launch_binom<int32_t, double>(desc, count, tab, o, s);
+    else if (tn == 1)
+      v_launch_binom<double, int32_t>(desc, count, tab, o, s);
+    else
+      v_launch_binom<double, double>(desc, count, tab, o, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+int variant_band_prune_launch(const void* counts, const void* pair, int m,
+                              int band, double threshold, double refine_band,
+                              void* partials, int max_partials,
+                              const void* table, int table_size, void* p,
+                              void* prune, void* uncertain, int* launches,
+                              void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  *launches = 0;
+  const long long count = (long long)m * band;
+  if (count == 0) return (int)cudaGetLastError();
+  int nb = (int)((m + kThreads * 4 - 1) / (kThreads * 4));
+  if (nb > max_partials) nb = max_partials;
+  noise_partials_kernel<<<nb, kThreads, 0, s>>>(
+      (const int32_t*)counts, m, (long long*)partials);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  *launches = 1;
+  v_conflict_test_kernel<<<grid_for((int)count), kThreads, 0, s>>>(
+      Band9{(const int32_t*)pair},
+      NoisePartials{(const long long*)partials, nb}, threshold, refine_band,
+      (int)count, VTable{(const double*)table, table_size, nullptr, 0},
+      (double*)p, (uint8_t*)prune, (uint8_t*)uncertain);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) *launches = 2;
+  return (int)e;
+}
+}
+'''
+EARLIER = ["-DV_FRACTION=0", "-DV_NO_TABLE", "-DV_TWO_CALLS",
+           "-DV_BAND_SCALAR"]
+# name -> defines of STATS_SOURCE; "default" is csrc/stats.cu itself
+STATS_VARIANTS = {
+    "earlier": EARLIER,
+    "default": None,
+    "control": [],
+    "lentz": ["-DV_FRACTION=0"],
+    "reciprocal": ["-DV_FRACTION=1"],
+    "lgamma": ["-DV_NO_TABLE"],
+    "two_calls": ["-DV_TWO_CALLS"],
+    "band_scalar": ["-DV_BAND_SCALAR"],
+    "queue": ["-DV_QUEUE"],
+    "table_smem": ["-DV_TABLE_SMEM=1024"],
+}
+# the binom_cdf instantiation every build is timed on (float64 k and n),
+# whose SASS the binom section counts: csrc/stats.cu's, a variant's
+SASS_BINOM = {"default": "binom_cdf_kernelINS_13BinomOperandsIdd",
+              "variant": "v_binom_cdf_kernelIdd"}
+SASS_OPS = ("DFMA", "DMUL", "DADD", "MUFU.RCP64H", "CALL", "BRA", "BSSY")
+SECTIONS = ("band_counts", "tail", "binom")
+BINOM_INPUTS = ("e2e", "chromosome", "long", "one_live", "live_%d" % 873)
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+TAIL_ARGTYPES = [_P, _P, _I, _I, _D, _D, _P, _I, _P, _I] + [_P] * 5
+E2E_CONTIG = dict(seed=77, contigs=("chr1",), contig_len=[3_600_000],
+                  n_variants_per_contig=[7_500],
+                  n_reads_per_contig=[300_000], error_rate=0.01)
+LIVE_PACKED = 873        # live elements packed into four blocks
 
 
-def _build(work: str) -> dict:
+def _build(work: str, sections) -> dict:
     """{name: CDLL}: the ablation source (the first port's kernel, the
-    cooperative tail) and csrc/mesh.cu once a VARIANTS entry, one nvcc
-    each, all started together; registers and spills printed."""
+    cooperative tail, an empty kernel), csrc/mesh.cu once a VARIANTS entry,
+    and csrc/stats.cu and STATS_SOURCE once a STATS_VARIANTS entry (the
+    sections that need them), one nvcc each, all started together;
+    registers and spills printed."""
     from ..utils import build
+    stats = os.path.join(build.CSRC, "stats.cu")
     src = os.path.join(work, "ablation.cu")
     with open(src, "w") as fh:
-        fh.write(SOURCE % {"stats": os.path.join(build.CSRC, "stats.cu")})
+        fh.write(SOURCE % {"stats": stats})
     jobs = {"ablation": (src, [])}
-    for name, defines in VARIANTS.items():
-        jobs[name] = (os.path.join(build.CSRC, "mesh.cu"), defines)
+    if "band_counts" in sections:
+        for name, defines in VARIANTS.items():
+            jobs[name] = (os.path.join(build.CSRC, "mesh.cu"), defines)
+    if "binom" in sections:
+        vsrc = os.path.join(work, "stats_variants.cu")
+        with open(vsrc, "w") as fh:
+            fh.write(STATS_SOURCE % {"stats": stats})
+        for name, defines in STATS_VARIANTS.items():
+            jobs[name] = (stats, []) if defines is None else (vsrc, defines)
     procs = {}
     for name, (path, defines) in jobs.items():
         cmd = [build.find_nvcc()] + build.NVCC_FLAGS + defines + [
@@ -280,16 +648,22 @@ def _build(work: str) -> dict:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed for %s:\n%s" % (name, out))
+        kernel = None
         for line in out.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = m.group(1)
             if "registers" in line or "spill" in line and " 0 bytes spill" \
                     not in line:
-                print("   ptxas [%s]: %s" % (name, line.strip()))
+                print("   ptxas [%s] %s: %s" % (name, (kernel or "")[:60],
+                                              line.strip()))
         libs[name] = ctypes.CDLL(os.path.join(work, "lib%s.so" % name))
     return libs
 
 
-def _sass_atomics(lib_path: str) -> dict:
-    """RED / ATOM instruction counts in band_counts_kernel's SASS."""
+def _sass_counts(lib_path: str, fn_part: str, ops) -> dict:
+    """Counts of the instructions `ops` in the SASS of the functions whose
+    names hold fn_part."""
     from ..utils import build
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
@@ -302,11 +676,18 @@ def _sass_atomics(lib_path: str) -> dict:
         if m:
             fn = m.group(1)
             continue
-        if fn and "band_counts_kernel" in fn:
-            for op in ("REDG", "RED.", "ATOMG", "ATOMS", "ATOM."):
-                if re.search(r"\b" + re.escape(op), line):
-                    out[op.rstrip(".")] = out.get(op.rstrip("."), 0) + 1
+        if fn and fn_part in fn:
+            for op in ops:
+                if re.search(r"\b" + re.escape(op) + r"\b", line):
+                    key = op.rstrip(".")
+                    out[key] = out.get(key, 0) + 1
     return out
+
+
+def _sass_atomics(lib_path: str) -> dict:
+    """RED / ATOM instruction counts in band_counts_kernel's SASS."""
+    return _sass_counts(lib_path, "band_counts_kernel",
+                        ("REDG", "RED.", "ATOMG", "ATOMS", "ATOM."))
 
 
 def _time(fn, iters):
@@ -335,10 +716,21 @@ def _in_turns(fns: dict, iters: int) -> dict:
 
 def _on_card(fns: dict, iters: int) -> dict:
     """{name: (card ms, device activities, whole)} a call, by the profiler
-    (utils/trace.device_activity)."""
+    (utils/trace.device_activity), in two passes (the second in reverse
+    order): the mean card ms, whole only if both windows were."""
     from ..utils.trace import device_activity
-    return {k: device_activity(f, iters, log=lambda line, k=k: print(
-        "   %s: %s" % (k, line), flush=True)) for k, f in fns.items()}
+    passes = [{}, {}]
+    for seen, order in zip(passes, (list(fns), list(fns)[::-1])):
+        for k in order:
+            seen[k] = device_activity(fns[k], iters, log=lambda line, k=k:
+                                      print("   %s: %s" % (k, line),
+                                            flush=True))
+    out = {}
+    for k in fns:
+        a, b = passes[0][k], passes[1][k]
+        out[k] = a or b if a is None or b is None else \
+            ((a[0] + b[0]) / 2, a[1], a[2] and b[2])
+    return out
 
 
 def _chromosome_input(n_reads: int, n_rows: int, n_vars: int, work: str):
@@ -360,13 +752,241 @@ def _chromosome_input(n_reads: int, n_rows: int, n_vars: int, work: str):
         table_arrays(vt)
 
 
+def _e2e_input(work: str):
+    """Smoke phase 6's first contig as the step's input: datagen's chr1 at
+    chip_smoke.e2e_phase's shape (seed 77, 300,000 read pairs over 3.6 Mbp,
+    7,500 variants; generated alone, so the same genome and variants with
+    other reads), its first 262,144 rows and its het table."""
+    from ..dist import multihost
+    from ..io import bam as bamio
+    from ..kernels.alleles import pack_reads
+    from . import datagen
+    d = os.path.join(work, "e2e")
+    os.makedirs(d)
+    vcf, bam, data = datagen.write_fixture_dir(d, **E2E_CONTIG)
+    bd = bamio.read_bam(bam)
+    return pack_reads(bd, rows=np.flatnonzero(bd.refid == 0)[:1 << 18]) + \
+        multihost.device_table(vcf, data.sample, "")
+
+
+def _binom_section(args, libs, work: str, smi: str, chromosome) -> dict:
+    """binom_cdf and the tail's test body, part by part (STATS_VARIANTS),
+    on three inputs: phase 6's first contig (_e2e_input) and phase 3's
+    reads (the connection tests of the step's merged band, 56,960 and
+    800,000 of them; for binom_cdf the float64 operands the earlier wrapper
+    made), and the long fractions of layouts.binom_long (binom_cdf) and
+    layouts.band_long (the tail); then the live elements of phase 6's
+    contig alone (the one with the most terms; LIVE_PACKED of them in
+    four blocks).  Beside them an empty kernel on each grid (the launch
+    floor) and, on the step's inputs, conflicting_config_p's route as the
+    earlier design built it and as it is.  Every variant is held against
+    the plain version (p within 1e-12; the tail's prune equal wherever |p
+    - threshold| > 1e-12); calls timed by CUDA events in turns, card times
+    from whole profiler windows."""
+    import torch
+    from ..dist import mesh as TM
+    from ..kernels import alleles as K
+    from ..kernels import stats as S
+    from ..utils import build
+    from . import layouts
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    main_lib = build.get_lib()
+    main_lib.empty_grid_launch.argtypes = [_I, _P]
+    cdf_fn, tail_fn = {}, {}     # each build's two launchers
+    for v, defines in STATS_VARIANTS.items():
+        names = ("binom_cdf_launch", "band_prune_launch") if defines is None \
+            else ("variant_binom_launch", "variant_band_prune_launch")
+        cdf_fn[v], tail_fn[v] = (getattr(libs[v], f) for f in names)
+        cdf_fn[v].argtypes = S.BINOM_ARGTYPES
+        tail_fn[v].argtypes = TAIL_ARGTYPES
+    table = S.lgamma_table(dev)
+    out = {"lgamma_table_mismatches": S.lgamma_table_mismatches(dev),
+           "inputs": {}, "sass": {}}
+    if args.sass_out:
+        from ..utils import build as B
+        tool = os.path.join(os.path.dirname(B.find_nvcc()), "cuobjdump")
+        res = subprocess.run([tool, "-sass", os.path.join(
+            work, "libdefault.so")], capture_output=True, text=True)
+        keep = False
+        with open(args.sass_out, "w") as fh:
+            for line in res.stdout.splitlines():
+                if "Function :" in line:
+                    keep = SASS_BINOM["default"] in line
+                if keep:
+                    fh.write(line + "\n")
+    for v, defines in STATS_VARIANTS.items():
+        fn = SASS_BINOM["default" if defines is None else "variant"]
+        out["sass"][v] = _sass_counts(os.path.join(work, "lib%s.so" % v),
+                                      fn, SASS_OPS)
+        print("   SASS of %s in %s: %s" % (fn, v, out["sass"][v]),
+              flush=True)
+    print("   lgamma table: %d entries, %d replaced by the kernels' lgamma"
+          % (table.numel(), out["lgamma_table_mismatches"]), flush=True)
+    thr, band = 0.01, 8
+
+    def step_band(arrs):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+        vidx, allele = K.assign_alleles_device(*t, 10)
+        return TM.band_counts(vidx, allele, len(arrs[3]), band)
+
+    want_in = set(args.binom_inputs)
+    bands = {}
+    if want_in & {"e2e", "one_live", "live_%d" % LIVE_PACKED}:
+        bands["e2e"] = step_band(_e2e_input(work))
+    if "chromosome" in want_in:
+        bands["chromosome"] = step_band(chromosome)
+    if "long" in want_in:
+        lc, lp = layouts.band_long(8192, band, seed=0)
+        bands["long"] = (torch.from_numpy(lc).to(dev),
+                         torch.from_numpy(lp).to(dev))
+    cdf_in = {}
+    for name in set(bands) - {"long"}:
+        cfg = S.band_configs(bands[name][1])
+        noise = S.noise_from_counts(bands[name][0])
+        sup, total, ps = S._conflict_args(*cfg, noise)
+        cdf_in[name] = tuple(t.contiguous() for t in torch.broadcast_tensors(
+            sup, total, ps)) + ((cfg, noise),)
+    if "long" in want_in:
+        k, n, p = (torch.from_numpy(x).to(dev) for x in layouts.binom_long(
+            65_536, seed=0))
+        cdf_in["long"] = (k.double(), n.double(), p, None)
+    if "e2e" in bands:
+        kf, nf, pf = (t.reshape(-1) for t in cdf_in["e2e"][:3])
+        terms = S.binom_cdf_terms(kf, nf, pf)
+        live = torch.nonzero(terms > 0).flatten()
+        one = int(torch.argmax(terms))
+        packed = live.repeat(LIVE_PACKED // max(len(live), 1) +
+                             1)[:LIVE_PACKED]
+        cdf_in["one_live"] = (kf[one:one + 1], nf[one:one + 1],
+                              pf[one:one + 1], None)
+        cdf_in["live_%d" % LIVE_PACKED] = (kf[packed], nf[packed],
+                                           pf[packed], None)
+
+    for name in [x for x in BINOM_INPUTS if x in want_in]:
+        kf, nf, pf, route = cdf_in[name]
+        want = S.binom_cdf_plain(kf, nf, pf)
+        terms = S.binom_cdf_terms(kf, nf, pf)
+        count = want.numel()
+        fns, outs = {}, {}
+        for v in STATS_VARIANTS:
+            a, o, keep = S.binom_launch_args(kf, nf, pf, dev)
+
+            def fn(v=v, a=a, keep=keep):
+                err = cdf_fn[v](*a)
+                if err:
+                    raise RuntimeError("%s binom_cdf: CUDA error %d"
+                                       % (v, err))
+            fns["binom/" + v], outs[v] = fn, o
+        fns["empty_grid"] = lambda count=count: main_lib.empty_grid_launch(
+            count, stream)
+        if route is not None:
+            cfg, noise = route
+
+            def earlier_route(cfg=cfg, noise=noise):
+                sup, total, ps = S._conflict_args(*cfg, noise)
+                ops = [t.contiguous() for t in torch.broadcast_tensors(
+                    sup, total, ps)]
+                args_, o, keep = S.binom_launch_args(*ops, dev)
+                cdf_fn["earlier"](*args_)
+                o = torch.where(total - sup > 0, o, 1.0)
+                return torch.where(sup == 0, 0.0, o)
+            fns["route_earlier"] = earlier_route
+            fns["route_now"] = lambda cfg=cfg, noise=noise: \
+                S.conflicting_config_p(*cfg, noise)
+            route_want = S.conflict_terms(*cfg, noise)[0]
+            for r in ("route_earlier", "route_now"):
+                gap = float((fns[r]() - route_want).abs().max())
+                if gap > 1e-12:
+                    raise RuntimeError("%s differs from the plain conflict "
+                                       "test on %s by %g" % (r, name, gap))
+        for v in STATS_VARIANTS:
+            fns["binom/" + v]()
+        torch.cuda.synchronize()
+        gaps = {v: float((outs[v] - want).abs().max()) for v in outs}
+        if max(gaps.values()) > 1e-12:
+            raise RuntimeError("a binom_cdf variant differs from the plain "
+                               "version on %s: %s" % (name, gaps))
+        if name in bands:
+            counts, pair = bands[name]
+            twant = S.band_prune_plain(counts, pair, thr)
+            c_terms = S.conflict_terms(*S.band_configs(pair),
+                                       S.noise_from_counts(counts))[1]
+            M = counts.shape[0]
+            partials = torch.empty(2 * S.NOISE_PARTIALS, dtype=torch.int64,
+                                   device=dev)
+            nl = ctypes.c_int(0)
+            for v in STATS_VARIANTS:
+                res = [torch.empty((M, band), dtype=dt, device=dev)
+                       for dt in (torch.float64, torch.bool, torch.bool)]
+
+                def tail(v=v, res=res):
+                    err = tail_fn[v](
+                        counts.data_ptr(), pair.data_ptr(), M, band, thr,
+                        1e-3, partials.data_ptr(), S.NOISE_PARTIALS,
+                        table.data_ptr(), table.numel(), res[0].data_ptr(),
+                        res[1].data_ptr(), res[2].data_ptr(),
+                        ctypes.addressof(nl), stream)
+                    if err:
+                        raise RuntimeError("%s band_prune: CUDA error %d"
+                                           % (v, err))
+                tail()
+                torch.cuda.synchronize()
+                sure = (twant[0] - thr).abs() > 1e-12
+                gap = float((res[0] - twant[0]).abs().max())
+                if gap > 1e-12 or not torch.equal(res[1][sure],
+                                                  twant[1][sure]):
+                    raise RuntimeError("%s band_prune differs from the plain "
+                                       "tail on %s (p gap %g)" % (v, name,
+                                                                  gap))
+                fns["tail/" + v] = tail
+            fns["tail_empty_grid"] = lambda count=M * band: \
+                main_lib.empty_grid_launch(count, stream)
+        ms = _in_turns(fns, args.iters)
+        card = _on_card(fns, args.iters)
+        res = {"elements": count, "live": int((terms > 0).sum()),
+               "terms": int(terms.sum()), "max_terms": int(terms.max()),
+               "ms": ms, "card_ms_activities_whole": card,
+               "gaps": gaps}
+        if name in bands:
+            res.update(tail_pairs=int(c_terms.numel()),
+                       tail_live=int((c_terms > 0).sum()),
+                       tail_terms=int(c_terms.sum()))
+        out["inputs"][name] = res
+        print("[binom %s] %d elements, %d live, %d fraction terms (max %d)%s"
+              % (name, count, res["live"], res["terms"], res["max_terms"],
+                 "; the tail: %d pairs, %d live, %d terms"
+                 % (res["tail_pairs"], res["tail_live"], res["tail_terms"])
+                 if name in bands else ""), flush=True)
+        for f in fns:
+            c = card[f]
+            print("[binom %s] %-34s call %.4f ms (CUDA events); on the card "
+                  "%s; on %s" % (name, f, ms[f], c and "%.5f ms in %g device "
+                                 "activities a call (%s)" % (
+                                     c[0], c[1],
+                                     "whole" if c[2] else "not whole"), smi),
+                  flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1 << 18)
     ap.add_argument("--vars", type=int, default=100_000)
     ap.add_argument("--reads", type=int, default=5_000_000)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help="comma-separated, of %s" % ", ".join(SECTIONS))
+    ap.add_argument("--binom-inputs", default=",".join(BINOM_INPUTS),
+                    help="comma-separated, of %s" % ", ".join(BINOM_INPUTS))
+    ap.add_argument("--sass-out", default=None,
+                    help="write the default build's binom_cdf SASS here")
     args = ap.parse_args(argv)
+    args.binom_inputs = [x for x in args.binom_inputs.split(",") if x]
+    args.sections = [x for x in args.sections.split(",") if x]
+    if not set(args.sections) <= set(SECTIONS):
+        ap.error("--sections takes %s" % ", ".join(SECTIONS))
 
     import torch
     if not torch.cuda.is_available():
@@ -394,31 +1014,39 @@ def _run(args, work: str, smi: str) -> dict:
 
     dev = torch.device("cuda")
     build.get_lib()
-    sass = _sass_atomics(build.LIB_PATH)
-    print("band_counts_kernel SASS atomics: %s" % sass, flush=True)
-    libs = _build(work)
+    record = {"card": smi}
+    if "band_counts" in args.sections:
+        sass = _sass_atomics(build.LIB_PATH)
+        print("band_counts_kernel SASS atomics: %s" % sass, flush=True)
+        record["sass_band_counts_kernel"] = sass
+    libs = _build(work, args.sections)
     lib = libs["ablation"]
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.ablation_launch.argtypes = [I, P, P, I, I, I, I, P, P, P, P]
-    lib.coop_launch.argtypes = [P, P, I, I, D, D, P, I, P, P, P, P]
+    lib.coop_launch.argtypes = [P, P, I, I, D, D, P, I, P, I, P, P, P, P]
     lib.coop_blocks.argtypes = [I]
-    lib.band_prune_launch.argtypes = [P, P, I, I, D, D, P, I, P, P, P, P, P]
+    lib.band_prune_launch.argtypes = TAIL_ARGTYPES
     for name in VARIANTS:
-        libs[name].band_counts_launch.argtypes = [P] * 2 + [I] * 4 + [P] * 5
+        if name in libs:
+            libs[name].band_counts_launch.argtypes = [P] * 2 + [I] * 4 + \
+                [P] * 5
     stream = torch.cuda.current_stream(dev).cuda_stream
     band = 8
     wb = torch.zeros(1, dtype=torch.int32, device=dev)
     nb = ctypes.c_int(0)
 
-    gen = _gen(args.rows, 128, args.vars)
-    order = np.argsort(gen[2][:, 0], kind="stable")
-    inputs = {
-        "chromosome": _chromosome_input(args.reads, args.rows, args.vars,
-                                        work),
-        "dense": gen,
-        "dense_sorted": tuple(a[order] for a in gen[:3]) + gen[3:]}
-    record = {"card": smi, "sass_band_counts_kernel": sass, "band_counts": {},
-              "tail": {}}
+    chromosome = None
+    if "band_counts" in args.sections or "binom" in args.sections and \
+            "chromosome" in args.binom_inputs:
+        chromosome = _chromosome_input(args.reads, args.rows, args.vars,
+                                       work)
+    inputs = {}
+    if "band_counts" in args.sections:
+        gen = _gen(args.rows, 128, args.vars)
+        order = np.argsort(gen[2][:, 0], kind="stable")
+        inputs = {"chromosome": chromosome, "dense": gen,
+                  "dense_sorted": tuple(a[order] for a in gen[:3]) + gen[3:]}
+        record["band_counts"] = {}
     for name, arrs in inputs.items():
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
         vidx, allele = K.assign_alleles_device(*t, 10)
@@ -487,7 +1115,9 @@ def _run(args, work: str, smi: str) -> dict:
                  st["window_blocks"]), flush=True)
         del vidx, allele, want, counts, pair, got, t
 
-    for m in (7120, args.vars):
+    if "tail" in args.sections:
+        record["tail"] = {}
+    for m in ((7120, args.vars) if "tail" in args.sections else ()):
         c_np, p_np = layouts.band_tail(m, band, seed=m)
         counts = torch.from_numpy(c_np).to(dev)
         pair = torch.from_numpy(p_np).to(dev)
@@ -498,6 +1128,7 @@ def _run(args, work: str, smi: str) -> dict:
         pc = torch.empty((m, band), dtype=torch.float64, device=dev)
         prc = torch.empty((m, band), dtype=torch.bool, device=dev)
         unc = torch.empty((m, band), dtype=torch.bool, device=dev)
+        table = S.lgamma_table(dev)
         blocks = lib.coop_blocks(m * band)
         if 2 * blocks > partials.numel():
             raise RuntimeError("%d cooperative blocks" % blocks)
@@ -505,6 +1136,7 @@ def _run(args, work: str, smi: str) -> dict:
         def coop():
             err = lib.coop_launch(counts.data_ptr(), pair.data_ptr(), m, band,
                                   thr, 1e-3, partials.data_ptr(), blocks,
+                                  table.data_ptr(), table.numel(),
                                   pc.data_ptr(), prc.data_ptr(),
                                   unc.data_ptr(), stream)
             if err:
@@ -523,9 +1155,9 @@ def _run(args, work: str, smi: str) -> dict:
         def two_launches():
             err = lib.band_prune_launch(
                 counts.data_ptr(), pair.data_ptr(), m, band, thr, 1e-3,
-                partials.data_ptr(), S.NOISE_PARTIALS, pc.data_ptr(),
-                prc.data_ptr(), unc.data_ptr(), ctypes.addressof(launches),
-                stream)
+                partials.data_ptr(), S.NOISE_PARTIALS, table.data_ptr(),
+                table.numel(), pc.data_ptr(), prc.data_ptr(), unc.data_ptr(),
+                ctypes.addressof(launches), stream)
             if err:
                 raise RuntimeError("band_prune_launch: CUDA error %d" % err)
         fns = {"three_calls": lambda: S.prune_mask(
@@ -548,6 +1180,8 @@ def _run(args, work: str, smi: str) -> dict:
                   flush=True)
         print("[tail M %d] cooperative grid %d blocks; %d pruned"
               % (m, blocks, int(want[1].sum())), flush=True)
+    if "binom" in args.sections:
+        record["binom"] = _binom_section(args, libs, work, smi, chromosome)
     return record
 
 

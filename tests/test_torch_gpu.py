@@ -431,3 +431,153 @@ def test_conflict_prune_kernel_matches_plain(cuda):
             assert g.dtype == torch.bool
             np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
         assert 0 < int(want[1].sum()) < len(a)
+
+
+def _live_case(case, seed=5):
+    """(k, n, p) float64 numpy inputs of binom_cdf with a given share of
+    elements left for the fraction after the edge rules."""
+    rng = np.random.default_rng(seed)
+    if case == "edges":
+        k = np.array([0., 5., 5., -1., 3., 3., 2.7, 0., 7., 4., 9.5, -0.5])
+        n = np.array([0., 5., 4., 3., 10., 10., 9., 12., 9., 4., 10., 6.])
+        p = np.array([0.5, 0.5, 0.5, 0.5, 0.0, 1.0, 0.3, 0.02, 0.999, 0.7,
+                      0.9, 0.4])
+        return k, n, p
+    if case == "n_100000":
+        n = np.full(2000, 100_000.0)
+        p = rng.uniform(0.001, 0.999, 2000)
+        return np.floor(n * p), n, p
+    if case == "binom_long":
+        k, n, p = layouts.binom_long(65_536, seed=1)
+        return k.astype(np.float64), n.astype(np.float64), p
+    size = 56_960
+    n = rng.integers(1, 80, size).astype(np.float64)
+    k = np.floor(n * rng.random(size))
+    p = rng.uniform(0.97, 0.994, size)
+    share = {"all_live": 1.0, "live_1.5": 0.015, "none_live": 0.0}[case]
+    dead = rng.random(size) >= share
+    k[dead] = np.where(rng.random(int(dead.sum())) < 0.5, n[dead], -1.0)
+    return k, n, p
+
+
+@pytest.mark.parametrize("case", ["edges", "all_live", "live_1.5",
+                                  "none_live", "binom_long", "n_100000"])
+def test_binom_cdf_kernel_on_its_live_shares(cuda, case):
+    """binom_cdf on the card == its plain version within 1e-12 on the edge
+    rules, with every element, 1.5% of them and none left for a fraction,
+    on layouts.binom_long's long fractions and at n = 100,000 at the mean
+    (237 terms); one launch counted."""
+    from phaser_tpu_torch.kernels import stats as S
+    k, n, p = (_t(x, cuda) for x in _live_case(case))
+    want = S.binom_cdf_plain(k, n, p)
+    terms = S.binom_cdf_terms(k, n, p)
+    before = S.LAUNCHES["binom_cdf"]
+    got = S.binom_cdf(k, n, p)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["binom_cdf"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-12)
+    if case == "none_live":
+        assert int(terms.max()) == 0
+    elif case == "n_100000":
+        assert int(terms.max()) >= 200
+    else:
+        assert int(terms.max()) > 0
+
+
+def test_binom_cdf_kernel_takes_operands_as_they_come(cuda):
+    """int32 k and n, k non-contiguous, p with stride 0, p a 0-d tensor and
+    a Python float: the kernel reads each in place and gives the float64
+    contiguous call's values bit for bit, within 1e-12 of the plain
+    version."""
+    from phaser_tpu_torch.kernels import stats as S
+    rng = np.random.default_rng(9)
+    n = rng.integers(0, 200, (400, 8)).astype(np.int32)
+    kk = (n * rng.random(n.shape)).astype(np.int32)
+    wide = np.zeros((400, 16), np.int32)
+    wide[:, ::2] = kk
+    k_strided = _t(wide, cuda)[:, ::2]
+    assert not k_strided.is_contiguous()
+    ps = 0.9817
+    p0 = torch.tensor(ps, dtype=torch.float64, device=cuda)
+    ref = S.binom_cdf(_t(kk.astype(np.float64), cuda),
+                      _t(n.astype(np.float64), cuda),
+                      torch.full(n.shape, ps, dtype=torch.float64,
+                                 device=cuda))
+    want = S.binom_cdf_plain(_t(kk, cuda), _t(n, cuda), p0)
+    for k, p in ((_t(kk, cuda), p0), (k_strided, p0),
+                 (_t(kk, cuda), p0.expand(n.shape)),
+                 (k_strided, ps), (_t(kk, cuda).t().contiguous().t(), p0)):
+        got = S.binom_cdf(k, _t(n, cuda), p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    np.testing.assert_allclose(ref.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-12)
+
+
+def test_conflicting_config_p_on_the_card(cuda):
+    """conflicting_config_p on CUDA tensors (one binom_cdf launch that
+    reads the int32 counts and the noise rate on the card and takes the
+    edge rules: one device activity a call) == the plain conflict test
+    within 1e-12, with its edge rules exact; a Python-float noise rate and
+    int64 counts give the same p; floating-point counts raise."""
+    from phaser_tpu_torch.kernels import stats as S
+    from phaser_tpu_torch.utils.trace import device_activity
+    counts, pair = layouts.band_tail(7120, 8, seed=3)
+    c, b = _t(counts, cuda), _t(pair, cuda)
+    cfg = S.band_configs(b)
+    noise = S.noise_from_counts(c)
+    want = S.conflict_terms(*cfg, noise)[0]
+    before = S.LAUNCHES["binom_cdf"]
+    got = S.conflicting_config_p(*cfg, noise)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["binom_cdf"] == before + 1
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-12)
+    edge = (want == 0) | (want == 1)
+    assert torch.equal(got[edge], want[edge]) and int(edge.sum()) > 0
+    assert torch.equal(S.conflicting_config_p(*(t.long() for t in cfg),
+                                              float(noise)), got)
+    seen = device_activity(lambda: S.conflicting_config_p(*cfg, noise), 5)
+    assert seen is not None and seen[1] == 1, seen
+    with pytest.raises(ValueError, match="integer counts"):
+        S.conflicting_config_p(cfg[0].double(), cfg[1], cfg[2], noise)
+
+
+@pytest.mark.parametrize("inputs", ["band_tail_7120", "band_tail_100000",
+                                    "band_long"])
+def test_band_prune_kernel_holds_its_plain_version(cuda, inputs):
+    """band_prune on the card against band_prune_plain: p within 1e-12,
+    prune equal wherever |p - threshold| > 1e-12, and two device
+    activities a call (the profiler, utils/trace.device_activity)."""
+    from phaser_tpu_torch.kernels import stats as S
+    from phaser_tpu_torch.utils.trace import device_activity
+    if inputs == "band_long":
+        counts, pair = layouts.band_long(8192, 8, seed=2)
+    else:
+        m = int(inputs.rsplit("_", 1)[1])
+        counts, pair = layouts.band_tail(m, 8, seed=m)
+    c, b = _t(counts, cuda), _t(pair, cuda)
+    want = S.band_prune_plain(c, b, 0.01)
+    got = S.band_prune(c, b, 0.01)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=0, atol=1e-12)
+    sure = (want[0] - 0.01).abs() > 1e-12
+    assert torch.equal(got[1][sure], want[1][sure])
+    seen = device_activity(lambda: S.band_prune(c, b, 0.01), 5)
+    assert seen is not None and seen[1] == 2, seen
+
+
+def test_lgamma_table_is_the_kernels_lgamma(cuda):
+    """The prefactor's log-factorial table: torch.lgamma's values, each
+    replaced by the kernels' own lgamma where the two differ (counted)."""
+    from phaser_tpu_torch.kernels import stats as S
+    table = S.lgamma_table(cuda)
+    mismatches = S.lgamma_table_mismatches(cuda)
+    torch_lg = torch.arange(S.LGAMMA_TABLE_SIZE, dtype=torch.float64,
+                            device=cuda).lgamma()
+    assert table.numel() == S.LGAMMA_TABLE_SIZE
+    assert torch.isfinite(table[1:]).all() and float(table[1]) == 0.0
+    assert int((table != torch_lg).sum()) == mismatches

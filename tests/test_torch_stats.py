@@ -247,3 +247,159 @@ def test_band_prune_refuses_bad_input_and_counts_no_cpu_launch():
     p, prune, unc = S.band_prune(counts, pair, 0.01)
     assert S.LAUNCHES == before
     assert tuple(p.shape) == (2, 2) and p.dtype == torch.float64
+
+
+def test_binom_cdf_int32_counts_and_0d_p_equal_float64_broadcast():
+    """int32 k and n with a 0-d p (conflicting_config_p's operands on the
+    card) give the float64 broadcast call's values bit for bit."""
+    rng = np.random.default_rng(11)
+    n = rng.integers(0, 300, (500, 8)).astype(np.int32)
+    k = (n * rng.random(n.shape)).astype(np.int32)
+    k[::7] = n[::7]
+    p = torch.tensor(1 - (6 * NOISE + 10 * NOISE ** 2), dtype=torch.float64)
+    got = S.binom_cdf(torch.from_numpy(k), torch.from_numpy(n), p)
+    want = S.binom_cdf(torch.from_numpy(k.astype(np.float64)),
+                       torch.from_numpy(n.astype(np.float64)),
+                       p.expand(n.shape).contiguous())
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+    as_float = S.binom_cdf(torch.from_numpy(k), torch.from_numpy(n),
+                           float(p))
+    assert torch.equal(as_float, want)
+
+
+@pytest.mark.parametrize("noise", [NOISE, "tensor"])
+def test_conflict_operands_equal_conflict_args(noise):
+    """What conflicting_config_p's launch reads on the card
+    (_conflict_counts: int32 counts, the noise rate one float64 element)
+    carries _conflict_args' float64 values exactly: supporting, total and
+    p_success formed from them as the kernel forms them equal its own.
+    int32 contiguous counts are taken as they are, not copied."""
+    cfg_a, cfg_b, other, _ = _conflict_inputs(n=2000, seed=5)
+    ca, cb, co = (torch.from_numpy(x.astype(np.int64))
+                  for x in (cfg_a, cfg_b, other))
+    e = torch.tensor(NOISE, dtype=torch.float64) if noise == "tensor" \
+        else noise
+    a, b, o, ge = S._conflict_counts(ca, cb, co, e, torch.device("cpu"))
+    rs, rt, rp = S._conflict_args(ca, cb, co, e)
+    assert a.dtype == b.dtype == o.dtype == torch.int32
+    assert a.is_contiguous() and tuple(ge.shape) == (1,)
+    assert ge.dtype == torch.float64 and float(ge) == NOISE
+    assert torch.equal(torch.maximum(a, b).double(), rs)
+    assert torch.equal(a.double() + b.double() + o.double(), rt)
+    ee = ge[0]
+    assert float(1.0 - (6.0 * ee + 10.0 * (ee * ee))) == float(rp)
+    taken = S._conflict_counts(a, b, o, ge, torch.device("cpu"))
+    assert [t.data_ptr() for t in taken] == [t.data_ptr()
+                                             for t in (a, b, o, ge)]
+    with pytest.raises(ValueError, match="integer counts"):
+        S._conflict_counts(ca.double(), cb, co, e, torch.device("cpu"))
+
+
+def test_binom_long_matches_scipy_and_takes_long_fractions():
+    """testing/layouts.binom_long (the long-fraction input of the kernel's
+    record): the plain version within 1e-10 of scipy, with at least 50
+    terms near n = 10,000; band_long's connection tests likewise."""
+    from phaser_tpu_torch.testing.layouts import band_long, binom_long
+    k, n, p = binom_long(16_384, seed=3)
+    args = [torch.from_numpy(x) for x in (k, n, p)]
+    np.testing.assert_allclose(S.binom_cdf(*args).numpy(),
+                               binom.cdf(k, n, p), rtol=0, atol=1e-10)
+    terms = S.binom_cdf_terms(*args).numpy()
+    assert terms.min() > 0 and terms[n >= 9000].max() >= 50
+    counts, pair = band_long(256, 8, seed=3)
+    cfg = S.band_configs(torch.from_numpy(pair))
+    noise = S.noise_from_counts(torch.from_numpy(counts))
+    p_band, terms = S.conflict_terms(*cfg, noise)
+    sup = np.maximum(pair[..., 0], pair[..., 1])
+    e = float(noise)
+    ref = binom.cdf(sup, pair.sum(-1), 1 - (6 * e + 10 * e * e))
+    np.testing.assert_allclose(p_band.numpy(), ref, rtol=0, atol=1e-10)
+    assert int(terms.min()) > 0
+
+
+def _recurrence_betacf(a, b, x):
+    """csrc/stats.cu's fraction in float64 torch, element by element as
+    the kernel takes it: the three-term recurrence of the convergents
+    (A, B), every level multiplied through by its denominators (no
+    division), rescaled each term by the power of two of B's exponent, the
+    determinant's stop test at half of BETACF_EPS.  Returns (fraction,
+    terms)."""
+    tiny = S.BETACF_TINY
+    qab, qap, qam = a + b, a + 1.0, a - 1.0
+    A0, B0 = torch.ones_like(x), torch.ones_like(x)
+    A1, B1 = qap.clone(), qap - qab * x
+    B1 = torch.where(B1.abs() < tiny * qap, tiny * qap, B1)
+    det, dn = qap - B1, qap.clone()
+    active = torch.ones(x.shape, dtype=torch.bool)
+    terms = torch.zeros(x.shape, dtype=torch.int32)
+
+    def half_step(c1, c2, A0, B0, A1, B1, det):
+        A2, B2 = c2 * A0 + c1 * A1, c2 * B0 + c1 * B1
+        det = det * -c2
+        guard = B2.abs() < tiny * B1.abs()
+        B2 = torch.where(guard, tiny * B1, B2)
+        det = torch.where(guard, A2 * B1 - A1 * B2, det)
+        return A1, B1, A2, B2, det
+    for m in range(1, S.BETACF_MAX_ITER + 1):
+        if not bool(active.any()):
+            break
+        m2 = 2.0 * m
+        ne, de = m * (b - m) * x, (qam + m2) * (a + m2)
+        no = -(a + m) * (qab + m) * x
+        dn2 = (a + m2) * (qap + m2)
+        nA0, nB0, nA1, nB1, nd = half_step(de, ne * dn, A0, B0, A1, B1, det)
+        nA0, nB0, nA1, nB1, nd = half_step(dn2, no * de, nA0, nB0, nA1, nB1,
+                                           nd)
+        stop = nd.abs() < 0.5 * S.BETACF_EPS * (nB1 * nA0).abs()
+        s = torch.where(stop, 1.0, torch.ldexp(
+            torch.ones_like(x), 1 - torch.frexp(nB1)[1]))
+        A0, B0 = torch.where(active, nA0 * s, A0), torch.where(active,
+                                                              nB0 * s, B0)
+        A1, B1 = torch.where(active, nA1 * s, A1), torch.where(active,
+                                                              nB1 * s, B1)
+        det = torch.where(active, nd * s * s, det)
+        dn = torch.where(active, dn2, dn)
+        terms += active.to(torch.int32)
+        active &= ~stop
+    return A1 / B1, terms
+
+
+@pytest.mark.parametrize("case", ["accuracy", "binom_long", "n_100000"])
+def test_kernel_recurrence_agrees_with_lentz(case):
+    """The card's continued fraction (csrc/stats.cu's division-free
+    recurrence, emulated in float64 torch above, one fraction a lane)
+    against the plain version's Lentz evaluation: within
+    1e-12 as a p-value (the kernel's tolerance against the plain
+    version), in at most 5% more terms than Lentz's in all (its stop test
+    at half of BETACF_EPS waits a few terms longer where the fraction
+    converges slowly, n = 100,000 at the mean).  Run with -s to see the
+    gaps."""
+    from phaser_tpu_torch.testing.layouts import binom_long
+    rng = np.random.default_rng(21)
+    if case == "accuracy":
+        k, n, p = _accuracy_cases(rng, 5000, 3000)
+    elif case == "binom_long":
+        k, n, p = binom_long(3000, seed=4)
+    else:
+        n = np.full(500, 100_000)
+        p = rng.uniform(0.001, 0.999, 500)
+        k = np.floor(n * p).astype(int)
+    k, n, p = (torch.from_numpy(np.asarray(x, np.float64)) for x in (k, n, p))
+    a, b = n - k, k + 1.0
+    x = 1.0 - p
+    lower = x < (a + 1.0) / (a + b + 2.0)
+    fa, fb = torch.where(lower, a, b), torch.where(lower, b, a)
+    fx = torch.where(lower, x, 1.0 - x)
+    lentz, l_terms = S._betacf(fa, fb, fx, torch.ones_like(lower))
+    rec, r_terms = _recurrence_betacf(fa, fb, fx)
+    front = torch.exp(torch.lgamma(a + b) - torch.lgamma(a) -
+                      torch.lgamma(b) + a * torch.log(x) + b * torch.log1p(-x))
+
+    def p_of(cf):
+        return torch.where(lower, front * cf / a, 1.0 - front * cf / b)
+    gap = float((p_of(rec) - p_of(lentz)).abs().max())
+    print("division-free recurrence against Lentz, %s: p %.3g apart, terms "
+          "%d against %d" % (case, gap, int(r_terms.sum()),
+                             int(l_terms.sum())))
+    assert gap < 1e-12, gap
+    assert int(r_terms.sum()) <= 1.05 * int(l_terms.sum())
