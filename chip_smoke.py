@@ -21,11 +21,17 @@ Phases (any failure exits non-zero; nothing here imports jax):
      (nothing uploaded, nothing launched) and reads that all do (none
      dropped);
      the dispatcher's wall with its host items (cProfile) and its device
-     share (torch.profiler); then one 262,144-row launch of each fused
-     kernel against its plain PyTorch version on the card (all four are
-     range joins that take no window; the delta kernel gets per-row
-     [rp_min, rp_max]; hits compared after a (read, var) sort; timed with
-     CUDA events); then the four range-join kernels on the layouts of
+     share (torch.profiler); then the unpacked affine pair on the first
+     262,144 reads' pack_affine planes: assign_compact_affine through its
+     entry point (one affine_planes launch, counted from 0 just before;
+     its hits equal affine_masked's on the same rows) and the unfused
+     assign_alleles_affine_device on the card against the same entry on
+     CPU tensors (max_abs_err 0 on both planes); then one 262,144-row
+     launch of each fused kernel against its plain PyTorch version on the
+     card (all five are range joins that take no window; the delta kernel
+     gets per-row [rp_min, rp_max]; hits compared after a (read, var)
+     sort; timed with CUDA events); then the five range-join kernels on
+     the layouts of
      testing/layouts.py that reach every branch (rows in random order, a
      table too dense for the shared-memory slice, L of 256 and 384, lo > 0,
      empty rows, variants on first and last bases, a one-entry table, the
@@ -33,7 +39,8 @@ Phases (any failure exits non-zero; nothing here imports jax):
      dispatcher's slice size, duplicate positions, a masked trailing clip
      at the position of an aligned base on a variant), each also with a
      capacity of 4 (exact count past capacity); then a small
-     testing/datagen.py fixture with deletion reads;
+     testing/datagen.py fixture with deletion reads.  A kernel whose
+     profiler window never comes back whole fails the phase;
   4. the kernel-level entries (assign_alleles_pallas_windowed with gather
      and cmp, assign_alleles_pallas with a resident table) on
      tests/test_tpu_hw.py's layout (M = 100k, N = 2^15, narrow regions, the
@@ -45,7 +52,9 @@ Phases (any failure exits non-zero; nothing here imports jax):
      descending rows, duplicate table positions (the search takes the
      first, cmp the last), a window past the end of a table whose length is
      no multiple of 4, pairs of entries whose product of differences
-     vanishes modulo 2^32, 20,077 rows each (no multiple of the row block);
+     vanishes modulo 2^32, 20,077 rows each (no multiple of the row block).
+     A kernel whose profiler window never comes back whole fails the
+     phase;
   5. engine stages #3 pair counting, #4 components and #5 the 2^n scorer at
      and above their size gates, cuda against host: equal results, both
      times printed;
@@ -86,7 +95,12 @@ Phases (any failure exits non-zero; nothing here imports jax):
      this machine need not have jax or pandas).  Each wall is printed
      beside the card's name and power limit, and at the end neither jax,
      phaser_tpu nor pandas may have been imported;
-  9. the sharded step and the multi-process scaffolding (dist/): (a)
+  9. in a process of its own (`chip_smoke.py --phase9 DIR`, which the
+     smoke starts with phase 3's step input and phase 6's fixture in DIR
+     and whose records it reads back from there: a few minutes into a
+     process the profiler returns windows short of their first device
+     records, testing/profiler_age.py), the sharded step and the
+     multi-process scaffolding (dist/): (a)
      dist.mesh.sharded_phasing_step on a one-shard mesh on the card, with
      the connection tests' p-values of its merged band
      (connection_p_values), at one shard's full width: 262,144 rows x 128
@@ -109,7 +123,8 @@ Phases (any failure exits non-zero; nothing here imports jax):
      the tail before (band_configs, noise_from_counts, prune_mask) and
      after (band_prune) in turns, by CUDA events and by the profiler's
      device activities a call (band_prune at most 2); conflicting_config_p's
-     device activities a call (one binom_cdf launch), and the launch floor
+     device activities a call (one binom_cdf launch, counted in a whole
+     window), and the launch floor
      (an empty kernel on the same grid: the mean of its profiler records,
      and whether their window was whole); then
      binom_cdf and band_prune on the long continued fractions of
@@ -125,8 +140,10 @@ Phases (any failure exits non-zero; nothing here imports jax):
 
 Each kernel's `launches` comes from the run of its own path: the e2e cuda
 run for the three nibble/plane kernels, the no-nibble-packer dispatcher run
-for affine_masked, phase 4's entry calls for the planes kernels, and phase
-9's step runs (with their p-values) for the four step kernels.
+for affine_masked, phase 3's assign_compact_affine call for affine_planes
+(no dispatcher path launches it: 0 on the 5M-read call and in the e2e
+run), phase 4's entry calls for the planes kernels, and phase 9's step runs
+(with their p-values) for the four step kernels.
 
 Each kernel's `ms` is the wrapper call timed with CUDA events over 20 calls
 (the packed buffer's fill included, and host overhead where the host cannot
@@ -139,18 +156,19 @@ active step after a discarded warm-up step of the same calls, and is whole
 when its device records equal the runtime's enqueues: late in a long
 process a window has come back short of its first device records), and
 `whole` whether the window it was read from was whole (after five windows
-the last one that saw the function; phase 9 fails when a step kernel's or
-the tail's window is not whole).  `plain_ms` is event-timed.  The share of bound
-is taken against `ms`.
+the last one that saw the function; phases 3-4 and 9 fail when a
+kernel's or the tail's window is not whole).  `plain_ms` is event-timed.
+The share of bound is taken against `ms`.
 
 Each kernel's `bound_ms` is the larger of the bytes this run's inputs need
 moved over 3.35 TB/s and its integer operations over 67 T/s (the card's
-non-tensor rate); for the four range joins the bytes are what the data
+non-tensor rate); for the five range joins the bytes are what the data
 needs (row parameters or the refpos plane, the table entries between the
 lowest and the highest position of the launch's rows, for delta_nibble 8 B
 of [rp_min, rp_max] per row and `start` and the delta row only of the rows
 with a table entry in their range, one 32-byte sector of a code plane per
-hit, 8 B per hit written; for the planes kernels 4 B of refpos read and 8 B
+hit (for affine_planes one of the codes and one of the quals plane), 8 B
+per hit written; for the planes kernels 4 B of refpos read and 8 B
 written per base, 2 B of codes and quals per hit, the table entries under
 the launch's windows), and the line printed before the record also gives
 the "every input byte once" figure.  The step kernels' bounds: for
@@ -195,6 +213,7 @@ REPLACES = {  # the TPU program each kernel (or kernel mode) replaces
     "delta_nibble": "phaser_tpu/kernels/alleles.py:424",
     "plane": "phaser_tpu/kernels/alleles.py:1038",
     "affine_masked": "phaser_tpu/kernels/alleles.py:246",
+    "affine_planes": "phaser_tpu/kernels/alleles.py:217",
     "planes": "phaser_tpu/kernels/alleles.py:673",
     "planes_resident": "phaser_tpu/kernels/alleles.py:627",
     "planes_cmp": "phaser_tpu/kernels/alleles.py:757",
@@ -304,8 +323,8 @@ def same_hits(a, b, what):
 
 def sorted_hits(packed):
     import numpy as np
-    from phaser_tpu_torch.kernels.alleles import decode_packed_hits
-    r, v, a, mc, nh = decode_packed_hits(packed.cpu().numpy())
+    from phaser_tpu_torch.kernels.alleles import fetch_packed_hits
+    r, v, a, mc, nh = fetch_packed_hits(packed)
     order = np.lexsort((v, r))
     return nh, np.stack([r[order], v[order], a[order], mc[order]])
 
@@ -370,6 +389,7 @@ KERNEL_FN = {  # the __global__ function behind each kernel entry
     "affine_nibble": "affine_nibble_kernel",
     "delta_nibble": "delta_nibble_kernel", "plane": "plane_kernel",
     "affine_masked": "affine_masked_kernel",
+    "affine_planes": "affine_planes_kernel",
     "planes": "planes_windowed_kernel",
     "planes_resident": "planes_resident_kernel",
     "planes_cmp": "planes_cmp_kernel",
@@ -467,6 +487,8 @@ def kernel_vs_plain(name, kernel, plain, n_rows):
     dev = device_ms(name, kernel)
     check(dev is not None, "%s: the profiler saw no launch of %s"
           % (name, KERNEL_FN[name]))
+    check(dev[3], "%s: no profiler window of %d came back whole"
+          % (name, dev[2]))
     print("   %-13s wrapper call %.4f ms (%.4f, %.4f); on the card %.4f ms, "
           "kernel alone %.4f ms   plain %.4f ms (%.4f, %.4f)   (%d rows)"
           % (name, ms, k1, k2, dev[0], dev[1], plain_ms, p1, p2, n_rows),
@@ -805,6 +827,64 @@ def chromosome_phase(tmp, device):
     def masked_plain():
         return K.affine_masked_plain(*m_in, table, cap)
 
+    # the unpacked affine pair on the same reads: pack_affine's codes and
+    # quals planes, BASEQ applied by the affine_planes kernel
+    codes_a, quals_a, ia_a, st_a, lo_a, hi_a = K.pack_affine(
+        bd.select(np.arange(n)))
+    check(np.array_equal(ia_a, aff_all[:n]), "pack_affine and "
+          "pack_affine_nibble classify the reads differently")
+    st_a, lo_a, hi_a = (np.where(ia_a, x, 0).astype(np.int32)
+                        for x in (st_a, lo_a, hi_a))
+    pl_in = [T(x) for x in (codes_a, quals_a, st_a, lo_a, hi_a)]
+
+    def planes_k():
+        return K.assign_compact_affine(*pl_in, table, 10, cap)
+
+    def planes_plain():
+        return K.affine_planes_plain(*pl_in, table, 10, cap)
+
+    # its own path: the entry point on phase 3's reads, counted from 0 just
+    # before the call and read just after; its hits are the masked-plane
+    # program's on the same rows
+    K.reset_launches()
+    packed = planes_k()
+    torch.cuda.synchronize()
+    planes_launches = K.LAUNCHES["affine_planes"]
+    check(planes_launches == 1 and sum(K.LAUNCHES.values()) == 1,
+          "assign_compact_affine launched %s" % dict(K.LAUNCHES))
+    (n_pl, h_pl), (n_m, h_m) = sorted_hits(packed), sorted_hits(masked_k())
+    check(n_pl == n_m > 0 and np.array_equal(h_pl, h_m),
+          "affine_planes: %d hits, affine_masked on the same rows %d, or "
+          "they differ" % (n_pl, n_m))
+    print("   assign_compact_affine: %d hits on %d rows, equal to "
+          "affine_masked's; launches %s" % (n_pl, n, dict(K.LAUNCHES)),
+          flush=True)
+    # the unfused assign_alleles_affine_device: the card against the same
+    # entry on CPU tensors (its plain version), both (N, L) planes
+    vpos_e = table[0]
+    ind_e = torch.stack((table[1], table[2]), 1).to(torch.uint8)
+    ni_e = table[3].to(torch.int8)
+    unfused_in = pl_in + [vpos_e, ind_e, ni_e]
+    K.reset_launches()
+    got_u = K.assign_alleles_affine_device(*unfused_in, 10)
+    torch.cuda.synchronize()
+    unfused_launches = dict(K.LAUNCHES)
+    want_u = K.assign_alleles_affine_device(*[x.cpu() for x in unfused_in], 10)
+    err = max(int((g.cpu().long() - w.long()).abs().max())
+              for g, w in zip(got_u, want_u))
+    hits_u = int((want_u[0] >= 0).sum())
+    check(err == 0 and hits_u == n_pl,
+          "assign_alleles_affine_device: max_abs_err %d, %d hits (the fused "
+          "program %d)" % (err, hits_u, n_pl))
+    check(unfused_launches["planes_table"] == 1,
+          "assign_alleles_affine_device launched %s" % unfused_launches)
+    ms_u = time_ms(lambda: K.assign_alleles_affine_device(*unfused_in, 10),
+                   10)
+    print("   assign_alleles_affine_device: max_abs_err 0 on both planes, "
+          "%d hits (the fused program's), %.4f ms a call; launches %s"
+          % (hits_u, ms_u, unfused_launches), flush=True)
+    del got_u, want_u
+
     sub = bd.select(np.flatnonzero(~aff_all)[:SUB_ROWS])
     codes, quals, refpos = K.pack_reads(sub)
     n_p = codes.shape[0]
@@ -833,6 +913,7 @@ def chromosome_phase(tmp, device):
         return max(span, 0), per_row
     a_under, _ = under(st, st + (hi - lo) - 1, live)
     m_under, _ = under(st_m, st_m + (hi_m - lo_m) - 1, hi_m > lo_m)
+    pl_under, _ = under(st_a, st_a + (hi_a - lo_a) - 1, hi_a > lo_a)
     d_under, d_range = under(rmin, rmax, rmax > 0)
     d_live = int((d_range > 0).sum())   # rows that read their delta row
     p_under, p_range = under(
@@ -842,14 +923,16 @@ def chromosome_phase(tmp, device):
     steps = max(mp.bit_length() - 1, 1)          # binary-search depth
     print("   table entries under the launch's rows: affine_nibble %d, "
           "delta_nibble %d (%d of %d rows have an entry in their range), "
-          "plane %d, affine_masked %d of %d"
-          % (a_under, d_under, d_live, n, p_under, m_under, mp), flush=True)
+          "plane %d, affine_masked %d, affine_planes %d of %d"
+          % (a_under, d_under, d_live, n, p_under, m_under, pl_under, mp),
+          flush=True)
     results, bounds = {}, {}
     for name, k, p, rows in (
             ("affine_nibble", affine, affine_plain, n),
             ("delta_nibble", delta_k, delta_plain, n),
             ("plane", plane, plane_plain, n_p),
-            ("affine_masked", masked_k, masked_plain, n)):
+            ("affine_masked", masked_k, masked_plain, n),
+            ("affine_planes", planes_k, planes_plain, n)):
         err, ms, plain_ms, hits, on_card = kernel_vs_plain(name, k, p, rows)
         results[name] = (err, ms, plain_ms, on_card)
         out_bytes = 8 * hits + 4
@@ -860,6 +943,11 @@ def chromosome_phase(tmp, device):
         elif name == "affine_masked":
             need = rows * 12 + m_under * TABLE_ROW_BYTES + 32 * hits
             every = rows * (12 + L) + tab_bytes
+            ops = rows * 2 * steps + 12 * hits
+        elif name == "affine_planes":
+            # a sector of the codes plane and one of the quals plane a hit
+            need = rows * 12 + pl_under * TABLE_ROW_BYTES + 2 * 32 * hits
+            every = rows * (12 + 2 * L) + tab_bytes
             ops = rows * 2 * steps + 12 * hits
         elif name == "delta_nibble":
             # [rp_min, rp_max] of every row (8 B); start (4 B) and the
@@ -882,12 +970,13 @@ def chromosome_phase(tmp, device):
     from phaser_tpu_torch.dist.multihost import table_arrays
     step_input = K.pack_reads(bd, rows=np.arange(min(STEP_ROWS, len(bd)))) + \
         table_arrays(vt)
-    return (results, bounds, masked_launches["affine_masked"], chrom_launches,
-            step_input)
+    return (results, bounds, {"affine_masked": masked_launches["affine_masked"],
+                              "affine_planes": planes_launches},
+            chrom_launches, step_input)
 
 
 def branch_shapes_phase(device):
-    """The four range-join kernels against their plain versions on the
+    """The five range-join kernels against their plain versions on the
     layouts that reach every branch (testing/layouts.py), 20,000 rows each,
     with room for every hit and with a capacity of 4."""
     import numpy as np
@@ -903,6 +992,7 @@ def branch_shapes_phase(device):
         table = tuple(T(x) for x in layouts.padded_table(d))
         a_in = [T(x) for x in layouts.affine_inputs(d)]
         m_in = [T(x) for x in layouts.masked_inputs(d)]
+        pl_in = [T(x) for x in layouts.affine_planes_inputs(d)]
         d_in = [T(x) for x in layouts.delta_inputs(d)]
         p_in = [T(x) for x in layouts.plane_inputs(d)]
         line = []
@@ -913,6 +1003,9 @@ def branch_shapes_phase(device):
                 ("affine_masked",
                  lambda c: K.assign_compact_affine_masked(*m_in, table, c),
                  lambda c: K.affine_masked_plain(*m_in, table, c)),
+                ("affine_planes",
+                 lambda c: K.assign_compact_affine(*pl_in, table, 10, c),
+                 lambda c: K.affine_planes_plain(*pl_in, table, 10, c)),
                 ("delta_nibble",
                  lambda c: K.assign_compact_delta_nibble(*d_in, table, c),
                  lambda c: K.delta_nibble_plain(*d_in, table, c)),
@@ -995,6 +1088,8 @@ def planes_vs_plain(name, path_out, kernel, plain):
     dev = device_ms(name, kernel)
     check(dev is not None, "%s: the profiler saw no launch of %s"
           % (name, KERNEL_FN[name]))
+    check(dev[3], "%s: no profiler window of %d came back whole"
+          % (name, dev[2]))
     print("   %-15s hits=%d max_abs_err=%d  wrapper call %.4f ms (%.4f, %.4f); "
           "on the card %.4f ms, kernel alone %.4f ms   plain %.4f ms (%.4f, "
           "%.4f)" % (name, hits, err, ms, k1, k2, dev[0], dev[1], plain_ms,
@@ -1114,7 +1209,8 @@ def entries_phase(device):
               "plain version")
     on_card = device_ms("planes_table", lambda: K._launch_planes(
         "planes_launch", "planes", *big[:3], 10, zero, (M, N), table, (0,)))
-    check(on_card is not None, "the profiler saw no planes_table_kernel")
+    check(on_card is not None and on_card[3], "the profiler saw no "
+          "planes_table_kernel in a whole window")
     print("   whole-table mode, M = %d: max_abs_err 0, %.4f ms a call of the "
           "entry, %.4f ms on the card"
           % (M, time_ms(lambda: K.assign_alleles_device(*big, 10), 20),
@@ -1950,11 +2046,12 @@ def step_kernels_vs_plain(name, args, step, smi, device):
     # conflicting_config_p's device activities a call (one binom_cdf
     # launch, nothing formed before it); the launch floor (an empty kernel
     # on the grid of the band's pairs)
-    # (a window that is not whole only loses records, so at most one)
+    # (a window that is not whole only loses records, and could hide a
+    # second activity: the count is read from a whole window)
     route_card = device_all(lambda: S.conflicting_config_p(*cfg, noise))
-    check(route_card is not None and route_card[1] <= 1,
+    check(route_card is not None and route_card[2] and route_card[1] == 1,
           "conflicting_config_p (%s input): %s device activities a call, "
-          "not one launch" % (name, route_card))
+          "not one launch in a whole window" % (name, route_card))
     stats_extra = {
         "elements": n_pairs, "live": int((c_terms > 0).sum()),
         "terms": int(c_terms.sum()),
@@ -2306,6 +2403,49 @@ def sharded_step_phase(step_input, fx, smi, device):
     return results, bounds, launches, extra
 
 
+def phase9_in_child(step_input, fx, tmp):
+    """sharded_step_phase in a process of its own, `chip_smoke.py --phase9
+    DIR`, which finds its inputs in DIR and writes its records there: late
+    in a process the profiler returns windows short of their first device
+    records (PERF.md section 7), and phase 9's records need whole windows.
+    Its output goes to this process's standard output."""
+    import numpy as np
+    d = os.path.join(tmp, "phase9")
+    os.makedirs(d)
+    np.savez(os.path.join(d, "step_input.npz"), *step_input)
+    with open(os.path.join(d, "fixture.json"), "w") as f:
+        json.dump(fx, f)
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--phase9", d], cwd=REPO, timeout=900)
+    check(proc.returncode == 0, "phase 9's process failed (exit %d)"
+          % proc.returncode)
+    with open(os.path.join(d, "records.json")) as f:
+        rec = json.load(f)
+    return rec["results"], rec["bounds"], rec["launches"], rec["extra"]
+
+
+def phase9_main(d) -> int:
+    """The child of phase9_in_child."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeError("torch.cuda.is_available() is False: no GPU")
+    sys.path.insert(0, REPO)
+    with np.load(os.path.join(d, "step_input.npz")) as z:
+        step_input = tuple(z["arr_%d" % i] for i in range(len(z.files)))
+    with open(os.path.join(d, "fixture.json")) as f:
+        fx = json.load(f)
+    results, bounds, launches, extra = sharded_step_phase(
+        step_input, fx, nvidia_smi_line(), "cuda")
+    check(not {"jax", "phaser_tpu", "pandas"} & set(sys.modules),
+          "phase 9's process imported jax, the JAX package or pandas")
+    with open(os.path.join(d, "records.json"), "w") as f:
+        json.dump({"results": results, "bounds": bounds,
+                   "launches": launches, "extra": extra}, f)
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "phaser_tpu_torch")):
         raise SmokeError("run chip_smoke.py from a checkout of the repository")
@@ -2355,7 +2495,7 @@ def main() -> int:
     os.environ["PHASER_TPU_TORCH_CACHE"] = os.path.join(tmp, "cache")
     try:
         phase(3, "kernel parity at chromosome scale")
-        results, bounds, masked_launches, chrom_launches, step_input = \
+        results, bounds, own_launches, chrom_launches, step_input = \
             chromosome_phase(tmp, "cuda")
         branch_shapes_phase("cuda")
         small_delta_phase(tmp, "cuda")
@@ -2374,7 +2514,7 @@ def main() -> int:
         phase(6, "end to end, --device cuda vs --device host")
         launches, fixture = e2e_phase(tmp, "cuda")
         e2e_launches = dict(launches)
-        launches["affine_masked"] = masked_launches
+        launches.update(own_launches)
         launches.update(entry_launches)
         torch.cuda.synchronize()
 
@@ -2389,7 +2529,7 @@ def main() -> int:
         phase(9, "sharded step and multi-process scaffolding")
         t0 = time.perf_counter()
         step_results, step_bounds, step_launches, step_extra = \
-            sharded_step_phase(step_input, fixture, smi, "cuda")
+            phase9_in_child(step_input, fixture, tmp)
         results.update(step_results)
         bounds.update(step_bounds)
         launches.update(step_launches)
@@ -2429,7 +2569,10 @@ def main() -> int:
                                  e2e_launches.get(name, 0))
         if name == "affine_masked":
             line += "   (%d on the 5M-read call without the nibble packer)" \
-                % masked_launches
+                % own_launches[name]
+        elif name == "affine_planes":
+            line += "   (%d in its own phase-3 call; on no dispatcher path)" \
+                % own_launches[name]
         if len(bounds[name]) > 2 and bounds[name][2] != bound_ms:
             kernels[-1]["bound_every_input_byte_ms"] = bounds[name][2]
             line += "   (every input byte once: %.4f ms, %.1f%% (%.1f%%))" % (
@@ -2449,6 +2592,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--phase9"]:
+            sys.exit(phase9_main(sys.argv[2]))
         sys.exit(main())
     except SmokeError as e:
         print("chip_smoke FAILED: %s" % e, file=sys.stderr)

@@ -48,7 +48,7 @@ def _index_bed(path_gz: str) -> None:
 
     names: List[str] = []
     name_idx: Dict[str, int] = {}
-    b = tabix.TabixIndexWriter([], fmt=tabix.FMT_GENERIC | tabix.FLAG_UCSC,
+    b = tabix.TabixIndexBuilder([], fmt=tabix.FMT_GENERIC | tabix.FLAG_UCSC,
                                col_seq=1, col_beg=2, col_end=3)
     pos = 0
     n_total = len(data)

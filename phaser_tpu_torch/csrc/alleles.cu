@@ -16,6 +16,10 @@
 //                  (alleles.py:246-259): the affine rebuild from a 1 B/base
 //                  masked plane, the dispatcher's path without the nibble
 //                  packer.  One body with affine_nibble, over the code fetch.
+//   affine_planes  replaces the jnp program assign_compact_affine
+//                  (alleles.py:217-226): the affine rebuild from the unmasked
+//                  codes and quals planes, BASEQ applied in the kernel.  The
+//                  same body again, over a third code fetch.
 //
 // The unfused kernel-level entries write the (n_rows, l) int32 vidx and
 // allele planes of assign_alleles_device instead (vidx = table index or -1,
@@ -28,13 +32,13 @@
 //   planes_cmp     replaces _alleles_pallas_cmp_kernel (alleles.py:757).
 //
 // Table search, range-join entries (affine_nibble, affine_masked,
-// delta_nibble, plane: every fused entry).  The hits of a row are the table
-// entries whose position lies in the row's reference range, so these kernels
-// find that range on the card (no host planner, no window argument) and
-// visit its entries instead of searching once per base.  The affine kernels
-// compute the range from (start, lo, hi), the delta kernel takes it from the
-// packer's per-row [rp_min, rp_max], the plane kernel reduces it from the
-// refpos plane.  See the note above each kernel.
+// affine_planes, delta_nibble, plane: every fused entry).  The hits of a row
+// are the table entries whose position lies in the row's reference range, so
+// these kernels find that range on the card (no host planner, no window
+// argument) and visit its entries instead of searching once per base.  The
+// affine kernels compute the range from (start, lo, hi), the delta kernel
+// takes it from the packer's per-row [rp_min, rp_max], the plane kernel
+// reduces it from the refpos plane.  See the note above each kernel.
 //
 // Table search, windowed entries (planes, planes_cmp).  Row r belongs to row
 // block b = r / block_rows; the block searches table entries
@@ -168,18 +172,56 @@ __device__ __forceinline__ int lower_bound(const int32_t* v, int n, int key) {
 
 constexpr int kStage = 2048;  // table entries a block stages (4 x 8 KB)
 
-// The masked code of base i of a row: a nibble of the packed plane (even
-// base in the low nibble) or a byte of the 1 B/base masked plane.
-template <bool kNibble>
-__device__ __forceinline__ int code_at(const uint8_t* __restrict__ crow,
-                                       int i) {
-  if constexpr (kNibble) {
-    int byte = __ldg(crow + (i >> 1));
+// The code layouts the affine join reads.  A layout's row(r, l) gives the
+// accessor of row r of an l-base plane, whose code(i) is the masked code of
+// base i (15 = masked, N or pad), read only where a table entry lies.
+//
+// NibblePlane: (n_rows, l / 2), two masked codes a byte, even base low.
+struct NibbleRow {
+  const uint8_t* c;
+  __device__ __forceinline__ int code(int i) const {
+    int byte = __ldg(c + (i >> 1));
     return (i & 1) ? (byte >> 4) : (byte & 0xF);
-  } else {
-    return __ldg(crow + i);
   }
-}
+};
+struct NibblePlane {
+  const uint8_t* ncodes;
+  __device__ __forceinline__ NibbleRow row(int r, int l) const {
+    return {ncodes + (size_t)r * (l >> 1)};
+  }
+};
+
+// MaskedPlane: (n_rows, l), one masked code a byte (BASEQ applied).
+struct MaskedRow {
+  const uint8_t* c;
+  __device__ __forceinline__ int code(int i) const { return __ldg(c + i); }
+};
+struct MaskedPlane {
+  const uint8_t* mcodes;
+  __device__ __forceinline__ MaskedRow row(int r, int l) const {
+    return {mcodes + (size_t)r * l};
+  }
+};
+
+// CodesQualsPlanes: the unmasked (n_rows, l) codes and quals planes; a base
+// whose qual is under baseq reads as 15, as phaser_tpu masks it.
+struct CodesQualsRow {
+  const uint8_t* c;
+  const uint8_t* q;
+  int baseq;
+  __device__ __forceinline__ int code(int i) const {
+    return __ldg(q + i) >= baseq ? __ldg(c + i) : 15;
+  }
+};
+struct CodesQualsPlanes {
+  const uint8_t* codes;
+  const uint8_t* quals;
+  int baseq;
+  __device__ __forceinline__ CodesQualsRow row(int r, int l) const {
+    size_t off = (size_t)r * l;
+    return {codes + off, quals + off, baseq};
+  }
+};
 
 // Packed hit word of observed code `masked` (not 15) on table entry k of the
 // slice tv/t0/t1/tni, whose first entry has table index tbase.
@@ -202,9 +244,9 @@ __device__ __forceinline__ int hit_word(int masked, int k, const int32_t* t0,
 // in global memory), then walk the entries inside the row's range.  Entry
 // indices are reported as tbase + local index.  All 32 lanes of a warp stay
 // in the emission loop while any of them still has a candidate.
-template <bool kGlobal, bool kNibble>
+template <bool kGlobal, class Row>
 __device__ __forceinline__ void affine_rows(
-    const uint8_t* __restrict__ crow, bool live, int row, int p0, int span,
+    const Row& crow, bool live, int row, int p0, int span,
     int i0, const int32_t* tv, const int32_t* t0, const int32_t* t1,
     const int32_t* tni, int tn_, int tbase, int32_t* __restrict__ out,
     int cap) {
@@ -233,7 +275,7 @@ __device__ __forceinline__ void affine_rows(
       prev = p;
       int kk = k++;
       if (!first || p <= 0) continue;
-      int code = code_at<kNibble>(crow, i0 + (int)off);
+      int code = crow.code(i0 + (int)off);
       if (code == 15) continue;
       word = hit_word<kGlobal>(code, kk, t0, t1, tni, tbase);
       break;
@@ -315,27 +357,29 @@ __device__ __forceinline__ bool block_slice(
   return true;
 }
 
-// The affine range join, one body for both code planes (kNibble: the
-// (n_rows, l / 2) nibble plane; else the (n_rows, l) masked byte plane).
+// The affine range join, one body for the three code layouts (Plane: the
+// (n_rows, l / 2) nibble plane, the (n_rows, l) masked byte plane, or the
+// codes and quals planes with BASEQ).
 // An affine row covers the reference positions [p0, p0 + span), so its hits
 // are exactly the table entries in that range: one search per ROW finds the
 // first, and the row walks entries while they stay inside.  The base under
-// entry k is i0 + vpos[k] - p0, read from the one byte that holds its code;
-// a masked code (15) emits nothing.
+// entry k is i0 + vpos[k] - p0, read from the byte (or the code and qual
+// bytes) that hold its code; a masked code (15) emits nothing.
 //
 // Bound: 12 B of parameters per row, the table entries between the rows'
-// lowest and highest position, one 32-byte sector of the code plane per
-// hit and 8 B per hit written; per row the work is one search plus its
-// hits, against rows x L x log2(win) dependent loads for a search per base.
+// lowest and highest position, one 32-byte sector of the code plane (of
+// each of the codes and quals planes) per hit and 8 B per hit written; per
+// row the work is one search plus its hits, against rows x L x log2(win)
+// dependent loads for a search per base.
 // What the design does about it: a block takes 256 consecutive rows (BAM
 // order is position order), finds the table slice under them (block_slice)
 // and, when the slice fits kStage entries, runs each row's own search and
 // walk in shared memory.  A block whose slice does not fit (rows in no
 // order, a dense table) searches the whole table in global memory; the
 // result is the same.
-template <bool kNibble>
+template <class Plane>
 __device__ __forceinline__ void affine_body(
-    const uint8_t* __restrict__ codes, const int32_t* __restrict__ start,
+    const Plane& plane, const int32_t* __restrict__ start,
     const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
     int n_rows, int l, const int32_t* __restrict__ vpos,
     const int32_t* __restrict__ a0, const int32_t* __restrict__ a1,
@@ -360,13 +404,13 @@ __device__ __forceinline__ void affine_body(
                    live ? p0 + span - 1 : (int)0x80000000, vpos, a0, a1, ni,
                    mp, &k_lo, &n_slice, &staged))
     return;
-  const uint8_t* crow = codes + (size_t)row * (kNibble ? l >> 1 : l);
+  const auto crow = plane.row(row, l);
   if (staged) {
-    affine_rows<false, kNibble>(crow, live, row, p0, span, i0, bt.sv, bt.s0,
-                                bt.s1, bt.sn, n_slice, k_lo, out, cap);
+    affine_rows<false>(crow, live, row, p0, span, i0, bt.sv, bt.s0, bt.s1,
+                       bt.sn, n_slice, k_lo, out, cap);
   } else {
-    affine_rows<true, kNibble>(crow, live, row, p0, span, i0, vpos, a0, a1,
-                               ni, mp, 0, out, cap);
+    affine_rows<true>(crow, live, row, p0, span, i0, vpos, a0, a1, ni, mp, 0,
+                      out, cap);
   }
 }
 
@@ -383,8 +427,8 @@ affine_nibble_kernel(const uint8_t* __restrict__ ncodes,
                      const int32_t* __restrict__ a1,
                      const int32_t* __restrict__ ni, int mp,
                      int32_t* __restrict__ out, int cap) {
-  affine_body<true>(ncodes, start, lo, hi, n_rows, 2 * lh, vpos, a0, a1, ni,
-                    mp, out, cap);
+  affine_body(NibblePlane{ncodes}, start, lo, hi, n_rows, 2 * lh, vpos, a0,
+              a1, ni, mp, out, cap);
 }
 
 // Replaces the jnp program assign_compact_affine_masked
@@ -405,8 +449,31 @@ affine_masked_kernel(const uint8_t* __restrict__ mcodes,
                      const int32_t* __restrict__ a1,
                      const int32_t* __restrict__ ni, int mp,
                      int32_t* __restrict__ out, int cap) {
-  affine_body<false>(mcodes, start, lo, hi, n_rows, l, vpos, a0, a1, ni, mp,
-                     out, cap);
+  affine_body(MaskedPlane{mcodes}, start, lo, hi, n_rows, l, vpos, a0, a1,
+              ni, mp, out, cap);
+}
+
+// Replaces the jnp program assign_compact_affine
+// (phaser_tpu/kernels/alleles.py:217-226: assign_alleles_affine_device fused
+// with _pack_hits), whose only output is the packed-hit buffer: the affine
+// range join (affine_body) on the unmasked (n_rows, l) codes and quals
+// planes, masked = qual >= baseq ? code : 15 for the one base under each
+// table entry.  Neither the masked plane nor the refpos plane reaches
+// device memory.  Bound like affine_masked by latency, not bytes: a hit
+// reads a sector of each plane where affine_masked reads one.
+__global__ void __launch_bounds__(kThreads)
+affine_planes_kernel(const uint8_t* __restrict__ codes,
+                     const uint8_t* __restrict__ quals,
+                     const int32_t* __restrict__ start,
+                     const int32_t* __restrict__ lo,
+                     const int32_t* __restrict__ hi, int n_rows, int l,
+                     int baseq, const int32_t* __restrict__ vpos,
+                     const int32_t* __restrict__ a0,
+                     const int32_t* __restrict__ a1,
+                     const int32_t* __restrict__ ni, int mp,
+                     int32_t* __restrict__ out, int cap) {
+  affine_body(CodesQualsPlanes{codes, quals, baseq}, start, lo, hi, n_rows, l,
+              vpos, a0, a1, ni, mp, out, cap);
 }
 
 // Warp-aggregated compaction of up to four hits per lane (words of -1 are
@@ -491,7 +558,7 @@ __device__ __forceinline__ void delta_row(
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       if (kk[t] >= 0 && e[t] > 0) {
-        int nib = code_at<true>(nrow, 4 * q + t);
+        int nib = NibbleRow{nrow}.code(4 * q + t);
         if (nib != 15)
           word[t] = hit_word<kGlobal>(nib, kk[t], t0, t1, tni, tbase);
       }
@@ -1373,6 +1440,25 @@ int affine_masked_launch(const void* mcodes, const void* start, const void* lo,
         (const int32_t*)hi, n_rows, l, (const int32_t*)vpos,
         (const int32_t*)a0, (const int32_t*)a1, (const int32_t*)ni, mp,
         (int32_t*)out, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+int affine_planes_launch(const void* codes, const void* quals,
+                         const void* start, const void* lo, const void* hi,
+                         int n_rows, int l, int baseq, const void* vpos,
+                         const void* a0, const void* a1, const void* ni,
+                         int mp, void* out, int cap, void* stream) {
+  cudaError_t init = init_packed(out, cap, (cudaStream_t)stream);
+  if (init != cudaSuccess) return (int)init;
+  if (n_rows > 0) {
+    // one row per thread
+    affine_planes_kernel<<<grid_for(n_rows), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+        (const uint8_t*)codes, (const uint8_t*)quals, (const int32_t*)start,
+        (const int32_t*)lo, (const int32_t*)hi, n_rows, l, baseq,
+        (const int32_t*)vpos, (const int32_t*)a0, (const int32_t*)a1,
+        (const int32_t*)ni, mp, (int32_t*)out, cap);
   }
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@ def reg2bins(beg: int, end: int) -> List[int]:
     return bins
 
 
-class TabixIndexWriter:
+class TabixIndexBuilder:
     """Accumulates (tid, beg0, end0, voff_start, voff_end) records in file order."""
 
     def __init__(self, names: Sequence[str], fmt: int = FMT_VCF,
@@ -154,7 +154,7 @@ def build_text_index(vcf_gz_path: str, tbi_path: Optional[str] = None,
     names: List[str] = []
     name_idx: Dict[str, int] = {}
     is_vcf = preset == "vcf"
-    b = TabixIndexWriter(names, fmt=FMT_VCF if is_vcf else FMT_GENERIC,
+    b = TabixIndexBuilder(names, fmt=FMT_VCF if is_vcf else FMT_GENERIC,
                           col_seq=col_seq, col_beg=col_beg, col_end=col_end)
     pos = 0
     n_total = len(data)

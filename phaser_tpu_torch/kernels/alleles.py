@@ -6,10 +6,13 @@ hand-written CUDA kernel in csrc/alleles.cu beside a plain PyTorch version:
   assign_compact_affine_nibble  affine reads, nibble-packed masked plane
   assign_compact_affine_masked  affine reads, 1 B/base masked plane (no
                                 nibble packer)
+  assign_compact_affine         affine reads, unmasked codes and quals
+                                planes (pack_affine), BASEQ applied on the
+                                card; on no path of the dispatcher
   assign_compact_delta_nibble   D / split-M reads, nibble plane + int16 delta
   assign_compact_plane          N-spliced reads / delta overflow, refpos plane
 
-All four are range joins: they find each row's table range themselves (on
+All five are range joins: they find each row's table range themselves (on
 the card, in the CUDA kernels) and take no window; the delta-nibble program
 takes the packer's per-row [rp_min, rp_max] for it.
 Each returns the packed-hit buffer of phaser_tpu's `_pack_hits`:
@@ -21,9 +24,11 @@ atomics, so hit order is free; callers sort.
 The kernel-level entries keep phaser_tpu's public layout (codes/quals (N, L)
 uint8, refpos (N, L) int32, vpos (M,) int32, ind_codes (M, 2) uint8, n_ind
 (M,) int8) and return the (N, L) int32 vidx / allele planes:
-assign_alleles_device (whole table), assign_alleles_pallas_windowed (planned
-256-entry windows, algo "gather" or "cmp") and assign_alleles_pallas (table
-resident in shared memory), plus compact_hits.
+assign_alleles_device (whole table), assign_alleles_affine_device (the same
+on affine reads, refpos formed from (start, lo, hi) on the device),
+assign_alleles_pallas_windowed (planned 256-entry windows, algo "gather" or
+"cmp") and assign_alleles_pallas (table resident in shared memory), plus
+compact_hits.
 
 A wrapper runs the plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises.
@@ -54,8 +59,8 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 
 # kernel launches per wrapper (CUDA launches only; plain runs do not count)
 LAUNCHES = {"affine_nibble": 0, "delta_nibble": 0, "plane": 0,
-            "affine_masked": 0, "planes": 0, "planes_resident": 0,
-            "planes_cmp": 0, "planes_table": 0}
+            "affine_masked": 0, "affine_planes": 0, "planes": 0,
+            "planes_resident": 0, "planes_cmp": 0, "planes_table": 0}
 
 
 def _next_pow2(n: int) -> int:
@@ -208,6 +213,36 @@ def pack_codes_quals(bd, reuse: bool = False
     return codes, quals
 
 
+def pack_affine(bd, reuse: bool = False):
+    """One-pass native packing of the codes / quals planes plus the per-read
+    affine classification (phaser_tpu kernels/alleles.py:563-603): returns
+    (codes, quals, is_affine, start, lo, hi), or None without the native
+    library.  With reuse=True the planes are views of cached scratch,
+    invalidated by the next call."""
+    n = len(bd)
+    L = _plane_width(bd)
+    lib = _native_lib() if n else None
+    if lib is None or not hasattr(lib, "pack_affine_native"):
+        return None
+    if reuse:
+        codes = _reuse_buf("codes", n, L, np.uint8)
+        quals = _reuse_buf("quals", n, L, np.uint8)
+    else:
+        codes = np.empty((n, L), np.uint8)
+        quals = np.empty((n, L), np.uint8)
+    is_aff = np.empty(n, np.uint8)
+    start = np.empty(n, np.int32)
+    lo = np.empty(n, np.int32)
+    hi = np.empty(n, np.int32)
+    ptr = ctypes.c_void_p
+    keep, p = _read_arrays(bd)
+    lib.pack_affine_native(
+        n, *p, L, codes.ctypes.data_as(ptr), quals.ctypes.data_as(ptr),
+        is_aff.ctypes.data_as(ptr), start.ctypes.data_as(ptr),
+        lo.ctypes.data_as(ptr), hi.ctypes.data_as(ptr), _n_threads())
+    return codes, quals, is_aff.astype(bool), start, lo, hi
+
+
 def pack_affine_masked(bd, baseq: int, reuse: bool = False, rows=None):
     """One-pass native masked-plane packing + affine classification
     (phaser_tpu kernels/alleles.py:454-491): (n, L) uint8 with 15 where the
@@ -348,6 +383,15 @@ def decode_packed_hits(full: np.ndarray) -> Tuple[np.ndarray, np.ndarray,
     a = (body[1] & 0xF).astype(np.int16)
     mc = ((body[1] >> 4) & 0xF).astype(np.int16)
     return r, v, a, mc, nh
+
+
+def fetch_packed_hits(packed: torch.Tensor
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 np.ndarray, int]:
+    """decode_packed_hits of a packed-hit buffer on any device, fetched to
+    the host as one whole-array copy (phaser_tpu kernels/alleles.py:
+    513-520)."""
+    return decode_packed_hits(packed.cpu().numpy())
 
 
 def padded_table(vt, dev_vidx: np.ndarray) -> Tuple[np.ndarray, ...]:
@@ -494,6 +538,23 @@ def affine_masked_plain(mcodes, start, lo, hi, table: Table,
                          mcodes.shape[1], start, lo, hi, table, capacity)
 
 
+def _masked_reader(codes, quals, baseq: int):
+    """code_at of the codes and quals planes: a base's code where its qual
+    is at least baseq, else 15."""
+    def masked_at(rows, i):
+        return torch.where(quals[rows, i].to(torch.int32) >= baseq,
+                           codes[rows, i].to(torch.int32), 15)
+    return masked_at
+
+
+def affine_planes_plain(codes, quals, start, lo, hi, table: Table,
+                        baseq: int, capacity: int) -> torch.Tensor:
+    """_affine_plain on the unmasked codes and quals planes, masked by
+    quals >= baseq as phaser_tpu's assign_compact_affine masks."""
+    return _affine_plain(_masked_reader(codes, quals, baseq), codes.shape[1],
+                         start, lo, hi, table, capacity)
+
+
 _PLAIN_CAND_CHUNK = 1 << 19  # candidates compared with their rows at once
 
 
@@ -570,12 +631,9 @@ def plane_plain(codes, quals, refpos, baseq: int, table: Table,
     pmax = torch.where(has, refpos, 0).amax(dim=1)
     k0 = torch.searchsorted(vpos, pmin.contiguous())
     k1 = torch.searchsorted(vpos, pmax.contiguous(), right=True)
-
-    def masked_at(rows, base):
-        return torch.where(quals[rows, base].to(torch.int32) >= baseq,
-                           codes[rows, base].to(torch.int32), 15)
     return _join_plain(k0, torch.where(pmax > 0, k1, k0),
-                       lambda rows: refpos[rows], masked_at, refpos.shape[1],
+                       lambda rows: refpos[rows],
+                       _masked_reader(codes, quals, baseq), refpos.shape[1],
                        table, capacity)
 
 
@@ -627,6 +685,8 @@ _ARGTYPES = {  # each launcher's C signature (csrc/alleles.cu)
     "delta_nibble_launch": [_P] * 5 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P],
     "plane_launch": [_P] * 3 + [_I, _I, _I] + [_P] * 4 + [_I, _P, _I, _P],
     "affine_masked_launch": [_P] * 4 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P],
+    "affine_planes_launch": [_P] * 5 + [_I, _I, _I] + [_P] * 4 +
+    [_I, _P, _I, _P],
     "planes_launch": [_P] * 3 + [_I, _I, _I, _P, _I, _I] + [_P] * 4 +
     [_I, _I, _P, _P, _P],
     "planes_cmp_launch": [_P] * 3 + [_I, _I, _I, _P, _I] + [_P] * 4 +
@@ -654,6 +714,13 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Sequence[int],
                          % (name, tuple(t.shape), tuple(shape)))
     if not t.is_contiguous():
         raise ValueError("%s must be contiguous" % name)
+
+
+def _check_affine_rows(start, lo, hi, n_rows: int, dev: torch.device
+                       ) -> None:
+    """The (n_rows,) int32 affine row parameters start / lo / hi."""
+    for k, t in (("start", start), ("lo", lo), ("hi", hi)):
+        _check(k, t, torch.int32, (n_rows,), dev)
 
 
 def _check_table(table: Table, dev: torch.device) -> torch.device:
@@ -719,8 +786,7 @@ def assign_compact_affine_nibble(ncodes: torch.Tensor, start: torch.Tensor,
     dev = ncodes.device
     N, Lh = ncodes.shape
     _check("ncodes", ncodes, torch.uint8, (N, Lh), dev)
-    for k, t in (("start", start), ("lo", lo), ("hi", hi)):
-        _check(k, t, torch.int32, (N,), dev)
+    _check_affine_rows(start, lo, hi, N, dev)
     _check_table(table, dev)
     _check_size(N, 2 * Lh, capacity)
     if not _on_cuda(dev):
@@ -821,8 +887,7 @@ def assign_compact_affine_masked(mcodes: torch.Tensor, start: torch.Tensor,
     dev = mcodes.device
     N, L = mcodes.shape
     _check("mcodes", mcodes, torch.uint8, (N, L), dev)
-    for k, t in (("start", start), ("lo", lo), ("hi", hi)):
-        _check(k, t, torch.int32, (N,), dev)
+    _check_affine_rows(start, lo, hi, N, dev)
     _check_table(table, dev)
     _check_size(N, L, capacity)
     if not _on_cuda(dev):
@@ -835,6 +900,38 @@ def assign_compact_affine_masked(mcodes: torch.Tensor, start: torch.Tensor,
         N, L, vpos.data_ptr(), a0.data_ptr(), a1.data_ptr(), ni.data_ptr(),
         vpos.shape[0], out.data_ptr(), capacity, _stream(dev)))
     bump(LAUNCHES, "affine_masked")
+    return out
+
+
+def assign_compact_affine(codes: torch.Tensor, quals: torch.Tensor,
+                          start: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor, table: Table, baseq: int,
+                          capacity: int) -> torch.Tensor:
+    """Affine reads from the unmasked planes pack_affine writes: codes /
+    quals (N, L) uint8, masked = code where qual >= baseq, else 15;
+    start/lo/hi (N,) int32 with refpos = start + (i - lo) on [lo, hi).
+    phaser_tpu's jnp assign_compact_affine (kernels/alleles.py:217-226).
+    The table must be position-sorted; each row's table range is found by
+    the program itself."""
+    dev = codes.device
+    N, L = codes.shape
+    _check("codes", codes, torch.uint8, (N, L), dev)
+    _check("quals", quals, torch.uint8, (N, L), dev)
+    _check_affine_rows(start, lo, hi, N, dev)
+    _check_table(table, dev)
+    _check_size(N, L, capacity)
+    if not _on_cuda(dev):
+        return affine_planes_plain(codes, quals, start, lo, hi, table, baseq,
+                                   capacity)
+    _check_join_table(table)
+    out = _new_packed(capacity, dev)
+    vpos, a0, a1, ni = table
+    _launch("affine_planes_launch", (
+        codes.data_ptr(), quals.data_ptr(), start.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), N, L, int(baseq), vpos.data_ptr(), a0.data_ptr(),
+        a1.data_ptr(), ni.data_ptr(), vpos.shape[0], out.data_ptr(),
+        capacity, _stream(dev)))
+    bump(LAUNCHES, "affine_planes")
     return out
 
 
@@ -918,6 +1015,27 @@ def assign_alleles_device(codes: torch.Tensor, quals: torch.Tensor,
                           "planes_table" if M > _WIN else "planes", codes,
                           quals, refpos, baseq, ws, (M, max(N, 1)), table,
                           (0,))
+
+
+def assign_alleles_affine_device(codes: torch.Tensor, quals: torch.Tensor,
+                                 start: torch.Tensor, lo: torch.Tensor,
+                                 hi: torch.Tensor, vpos: torch.Tensor,
+                                 ind_codes: torch.Tensor,
+                                 n_ind: torch.Tensor, baseq: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """assign_alleles_device for affine reads (one M/=/X run, clips only;
+    phaser_tpu kernels/alleles.py:607-621): refpos = start + (i - lo) on
+    [lo, hi), else 0, formed as an (N, L) int32 plane on the inputs' device,
+    then classified by assign_alleles_device (on CUDA tensors its planes
+    kernel).  start/lo/hi (N,) int32; the rest as assign_alleles_device."""
+    dev = codes.device
+    N, L = codes.shape
+    _check_affine_rows(start, lo, hi, N, dev)
+    i = _base_index(L, dev)
+    aligned = (i >= lo[:, None]) & (i < hi[:, None])
+    refpos = torch.where(aligned, start[:, None] + (i - lo[:, None]), 0)
+    return assign_alleles_device(codes, quals, refpos.to(torch.int32), vpos,
+                                 ind_codes, n_ind, baseq)
 
 
 def compact_hits(vidx: torch.Tensor, allele: torch.Tensor, capacity: int

@@ -114,6 +114,16 @@ def median_tails(meds: torch.Tensor, bs: int) -> torch.Tensor:
     return torch.cat([lo_hi, p[None]], dim=0)
 
 
+def batched_bootstrap_median(xs_sorted: torch.Tensor, n: torch.Tensor,
+                             bs: int, generator: torch.Generator
+                             ) -> torch.Tensor:
+    """(3, B) float32 [lower; upper; p] of `bs` bootstrap medians a row
+    (phaser_tpu kernels/bootstrap.py:76-93): bootstrap_medians drawn from
+    `generator`, then median_tails.  xs_sorted and n as bootstrap_medians
+    takes them."""
+    return median_tails(bootstrap_medians(xs_sorted, n, bs, generator), bs)
+
+
 def check_device(device) -> torch.device:
     """torch.device for "cuda" or "cpu"; raises RuntimeError when the card
     is asked for and there is none."""
@@ -157,11 +167,9 @@ def bootstrap_cis_device(cohorts: List[np.ndarray], bs: int, seed: int = 0,
         n_dev = torch.from_numpy(ns).to(dev)
         parts = []
         for c0 in range(0, len(idxs), rows):
-            meds = bootstrap_medians(X_dev[c0:c0 + rows],
-                                     n_dev[c0:c0 + rows], bs, g)
-            parts.append(median_tails(meds, bs))
+            parts.append(batched_bootstrap_median(
+                X_dev[c0:c0 + rows], n_dev[c0:c0 + rows], bs, g))
             STATS["chunks"] += 1
-            del meds
         res = torch.cat(parts, dim=1).cpu()
     STATS["device_s"] += clock.collect()
     lo, hi, p = res.numpy()

@@ -1,5 +1,6 @@
 """Synthetic read / variant-table layouts that reach every branch of the
-range-join kernels (affine_nibble, affine_masked, delta_nibble, plane):
+range-join kernels (affine_nibble, affine_masked, affine_planes,
+delta_nibble, plane):
 used by the CPU tests against the JAX programs and, at a larger size, by
 chip_smoke.py on the card.
 
@@ -134,6 +135,14 @@ def masked_inputs(d: dict, baseq: int = 10):
     (BASEQ applied, 15 = masked)."""
     mcodes = np.where(d["quals"] >= baseq, d["codes"], 15).astype(np.uint8)
     return mcodes, d["start"], d["lo"], d["hi"]
+
+
+def affine_planes_inputs(d: dict):
+    """(codes, quals, start, lo, hi): the affine rows on the unmasked codes
+    and quals planes, as pack_affine writes them (BASEQ applied by the
+    program; quals are uniform on [0, 40), so about a quarter of the bases
+    lie under a BASEQ of 10)."""
+    return d["codes"], d["quals"], d["start"], d["lo"], d["hi"]
 
 
 def delta_inputs(d: dict, baseq: int = 10):

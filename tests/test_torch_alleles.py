@@ -1,6 +1,8 @@
 """phaser_tpu_torch allele kernels against phaser_tpu's fused programs and
 its kernel-level entries (assign_alleles_device, compact_hits,
-assign_alleles_pallas_windowed with gather and cmp, assign_alleles_pallas).
+assign_alleles_pallas_windowed with gather and cmp, assign_alleles_pallas),
+and the unpacked affine pair (pack_affine, assign_alleles_affine_device,
+assign_compact_affine) with fetch_packed_hits.
 
 Every comparison is of integers, tolerance 0.  On the CPU the port's
 wrappers run their plain PyTorch versions; the JAX side runs the windowed
@@ -9,7 +11,7 @@ tests/test_kernels.py does.  The plain versions compact in row-major order,
 so their packed buffers must equal JAX's word for word; the CUDA kernels
 compact with atomics, so those are compared after a (read, var) sort.
 
-The port's four fused programs are range joins that find their own table
+The port's five fused programs are range joins that find their own table
 ranges: JAX's windowed programs are fed planned windows, the port gets none
 (the delta program gets the packer's per-row [rp_min, rp_max] instead).
 """
@@ -367,6 +369,26 @@ def test_wrappers_check_their_inputs():
                                torch.zeros((4, 64), dtype=torch.uint8),
                                torch.zeros((4, 64), dtype=torch.int32), 10,
                                table, 16)
+    cq = torch.zeros((4, 128), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="quals has shape"):
+        K.assign_compact_affine(cq, torch.zeros((4, 64), dtype=torch.uint8),
+                                z, z, z, table, 10, 16)
+    with pytest.raises(ValueError, match="hi has dtype"):
+        K.assign_compact_affine(cq, cq, z, z, z.long(), table, 10, 16)
+    with pytest.raises(ValueError, match="n_ind has dtype"):
+        K.assign_compact_affine(cq, cq, z, z, z, table[:3] + (table[3].long(),),
+                                10, 16)
+    with pytest.raises(ValueError, match="capacity 0 out of range"):
+        K.assign_compact_affine(cq, cq, z, z, z, table, 10, 0)
+    vpos = torch.arange(1, 9, dtype=torch.int32)
+    ind = torch.ones((8, 2), dtype=torch.uint8)
+    ni = torch.full((8,), 2, dtype=torch.int8)
+    with pytest.raises(ValueError, match="start has shape"):
+        K.assign_alleles_affine_device(
+            cq, cq, torch.zeros(3, dtype=torch.int32), z, z, vpos, ind, ni,
+            10)
+    with pytest.raises(ValueError, match="ind_codes has dtype"):
+        K.assign_alleles_affine_device(cq, cq, z, z, z, vpos, ind.int(), ni, 10)
     before = dict(K.LAUNCHES)
     meta = torch.zeros((4, 64), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
@@ -375,6 +397,8 @@ def test_wrappers_check_their_inputs():
             _on(table, "meta"), 16)
     # plain runs on CPU tensors never count as kernel launches
     K.assign_compact_affine_nibble(nc, z, z, z, table, 16)
+    K.assign_compact_affine(cq, cq, z, z, z, table, 10, 16)
+    K.assign_alleles_affine_device(cq, cq, z, z, z, vpos, ind, ni, 10)
     assert K.LAUNCHES == before
 
 
@@ -558,6 +582,166 @@ def test_affine_masked_matches_jax(tmp_path):
         want = np.asarray(jax_plain(cap))
         assert want[0, 0] > 5
         np.testing.assert_array_equal(port(cap).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the unpacked affine pair: pack_affine, assign_alleles_affine_device (the
+# refpos plane formed on the device, then assign_alleles_device) and the
+# fused assign_compact_affine (a range join over the codes and quals planes)
+
+
+def _pack_affine_reads(tmp_path):
+    """tests/test_kernels.py:346's reads (seed 21: clips, splices, indels)
+    as each package reads them."""
+    data = datagen.generate(seed=21, contigs=("chr1",), contig_len=100000,
+                            n_variants_per_contig=50, n_reads_per_contig=400,
+                            read_len=90, frac_spliced=0.3,
+                            frac_indel_reads=0.2, frac_softclip=0.3)
+    p = str(tmp_path / "x.bam")
+    data.write_bam(p)
+    return bamio.read_bam(p), jax_bamio.read_bam(p)
+
+
+@pytest.mark.usefixtures("jax_native_lib")
+def test_pack_affine_matches_jax(tmp_path):
+    """pack_affine == phaser_tpu's pack_affine on all six outputs, values
+    and dtypes, also into reused scratch."""
+    bd, jbd = _pack_affine_reads(tmp_path)
+    want = J.pack_affine(jbd)
+    assert want is not None
+    for reuse in (False, True):
+        got = K.pack_affine(bd, reuse=reuse)
+        assert got is not None and len(got) == len(want) == 6
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+    ia = want[2]
+    assert ia.sum() > 0 and (~ia).sum() > 0
+    assert want[0].shape[1] % 128 == 0
+
+
+@pytest.mark.usefixtures("jax_native_lib")
+def test_affine_pair_on_packed_reads_matches_jax(tmp_path):
+    """On pack_affine's planes of real reads (non-affine rows emptied, as a
+    caller routes them elsewhere): assign_alleles_affine_device's two planes
+    and assign_compact_affine's packed buffer == phaser_tpu's, ample and
+    past capacity."""
+    bd, _ = _pack_affine_reads(tmp_path)
+    codes, quals, ia, start, lo, hi = K.pack_affine(bd)
+    start, lo, hi = (np.where(ia, x, 0).astype(np.int32)
+                     for x in (start, lo, hi))
+    rng = np.random.default_rng(21)
+    M = 3000
+    vpos = np.sort(rng.choice(np.arange(1, 100000, dtype=np.int64), size=M,
+                              replace=False)).astype(np.int32)
+    ind = rng.integers(0, 16, size=(M, 2)).astype(np.uint8)
+    ni = rng.integers(0, 3, size=M).astype(np.int8)
+    args = (codes, quals, start, lo, hi)
+    jx = [jnp.asarray(x) for x in args + (vpos, ind, ni)]
+    want = J.assign_alleles_affine_device(*jx, 10)
+    got = K.assign_alleles_affine_device(*[_t(x) for x in
+                                           args + (vpos, ind, ni)], 10)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int((got[0] >= 0).sum()) > 50
+    table = _port_table(dict(vpos=vpos, ind=ind, ni=ni))
+    for cap in (1 << 14, 4):
+        want = np.asarray(J.assign_compact_affine(*jx, 10, cap))
+        got = K.assign_compact_affine(*[_t(x) for x in args], table, 10,
+                                      cap).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert got[0, 0] > 50
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_affine_device_planes_match_jax(layout):
+    """assign_alleles_affine_device's (vidx, allele) planes == phaser_tpu's
+    on every layout (duplicate positions: both take the first of equal
+    entries)."""
+    d = _layout(layout)
+    arrays = layouts.affine_planes_inputs(d) + (d["vpos"], d["ind"], d["ni"])
+    want = J.assign_alleles_affine_device(*[jnp.asarray(x) for x in arrays],
+                                          10)
+    got = K.assign_alleles_affine_device(*[_t(x) for x in arrays], 10)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int((got[0] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("cap", [1 << 15, 4])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_affine_planes_range_join_matches_jax(layout, cap):
+    """assign_compact_affine (BASEQ applied by the program) == phaser_tpu's
+    jnp assign_compact_affine word for word, == the masked-plane program on
+    where(quals >= baseq, codes, 15) of the same rows, and bases under
+    BASEQ are really dropped (BASEQ 0 finds more hits)."""
+    d = _layout(layout)
+    args = layouts.affine_planes_inputs(d)
+    jtab = [jnp.asarray(d[k]) for k in ("vpos", "ind", "ni")]
+    want = np.asarray(J.assign_compact_affine(
+        *[jnp.asarray(x) for x in args], *jtab, 10, cap))
+    table = _port_table(d)
+    tx = [_t(x) for x in args]
+    got = K.assign_compact_affine(*tx, table, 10, cap).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, K.assign_compact_affine_masked(
+        *[_t(x) for x in _masked_inputs(d)], table, cap).numpy())
+    assert got[0, 0] > (cap if cap == 4 else 0)
+    assert K.assign_compact_affine(*tx, table, 0, cap)[0, 0] > got[0, 0]
+
+
+def test_affine_planes_baseq0_reads_the_pad():
+    """With BASEQ 0 nothing is masked: pad bases (code 0, qual 0) inside
+    [lo, hi), where hi reaches past the read and past the plane, read as
+    code 0 and hit, as in phaser_tpu; with BASEQ 10 they are masked."""
+    d = dict(_layout("sorted"))
+    codes, quals, start, lo, hi = (x.copy() for x in
+                                   layouts.affine_planes_inputs(d))
+    L = codes.shape[1]
+    codes[:, 96:] = 0
+    quals[:, 96:] = 0
+    hi[0::2] = L + 40
+    hi[1::2] = 110
+    rng = np.random.default_rng(3)
+    vpos = np.unique(np.concatenate([d["vpos"], (start + 100 - lo)[::3],
+                                     (start + L - 1 - lo)[::5]]))
+    d.update(vpos=vpos.astype(np.int32),
+             ind=rng.integers(0, 9, size=(len(vpos), 2)).astype(np.uint8),
+             ni=rng.integers(0, 3, size=len(vpos)).astype(np.int8))
+    args = (codes, quals, start, lo, hi)
+    jtab = [jnp.asarray(d[k]) for k in ("vpos", "ind", "ni")]
+    table = _port_table(d)
+    for baseq in (0, 10):
+        want = np.asarray(J.assign_compact_affine(
+            *[jnp.asarray(x) for x in args], *jtab, baseq, 1 << 15))
+        got = K.assign_compact_affine(*[_t(x) for x in args], table, baseq,
+                                      1 << 15).numpy()
+        np.testing.assert_array_equal(got, want)
+        r, v, _, mc, nh = K.decode_packed_hits(got)
+        pad_hits = int((mc == 0).sum())
+        assert (pad_hits > 20) if baseq == 0 else pad_hits == 0
+        if baseq == 0:
+            base = lo[r] + (d["vpos"][v] - start[r])
+            assert (base == L - 1).any() and (base >= 96).sum() == pad_hits
+
+
+@pytest.mark.parametrize("cap", [1 << 15, 4])
+def test_fetch_packed_hits_matches_jax(cap):
+    """fetch_packed_hits == phaser_tpu's on the same program's buffer:
+    (read, var, allele, base, n_hits), empty arrays past capacity."""
+    d = _layout("lo_gt0")
+    args = layouts.affine_planes_inputs(d)
+    jtab = [jnp.asarray(d[k]) for k in ("vpos", "ind", "ni")]
+    want = J.fetch_packed_hits(J.assign_compact_affine(
+        *[jnp.asarray(x) for x in args], *jtab, 10, cap))
+    got = K.fetch_packed_hits(K.assign_compact_affine(
+        *[_t(x) for x in args], _port_table(d), 10, cap))
+    for g, w in zip(got[:4], want[:4]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert got[4] == want[4] > 4
+    assert (len(got[0]) == 0) == (cap == 4)
 
 
 def _entry_inputs(seed, M, N, L, contig, regions=None, holes=0.05):

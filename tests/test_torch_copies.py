@@ -1,7 +1,10 @@
 """The port's own copies of phaser_tpu's JAX-free modules (io, mapper.host,
 engine host halves, dist helpers) against the originals: the same inputs
-through both, byte or array equality.  One parametrised test per group."""
+through both, byte or array equality.  One parametrised test per group.
+And the port's public surface: every module's top-level public names
+against phaser_tpu's."""
 
+import ast
 import dataclasses
 import filecmp
 import os
@@ -437,3 +440,60 @@ def test_dist_copy_matches_phaser_tpu(fx, tmp_path, monkeypatch, case):
         _dist_merge(fx, tmp_path, monkeypatch)
     else:
         DIST_CASES[case](fx, tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# the public surface: phaser_tpu's top-level public names that the port
+# leaves out on purpose.  The windowed fused programs and their planners
+# gave way to range joins that take no window (kernels/alleles.py); JAX's
+# compile cache has utils/build.py in its place.
+
+INTENDED_MISSING = {
+    "kernels/alleles.py": [
+        "assign_compact_affine_nibble_windowed",
+        "assign_compact_delta_nibble_windowed",
+        "assign_compact_plane_windowed", "plan_windows_affine",
+        "plan_windows_minmax"],
+    "utils/jaxtune.py": "module",
+}
+
+
+def _public_names(path):
+    """Names a module defines at its top level (functions, classes,
+    assignments; not imports) that do not start with an underscore."""
+    names = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_public_names_match_phaser_tpu():
+    """An ast walk over both packages: each phaser_tpu module has its
+    counterpart at the same path in the port, with every public name,
+    apart from INTENDED_MISSING."""
+    import phaser_tpu
+    import phaser_tpu_torch
+    jax_root = os.path.dirname(phaser_tpu.__file__)
+    port_root = os.path.dirname(phaser_tpu_torch.__file__)
+    missing = {}
+    for root, _, files in os.walk(jax_root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(root, f), jax_root)
+            port = os.path.join(port_root, rel)
+            if not os.path.exists(port):
+                missing[rel] = "module"
+                continue
+            gone = _public_names(os.path.join(root, f)) - _public_names(port)
+            if gone:
+                missing[rel] = sorted(gone)
+    assert missing == INTENDED_MISSING

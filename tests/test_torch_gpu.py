@@ -53,9 +53,15 @@ def _assert_same_hits(got, want):
         np.testing.assert_array_equal(a, b)
 
 
+def _affine_planes(codes, quals, start, lo, hi, table, cap):
+    return K.assign_compact_affine(codes, quals, start, lo, hi, table, 10,
+                                   cap)
+
+
 FUSED = {
     "affine_nibble": (layouts.affine_inputs, K.assign_compact_affine_nibble,
                       ()),
+    "affine_planes": (layouts.affine_planes_inputs, _affine_planes, ()),
     "affine_masked": (layouts.masked_inputs, K.assign_compact_affine_masked,
                       ()),
     "delta_nibble": (layouts.delta_inputs, K.assign_compact_delta_nibble, ()),
@@ -88,6 +94,23 @@ def test_fused_kernel_matches_plain(cuda, program, layout):
     small = small.cpu().numpy()
     assert small[0, 0] == want[0, 0]
     assert int((small[0, 1:] >= 0).sum()) == min(4, int(want[0, 0]))
+
+
+@pytest.mark.parametrize("layout", ["sorted", "duplicates", "empty_rows"])
+def test_affine_device_planes_on_the_card(cuda, layout):
+    """assign_alleles_affine_device on CUDA tensors (the refpos plane formed
+    on the card, then the planes kernel) == on CPU tensors, both planes."""
+    d = layouts.make(layout, n_rows=3000, n_vars=2000, contig=600_000)
+    arrays = layouts.affine_planes_inputs(d) + (d["vpos"], d["ind"], d["ni"])
+    want = K.assign_alleles_affine_device(*[_t(x) for x in arrays], 10)
+    before = K.LAUNCHES["planes_table"]
+    got = K.assign_alleles_affine_device(*[_t(x, cuda) for x in arrays], 10)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["planes_table"] == before + 1
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+    assert int((want[0] >= 0).sum()) > 0
 
 
 def _planes_modes(arrays, device):
@@ -240,6 +263,32 @@ def test_cuda_kernel_matches_jax(tmp_path, cuda, program):
     for got in outs:
         assert got.device.type == "cuda"
         _assert_same_hits(got.cpu().numpy(), want)
+
+
+def test_cuda_affine_planes_matches_jax(tmp_path, cuda):
+    """On the card: assign_compact_affine == JAX's jnp program on
+    pack_affine's planes of real reads.  Needs jax beside the card."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    import test_torch_alleles as A
+    from phaser_tpu.kernels import alleles as J
+    bd, _ = A._pack_affine_reads(tmp_path)
+    codes, quals, ia, start, lo, hi = K.pack_affine(bd)
+    start, lo, hi = (np.where(ia, x, 0).astype(np.int32)
+                     for x in (start, lo, hi))
+    d = layouts.make("sorted", n_vars=3000, contig=100_000)
+    args = (codes, quals, start, lo, hi)
+    want = np.asarray(J.assign_compact_affine(
+        *[jnp.asarray(x) for x in args + (d["vpos"], d["ind"], d["ni"])],
+        10, 1 << 13))
+    before = K.LAUNCHES["affine_planes"]
+    got = K.assign_compact_affine(
+        *[_t(x, cuda) for x in args],
+        tuple(_t(x, cuda) for x in layouts.padded_table(d)), 10, 1 << 13)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["affine_planes"] == before + 1
+    _assert_same_hits(got.cpu().numpy(), want)
 
 
 def test_cuda_affine_masked_matches_jax(tmp_path, cuda):
