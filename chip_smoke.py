@@ -11,9 +11,10 @@ Phases (any failure exits non-zero; nothing here imports jax):
      together and timed, into phaser_tpu_torch/_build/;
   3. kernel parity at chromosome scale (testing/benchdata.py: 5M reads, 100k
      hets, 200 Mbp, 10% N-spliced): assign_alleles_auto on the GPU == the
-     exact host mapper, also with every launch's hit capacity forced to
-     overflow (the chunk must be relaunched on the card, never rerun on the
-     host) and without the native nibble packer (the masked-affine path);
+     exact host mapper, launching the ragged join and no other kernel,
+     also with every launch's hit capacity forced to overflow (the chunk
+     must be relaunched on the card, never rerun on the host) and with
+     every host packer refusing (the route packs nothing);
      the dispatcher's counters after each such call (its pre-filter dropped
      the reads whose span holds no variant, only the filled columns of the
      packed-hit buffers were fetched, every upload left pinned memory), and
@@ -21,24 +22,31 @@ Phases (any failure exits non-zero; nothing here imports jax):
      (nothing uploaded, nothing launched) and reads that all do (none
      dropped);
      the dispatcher's wall with its host items (cProfile) and its device
-     share (torch.profiler); then the unpacked affine pair on the first
-     262,144 reads' pack_affine planes: assign_compact_affine through its
+     share (torch.profiler); the span pass three ways (the native pass over
+     the CIGARs, the merge over the BAM decode's span summary that #2
+     takes, the read_spans kernel), alone and as the call's pass, against
+     the host mapper's call, in turns; then the unpacked affine pair on the
+     first 262,144 reads' pack_affine planes: assign_compact_affine through its
      entry point (one affine_planes launch, counted from 0 just before;
      its hits equal affine_masked's on the same rows) and the unfused
      assign_alleles_affine_device on the card against the same entry on
      CPU tensors (max_abs_err 0 on both planes); then one 262,144-row
      launch of each fused kernel against its plain PyTorch version on the
-     card (all five are range joins that take no window; the delta kernel
-     gets per-row [rp_min, rp_max]; hits compared after a (read, var)
-     sort; timed with CUDA events); then the five range-join kernels on
-     the layouts of
+     card (all six are range joins that take no window; the delta kernel
+     gets per-row [rp_min, rp_max]; the ragged join the first 262,144
+     rows the dispatcher keeps, staged as it stages them; hits compared
+     after a (read, var) sort; timed with CUDA events), and the read_spans
+     kernel on all 5M reads against its plain version (flags equal); then
+     the six range-join kernels on the layouts of
      testing/layouts.py that reach every branch (rows in random order, a
      table too dense for the shared-memory slice, L of 256 and 384, lo > 0,
      empty rows, variants on first and last bases, a one-entry table, the
      second and the first (2^22 entries) slice of a table above the
      dispatcher's slice size, duplicate positions, a masked trailing clip
-     at the position of an aligned base on a variant), each also with a
-     capacity of 4 (exact count past capacity); then a small
+     at the position of an aligned base on a variant; for the ragged join
+     the same rows as reads: clips, =, X, N, D, P and H ops, sequences of
+     `*`, shorter and longer than their CIGAR, reads without ops), each
+     also with a capacity of 4 (exact count past capacity); then a small
      testing/datagen.py fixture with deletion reads.  A kernel whose
      profiler window never comes back whole fails the phase;
   4. the kernel-level entries (assign_alleles_pallas_windowed with gather
@@ -55,17 +63,21 @@ Phases (any failure exits non-zero; nothing here imports jax):
      vanishes modulo 2^32, 20,077 rows each (no multiple of the row block).
      A kernel whose profiler window never comes back whole fails the
      phase;
-  5. engine stages #3 pair counting, #4 components and #5 the 2^n scorer at
-     and above their size gates, cuda against host: equal results, both
-     times printed;
+  5. engine stages #3 pair counting (below its gate, forced down, at it and
+     above it: the sizes --device auto's pair gate rests on), #4
+     components and #5 the 2^n scorer at and above their size gates, cuda
+     against host in turns: equal results, both walls printed, and the
+     cuda runs' card seconds from the stages' device clocks
+     (utils/trace.DeviceClock);
   6. end to end: the CLI's entry point (phaser_main.main, what `python -m
      phaser_tpu_torch.cli.phaser_main` runs) with --device cuda, --device
-     host, and --device cuda with the stage gates forced down, on a
-     testing/datagen.py fixture shaped like bench_engine.py (3 contigs,
-     60/25/15% of 1M input reads); the six output files must be
-     byte-identical, and every fused kernel (default run) and every stage's
-     device hook (gates-down run) must have run (counts zeroed just before
-     each run, read just after);
+     host, --device cuda with the stage gates forced down, and --device
+     auto, on a testing/datagen.py fixture shaped like bench_engine.py (3
+     contigs, 60/25/15% of 1M input reads); the six output files must be
+     byte-identical, #2's kernels (default run) and every stage's device
+     hook (gates-down run) must have run, and auto's run must take the
+     route its constants give (counts zeroed just before each run, read
+     just after);
   7. sharded runners on phase 6's fixture, each through its entry point and
      against a single-process --device host reference: --threads 4 (four
      position-shard engine threads sharing the card; every fused kernel
@@ -139,9 +151,9 @@ Phases (any failure exits non-zero; nothing here imports jax):
      printed.
 
 Each kernel's `launches` comes from the run of its own path: the e2e cuda
-run for the three nibble/plane kernels, the no-nibble-packer dispatcher run
-for affine_masked, phase 3's assign_compact_affine call for affine_planes
-(no dispatcher path launches it: 0 on the 5M-read call and in the e2e
+run for #2's kernel (the ragged join), phase 3's own call of each kernel
+on no dispatcher path (the four fused kernels of phaser_tpu's packed
+routes, affine_planes, read_spans: 0 on the 5M-read call and in the e2e
 run), phase 4's entry calls for the planes kernels, and phase 9's step runs
 (with their p-values) for the four step kernels.
 
@@ -162,13 +174,16 @@ The share of bound is taken against `ms`.
 
 Each kernel's `bound_ms` is the larger of the bytes this run's inputs need
 moved over 3.35 TB/s and its integer operations over 67 T/s (the card's
-non-tensor rate); for the five range joins the bytes are what the data
-needs (row parameters or the refpos plane, the table entries between the
+non-tensor rate); for the six range joins the bytes are what the data
+needs (row parameters or the refpos plane, for the ragged join pos, two
+offsets and the CIGAR words of each row, the table entries between the
 lowest and the highest position of the launch's rows, for delta_nibble 8 B
 of [rp_min, rp_max] per row and `start` and the delta row only of the rows
 with a table entry in their range, one 32-byte sector of a code plane per
-hit (for affine_planes one of the codes and one of the quals plane), 8 B
-per hit written; for the planes kernels 4 B of refpos read and 8 B
+hit (for affine_planes and ragged_join one of the codes or seq and one of
+the quals), 8 B per hit written; for read_spans every input byte once
+(pos, offsets, CIGAR words, the table) and a flag byte a read written;
+for the planes kernels 4 B of refpos read and 8 B
 written per base, 2 B of codes and quals per hit, the table entries under
 the launch's windows), and the line printed before the record also gives
 the "every input byte once" figure.  The step kernels' bounds: for
@@ -214,6 +229,12 @@ REPLACES = {  # the TPU program each kernel (or kernel mode) replaces
     "plane": "phaser_tpu/kernels/alleles.py:1038",
     "affine_masked": "phaser_tpu/kernels/alleles.py:246",
     "affine_planes": "phaser_tpu/kernels/alleles.py:217",
+    # the Pallas body the dispatcher's three packed routes reach, with the
+    # host packers before them
+    "ragged_join": "phaser_tpu/kernels/alleles.py:673",
+    # no TPU kernel: the host CIGAR pass of phaser_tpu's dispatcher
+    # (_read_op_masks), which the port's pre-filter extends
+    "read_spans": "phaser_tpu/mapper/dispatch.py:122",
     "planes": "phaser_tpu/kernels/alleles.py:673",
     "planes_resident": "phaser_tpu/kernels/alleles.py:627",
     "planes_cmp": "phaser_tpu/kernels/alleles.py:757",
@@ -263,7 +284,10 @@ POP_DET = ["gene", "var_id", "var_chr", "var_pos", "var_het_n", "var_hom_n",
            "var_hom_hap1_counts", "var_hom_hap2_counts",
            "var_het_sample_ids", "var_hom_sample_ids"]
 MAPPER_READS = 100_000
-MAIN_PATH = ("affine_nibble", "delta_nibble", "plane")  # the dispatcher's
+# the host packers of phaser_tpu's routes: library entries, on no path of
+# the dispatcher
+PACKERS = ("pack_reads", "pack_codes_quals", "pack_affine",
+           "pack_affine_masked", "pack_affine_nibble", "pack_delta_nibble")
 
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
@@ -390,6 +414,8 @@ KERNEL_FN = {  # the __global__ function behind each kernel entry
     "delta_nibble": "delta_nibble_kernel", "plane": "plane_kernel",
     "affine_masked": "affine_masked_kernel",
     "affine_planes": "affine_planes_kernel",
+    "ragged_join": "ragged_join_kernel",
+    "read_spans": "read_spans_kernel",
     "planes": "planes_windowed_kernel",
     "planes_resident": "planes_resident_kernel",
     "planes_cmp": "planes_cmp_kernel",
@@ -496,16 +522,50 @@ def kernel_vs_plain(name, kernel, plain, n_rows):
     return err, ms, plain_ms, nk, dev
 
 
+def spans_vs_plain(K, s_in, ins_op, skip_op, steps):
+    """The read_spans kernel against its plain version on the same CUDA
+    tensors (the flags equal), timed as kernel_vs_plain times; its own
+    launch counted from 0 just before.  Returns (record, bound, launches)."""
+    import torch
+    K.reset_launches()
+    got = K.read_spans(*s_in, ins_op, skip_op)
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES["read_spans"]
+    want = K.read_spans_plain(*s_in, ins_op, skip_op)
+    err = int((got.int() - want.int()).abs().max())
+    check(err == 0 and launches == 1, "read_spans: max_abs_err %d, %d "
+          "launches" % (err, launches))
+    p1 = time_ms(lambda: K.read_spans_plain(*s_in, ins_op, skip_op), 3)
+    k1 = time_ms(lambda: K.read_spans(*s_in, ins_op, skip_op), 20)
+    k2 = time_ms(lambda: K.read_spans(*s_in, ins_op, skip_op), 20)
+    p2 = time_ms(lambda: K.read_spans_plain(*s_in, ins_op, skip_op), 3)
+    dev = device_ms("read_spans", lambda: K.read_spans(*s_in, ins_op,
+                                                       skip_op))
+    check(dev is not None and dev[3], "read_spans: no whole profiler window")
+    n, n_ops, mp = s_in[0].shape[0], s_in[2].shape[0], s_in[3].shape[0]
+    print("   read_spans     %d reads, %d ops, %d near; max_abs_err 0; "
+          "wrapper call %.4f ms (%.4f, %.4f); on the card %.4f ms, kernel "
+          "alone %.4f ms   plain %.4f ms (%.4f, %.4f)"
+          % (n, n_ops, int(((got >> 2) & 1).sum()), (k1 + k2) / 2, k1, k2,
+             dev[0], dev[1], (p1 + p2) / 2, p1, p2), flush=True)
+    # pos, two offsets and a flag byte a read, 4 B an op, the table once;
+    # a search of the staged slice a read
+    bound = bound_of(n * (4 + 8 + 1) + 8 + 4 * n_ops + 4 * mp,
+                     n * steps + 2 * n_ops)
+    return (err, (k1 + k2) / 2, (p1 + p2) / 2, dev), bound, launches
+
+
 def host_items(fn):
     """Wall of one dispatcher call under cProfile, with the cumulative
-    seconds of its host items (packers, selects, uploads; it plans no
-    window)."""
+    seconds of its host items (the span pass, the gather into the pinned
+    staging, selects, uploads, the host remainders, the hits' fetch and
+    sort; it packs no plane and plans no window)."""
     import cProfile
     import pstats
 
     import torch
-    names = ("_read_spans", "select", "pack_affine_nibble",
-             "pack_delta_nibble", "pack_reads", "padded_table", "_upload",
+    names = ("_read_spans", "select", "_launch_chunks",
+             "_row_offsets", "_stage_reads", "padded_table", "_upload",
              "assign_alleles", "resolve", "_fetch", "decode_packed_hits")
     pr = cProfile.Profile()
     t0 = time.perf_counter()
@@ -560,34 +620,82 @@ def profile_dispatch(fn):
     sys.stdout.flush()
 
 
-def rows_or_copy(K, call):
-    """The dispatcher call with the packers given the kept reads' row
-    indices (as shipped) against a gathered copy of those reads
-    (BamData.select, then pack), in turns in this process."""
-    import torch
-    names = ("pack_reads", "pack_affine_nibble", "pack_delta_nibble")
-    packers = {n: getattr(K, n) for n in names}
+def on_path_only(launches):
+    """#2 launched the ragged join and no other kernel."""
+    return launches["ragged_join"] > 0 and \
+        not any(n for k, n in launches.items() if k != "ragged_join")
 
-    def gathered(pack):
-        def packed(b, *a, rows=None, **k):
-            return pack(b if rows is None else b.select(rows), *a, **k)
-        return packed
-    walls = {"row index": [], "gathered copy": []}
+
+def spans_on_card(D, K, bd, dev_pos, dev):
+    """The span pass as the read_spans kernel: the reads' pos, CIGAR
+    offsets and words up through the dispatcher's pinned staging, one flag
+    byte a read back; (has_ins, has_n, near) as mapper/dispatch.py
+    _read_spans returns them."""
+    import numpy as np
+    from phaser_tpu_torch.io.bam import OP_I, OP_N
+    from phaser_tpu_torch.utils.trace import DeviceClock
+    vpos = np.full(max(4, -(-len(dev_pos) // 4) * 4), np.iinfo(np.int32).max,
+                   np.int32)
+    vpos[:len(dev_pos)] = dev_pos
+    clock = DeviceClock(dev)
+    args = [D._upload(x, dev, clock) for x in (
+        bd.pos, bd.cigar_off, bd.cigar_flat.view(np.int32), vpos)]
+    flags = K.read_spans(*args, OP_I, OP_N).cpu().numpy()
+    return tuple((flags & bit) != 0 for bit in (K.SPAN_INS, K.SPAN_SPLICED,
+                                                 K.SPAN_NEAR))
+
+
+def span_passes(D, K, bd, vt, want, dev):
+    """The dispatcher's span pass three ways: the native pass over the
+    CIGARs (a BamData without the decode's span summary), the merge over
+    the summary (mapper/dispatch.py _read_spans, #2's route), the
+    read_spans kernel (uploads and the flags' fetch included); each alone
+    and as the 5M-read call's pass, against the host mapper's call, in
+    turns.  The three give the same flags and the calls the host's hits."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    dev_pos = vt.pos[vt.is_simple]
+    route = D._read_spans
+    bare = dataclasses.replace(bd, span_end=None, span_flags=None)
+    ways = {"native": lambda b, p: route(dataclasses.replace(
+                b, span_end=None, span_flags=None), p),
+            "decode": route,
+            "card": lambda b, p: spans_on_card(D, K, b, p, dev)}
+    ref = route(bare, dev_pos)
+    for how in ("decode", "card"):
+        got = ways[how](bd, dev_pos)
+        check(all(np.array_equal(a, b) for a, b in zip(got, ref)),
+              "span pass %s differs from the native pass" % how)
+    order = ("native", "decode", "card")
+    alone = {k: [] for k in order}
+    for how in (order + order[::-1]) * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ways[how](bd, dev_pos)
+        torch.cuda.synchronize()
+        alone[how].append(time.perf_counter() - t0)
+    calls = {k: [] for k in ("host",) + order}
     try:
-        for mode in ("row index", "gathered copy", "gathered copy",
-                     "row index") * 3:
-            for n, pack in packers.items():
-                setattr(K, n, pack if mode == "row index" else gathered(pack))
-            t0 = time.perf_counter()
-            call()
+        for run in (("host",) + order + order[::-1] + ("host",)) * 2:
+            D._read_spans = ways.get(run, route)
             torch.cuda.synchronize()
-            walls[mode].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            got = D.assign_alleles_auto(bd, vt, baseq=10, device="host"
+                                        if run == "host" else dev)
+            torch.cuda.synchronize()
+            calls[run].append(time.perf_counter() - t0)
+            same_hits(got, want, "span pass %s" % run)
     finally:
-        for n, pack in packers.items():
-            setattr(K, n, pack)
-    print("   packers by %s" % "; ".join(
-        "%s %s s" % (m, " ".join("%.3f" % w for w in ws))
-        for m, ws in walls.items()), flush=True)
+        D._read_spans = route
+    for what, ts in (("span pass alone", alone),
+                     ("5M-read call by span pass (decode: #2's route)",
+                      calls)):
+        print("   %s (s, in turns): %s" % (what, "; ".join(
+            "%s mean %.4f (%s)" % (k, sum(v) / len(v),
+                                   " ".join("%.4f" % t for t in v))
+            for k, v in ts.items())), flush=True)
 
 
 def filter_stats(D, what, dropped):
@@ -663,8 +771,9 @@ def chromosome_phase(tmp, device):
           "(first call) / %.3f s; launches %s"
           % (len(want), t_host, walls[0], walls[1], chrom_launches),
           flush=True)
-    check(K.LAUNCHES["affine_nibble"] > 0 and K.LAUNCHES["plane"] > 0,
-          "chromosome-scale run skipped a kernel: %s" % K.LAUNCHES)
+    check(on_path_only(chrom_launches),
+          "chromosome-scale run launched %s, not the ragged join alone"
+          % chrom_launches)
     check(D.RELAUNCHES["capacity"] == 0,
           "chromosome-scale run overflowed its hit capacity")
 
@@ -688,8 +797,9 @@ def chromosome_phase(tmp, device):
           "resolve %.3f s, launches %s; hits equal the host's"
           % (D.RELAUNCHES["capacity"], t_relaunch, dict(K.LAUNCHES)),
           flush=True)
-    check(D.RELAUNCHES["capacity"] == 1 and K.LAUNCHES["affine_nibble"] > 0
-          and K.LAUNCHES["plane"] > 0, "overflow was not relaunched on the card")
+    check(D.RELAUNCHES["capacity"] == 1 and K.LAUNCHES["ragged_join"] > 0
+          and on_path_only(K.LAUNCHES),
+          "overflow was not relaunched on the card: %s" % dict(K.LAUNCHES))
     # the pre-filter's two ends: reads of which none reaches a device variant
     # (nothing packed, nothing launched) and reads that all do (none dropped)
     _, _, near = D._read_spans(bd, vt.pos)
@@ -714,36 +824,38 @@ def chromosome_phase(tmp, device):
             check(n_launch > 0 and D.STATS["rows_dropped"] == 0 and
                   D.STATS["rows_kept"] == len(part) and len(got) > 0,
                   "reads near a variant were dropped")
-    if dev.type == "cuda":
-        profile_dispatch(lambda: assign_alleles_auto(bd, vt, baseq=10,
-                                                     device=device))
-        host_items(lambda: assign_alleles_auto(bd, vt, baseq=10,
-                                               device=device))
-        rows_or_copy(K, lambda: assign_alleles_auto(bd, vt, baseq=10,
-                                                    device=device))
+    profile_dispatch(lambda: assign_alleles_auto(bd, vt, baseq=10,
+                                                 device=device))
+    host_items(lambda: assign_alleles_auto(bd, vt, baseq=10, device=device))
+    span_passes(D, K, bd, vt, want, dev)
 
-    # the dispatcher without the native nibble packer: affine reads take
-    # the 1 B/base masked plane and the affine_masked kernel
-    pack_nibble = K.pack_affine_nibble
-    K.pack_affine_nibble = lambda *a, **k: None
+    # the route takes no packer: with every packer refusing, the hits are
+    # the host's and the ragged join alone ran (phaser_tpu's dispatcher
+    # without its nibble packer takes the masked-affine program)
+    packers = {n: getattr(K, n) for n in PACKERS}
+
+    def refuse(*a, **k):
+        raise SmokeError("the dispatcher called a packer")
     try:
+        for n in PACKERS:
+            setattr(K, n, refuse)
         K.reset_launches()
         D.reset_stats()
         t0 = time.perf_counter()
         got = assign_alleles_auto(bd, vt, baseq=10, device=device)
         torch.cuda.synchronize()
-        t_masked = time.perf_counter() - t0
-        masked_launches = dict(K.LAUNCHES)
+        t_nopack = time.perf_counter() - t0
+        nopack_launches = dict(K.LAUNCHES)
     finally:
-        K.pack_affine_nibble = pack_nibble
-    same_hits(got, want, "assign_alleles_auto without the nibble packer")
-    filter_stats(D, "no-nibble call", dropped=True)
-    print("   no nibble packer: %.3f s, launches %s; hits equal the host's"
-          % (t_masked, masked_launches), flush=True)
-    check(masked_launches["affine_masked"] > 0 and
-          masked_launches["affine_nibble"] == 0,
-          "the no-nibble-packer run skipped affine_masked: %s"
-          % masked_launches)
+        for n, f in packers.items():
+            setattr(K, n, f)
+    same_hits(got, want, "assign_alleles_auto with every packer refusing")
+    filter_stats(D, "no-packer call", dropped=True)
+    print("   every packer refusing: %.3f s, launches %s; hits equal the "
+          "host's" % (t_nopack, nopack_launches), flush=True)
+    check(on_path_only(nopack_launches) and
+          nopack_launches["ragged_join"] > 0,
+          "the no-packer run launched %s" % nopack_launches)
 
     # one 262,144-row launch of each kernel at the main path's shapes
     dev_vidx = np.arange(len(vt))
@@ -885,6 +997,29 @@ def chromosome_phase(tmp, device):
           % (hits_u, ms_u, unfused_launches), flush=True)
     del got_u, want_u
 
+    # the ragged join on the first 262,144 rows the dispatcher keeps, staged
+    # as it stages them
+    from phaser_tpu_torch.utils.trace import DeviceClock
+    has_ins_all, _, near_all = D._read_spans(bd, vt.pos)
+    r_rows = np.flatnonzero(near_all & ~has_ins_all)[:SUB_ROWS]
+    r_in = D._stage_reads(bd, r_rows, dev, DeviceClock(dev))
+    n_r, n_ops, n_bases = len(r_rows), int(r_in[2].shape[0]), \
+        int(r_in[4].shape[0])
+
+    def ragged():
+        return K.assign_compact_ragged(*r_in, 10, table, cap)
+
+    def ragged_plain():
+        return K.ragged_join_plain(*r_in, 10, table, cap)
+    # the launch's reference range: pos + 1 to pos + its ops' reference
+    # lengths, over its rows
+    from phaser_tpu_torch.mapper.host import _REF_CONSUME
+    r_cig = r_in[2].cpu().numpy().view(np.uint32)
+    r_off = r_in[1].cpu().numpy().astype(np.int64)
+    r_pos = r_in[0].cpu().numpy().astype(np.int64)
+    r_end = r_pos + D._per_read_sum(
+        np.where(_REF_CONSUME[r_cig & 0xF], r_cig >> 4, 0), r_off)
+
     sub = bd.select(np.flatnonzero(~aff_all)[:SUB_ROWS])
     codes, quals, refpos = K.pack_reads(sub)
     n_p = codes.shape[0]
@@ -919,20 +1054,31 @@ def chromosome_phase(tmp, device):
     p_under, p_range = under(
         np.where(refpos > 0, refpos, np.iinfo(np.int32).max).min(1),
         refpos.max(1), refpos.max(1) > 0)
+    r_under, _ = under(r_pos + 1, r_end, r_end > r_pos)
     Lh = nc.shape[1]
     steps = max(mp.bit_length() - 1, 1)          # binary-search depth
     print("   table entries under the launch's rows: affine_nibble %d, "
           "delta_nibble %d (%d of %d rows have an entry in their range), "
-          "plane %d, affine_masked %d, affine_planes %d of %d"
-          % (a_under, d_under, d_live, n, p_under, m_under, pl_under, mp),
-          flush=True)
+          "plane %d, affine_masked %d, affine_planes %d, ragged_join %d of "
+          "%d; ragged_join's launch %d rows, %d ops, %d bases"
+          % (a_under, d_under, d_live, n, p_under, m_under, pl_under,
+             r_under, mp, n_r, n_ops, n_bases), flush=True)
     results, bounds = {}, {}
+    own_launches = {"affine_planes": planes_launches}
     for name, k, p, rows in (
             ("affine_nibble", affine, affine_plain, n),
             ("delta_nibble", delta_k, delta_plain, n),
             ("plane", plane, plane_plain, n_p),
             ("affine_masked", masked_k, masked_plain, n),
-            ("affine_planes", planes_k, planes_plain, n)):
+            ("affine_planes", planes_k, planes_plain, n),
+            ("ragged_join", ragged, ragged_plain, n_r)):
+        if name != "ragged_join":
+            # a kernel on no path of the dispatcher: the launches of its
+            # record are its own call's, counted from 0 just before
+            K.reset_launches()
+            k()
+            torch.cuda.synchronize()
+            own_launches.setdefault(name, K.LAUNCHES[name])
         err, ms, plain_ms, hits, on_card = kernel_vs_plain(name, k, p, rows)
         results[name] = (err, ms, plain_ms, on_card)
         out_bytes = 8 * hits + 4
@@ -949,6 +1095,14 @@ def chromosome_phase(tmp, device):
             need = rows * 12 + pl_under * TABLE_ROW_BYTES + 2 * 32 * hits
             every = rows * (12 + 2 * L) + tab_bytes
             ops = rows * 2 * steps + 12 * hits
+        elif name == "ragged_join":
+            # pos and two offsets a row, 4 B an op, the entries under the
+            # launch's range, a sector of seq and one of qual a hit; every
+            # input byte once adds all the bases' seq and qual bytes
+            need = rows * 12 + n_ops * 4 + r_under * TABLE_ROW_BYTES + \
+                2 * 32 * hits
+            every = rows * 12 + n_ops * 4 + 2 * n_bases + tab_bytes
+            ops = rows * 2 * steps + n_ops * 4 + 12 * hits
         elif name == "delta_nibble":
             # [rp_min, rp_max] of every row (8 B); start (4 B) and the
             # 2 B/base delta row only of rows with an entry in their range;
@@ -964,21 +1118,28 @@ def chromosome_phase(tmp, device):
             ops = rows * L_p * (2 + float(p_range.mean())) + rows * 2 * 4 * 32
         bounds[name] = bound_of(need + out_bytes, ops) + \
             (bound_of(every + out_bytes, ops)[0],)
+    # the read_spans kernel on every read of the call, as its card pass
+    # uploads them
+    s_in = [T(x) for x in (bd.pos, bd.cigar_off, bd.cigar_flat.view(np.int32),
+                           vpos)]
+    from phaser_tpu_torch.io.bam import OP_I, OP_N
+    results["read_spans"], bounds["read_spans"], \
+        own_launches["read_spans"] = spans_vs_plain(K, s_in, OP_I, OP_N,
+                                                    steps)
     torch.cuda.synchronize()
     # phase 9's chromosome-scale step input: the first 262,144 reads as
     # refpos planes, and the het table
     from phaser_tpu_torch.dist.multihost import table_arrays
     step_input = K.pack_reads(bd, rows=np.arange(min(STEP_ROWS, len(bd)))) + \
         table_arrays(vt)
-    return (results, bounds, {"affine_masked": masked_launches["affine_masked"],
-                              "affine_planes": planes_launches},
-            chrom_launches, step_input)
+    return results, bounds, own_launches, chrom_launches, step_input
 
 
 def branch_shapes_phase(device):
-    """The five range-join kernels against their plain versions on the
-    layouts that reach every branch (testing/layouts.py), 20,000 rows each,
-    with room for every hit and with a capacity of 4."""
+    """The six range-join kernels against their plain versions on the
+    layouts that reach every branch (testing/layouts.py), 20,000 rows each
+    (for the ragged join the same rows as reads, ragged_inputs), with room
+    for every hit and with a capacity of 4."""
     import numpy as np
     import torch
     from phaser_tpu_torch.kernels import alleles as K
@@ -995,6 +1156,7 @@ def branch_shapes_phase(device):
         pl_in = [T(x) for x in layouts.affine_planes_inputs(d)]
         d_in = [T(x) for x in layouts.delta_inputs(d)]
         p_in = [T(x) for x in layouts.plane_inputs(d)]
+        r_in = [T(x) for x in layouts.ragged_inputs(d)]
         line = []
         for prog, kernel, plain in (
                 ("affine_nibble",
@@ -1011,7 +1173,10 @@ def branch_shapes_phase(device):
                  lambda c: K.delta_nibble_plain(*d_in, table, c)),
                 ("plane",
                  lambda c: K.assign_compact_plane(*p_in, 10, table, c),
-                 lambda c: K.plane_plain(*p_in, 10, table, c))):
+                 lambda c: K.plane_plain(*p_in, 10, table, c)),
+                ("ragged_join",
+                 lambda c: K.assign_compact_ragged(*r_in, 10, table, c),
+                 lambda c: K.ragged_join_plain(*r_in, 10, table, c))):
             got, want = kernel(1 << 22), plain(1 << 22)
             torch.cuda.synchronize()
             (nk, hk), (npl, hp) = sorted_hits(got), sorted_hits(want)
@@ -1061,8 +1226,8 @@ def small_delta_phase(tmp, device):
     same_hits(got, want, "datagen assign_alleles_auto")
     print("   datagen fixture: %d reads, %d hits, launches %s"
           % (len(bd), len(want), dict(K.LAUNCHES)), flush=True)
-    check(min(K.LAUNCHES[k] for k in MAIN_PATH) > 0,
-          "datagen run skipped a kernel: %s" % K.LAUNCHES)
+    check(on_path_only(K.LAUNCHES),
+          "datagen run launched %s, not #2's kernels alone" % K.LAUNCHES)
 
 
 def planes_vs_plain(name, path_out, kernel, plain):
@@ -1305,22 +1470,31 @@ class _FakeVT:
 
 
 def timed_pair(fn, device, warm):
-    """(host s, cuda s, results) in turns host, cuda, cuda, host; each time
-    is the mean of its two runs.  With `warm`, one untimed device call
-    first takes the CUDA start-up of the stage's operators."""
+    """(host s, cuda s, results, runs, card s) in turns host, cuda, cuda,
+    host; each time is the mean of its two runs, and `card s` the mean of
+    the cuda runs' device clocks (utils/trace.DeviceClock: CUDA events
+    around the stage's uploads, device work and fetch).  With `warm`, one
+    untimed device call first takes the CUDA start-up of the stage's
+    operators."""
     import torch
+    from phaser_tpu_torch.utils.trace import thread_device_seconds
     ts = {"host": [], device: []}
+    card = []
     out = {}
     for dv in ((device,) if warm else ()) + ("host", device, device,
                                             "host"):
+        c0 = thread_device_seconds()
         t0 = time.perf_counter()
         out[dv] = fn(dv)
         torch.cuda.synchronize()
         ts[dv].append(time.perf_counter() - t0)
+        if dv == device:
+            card.append(thread_device_seconds() - c0)
     if warm:
         ts[device].pop(0)
+        card.pop(0)
     return (sum(ts["host"]) / 2, sum(ts[device]) / 2, out["host"],
-            out[device], ts)
+            out[device], ts, sum(card) / 2)
 
 
 class forced_gate:
@@ -1351,7 +1525,11 @@ def stages_phase(device):
 
     # #3: synthetic two-hit reads over 5000 variants, pairs within 200
     n_vars = 5000
-    for k, n_reads in enumerate((60_000, 240_000, 2_000_000)):
+    # below the gate (forced down), at it and above it: auto's pair gate
+    # rests on these
+    for k, n_reads in enumerate((60_000, 120_000, 240_000, 500_000,
+                                 1_000_000, 2_000_000)):
+        forced = n_reads < 200_000
         v1 = rng.integers(0, n_vars, n_reads)
         v2 = np.minimum(v1 + 1 + rng.integers(0, 200, n_reads), n_vars - 1)
         ok = v1 != v2
@@ -1363,14 +1541,14 @@ def stages_phase(device):
                              h_uid=uid, h_var=var, h_allele=allele)
         before = connections.COUNTS["device_calls"]
         with forced_gate(connections, "DEVICE_PAIR_GATE",
-                         0 if k == 0 else connections.DEVICE_PAIR_GATE):
-            th, tc, h, c, ts = timed_pair(
+                         0 if forced else connections.DEVICE_PAIR_GATE):
+            th, tc, h, c, ts, card = timed_pair(
                 lambda dv: connections.build_connections(vr, 0.002, 0.01,
                                                          device=dv),
                 device, warm=k == 0)
         check(connections.COUNTS["device_calls"] == before + 2 + (k == 0),
               "#3 did not take the device path")
-        check((h.n_pairs >= connections.DEVICE_PAIR_GATE) == (k > 0),
+        check((h.n_pairs >= connections.DEVICE_PAIR_GATE) == (not forced),
               "#3 size on the wrong side of the gate")
         for f in ("var_a", "var_b", "c_supporting", "c_total", "p_value",
                   "chosen_config", "pruned"):
@@ -1378,7 +1556,8 @@ def stages_phase(device):
                   "#3 %s differs between cuda and host" % f)
         check(h.adj == c.adj and h.allele_conn == c.allele_conn,
               "#3 graph differs between cuda and host")
-        rows.append(("#3 pair counting", "%d pairs" % h.n_pairs, th, tc, ts))
+        rows.append(("#3 pair counting", "%d pairs" % h.n_pairs, th, tc, ts,
+                     card))
 
     # #4: local edges (each variant linked to one of its next four), the
     # shape of haplotype blocks; n_edges counts both directions
@@ -1397,7 +1576,7 @@ def stages_phase(device):
         before = blocks.COUNTS["device_calls"]
         with forced_gate(blocks, "_DEVICE_EDGE_GATE",
                          0 if k == 0 else blocks._DEVICE_EDGE_GATE):
-            th, tc, h, c, ts = timed_pair(
+            th, tc, h, c, ts, card = timed_pair(
                 lambda dv: blocks.find_blocks(conn, vt, device=dv), device,
                 warm=k == 0)
         check(blocks.COUNTS["device_calls"] == before + 2 + (k == 0),
@@ -1405,7 +1584,8 @@ def stages_phase(device):
         check((n_edges >= blocks._DEVICE_EDGE_GATE) == (k > 0),
               "#4 size on the wrong side of the gate")
         check(h == c, "#4 blocks differ between cuda and host")
-        rows.append(("#4 components", "%d edges" % n_edges, th, tc, ts))
+        rows.append(("#4 components", "%d edges" % n_edges, th, tc, ts,
+                     card))
 
     # #5: a read-consistent chain with longer links: a unique best config
     gate = phasing.DEVICE_SCORE_GATE
@@ -1423,19 +1603,22 @@ def stages_phase(device):
         variants = list(range(n))
         before = phasing.COUNTS["device_calls"]
         with forced_gate(phasing, "DEVICE_SCORE_GATE", min(n, gate)):
-            th, tc, h, c, ts = timed_pair(
+            th, tc, h, c, ts, card = timed_pair(
                 lambda dv: phasing.sub_block_phase(variants, ac, device=dv),
                 device, warm=n == gate - 4)
         check(phasing.COUNTS["device_calls"] ==
               before + 2 + (n == gate - 4), "#5 did not take the device path")
         check(h == c and "-" not in h[0], "#5 phase differs between cuda and "
               "host, or tied: %s / %s" % (h, c))
-        rows.append(("#5 2^n scorer", "n = %d" % n, th, tc, ts))
+        rows.append(("#5 2^n scorer", "n = %d" % n, th, tc, ts, card))
 
-    for stage, size, th, tc, ts in rows:
-        print("   %-17s %-14s host %.4f s  cuda %.4f s   (runs %s)"
-              % (stage, size, th, tc, {k: ["%.4f" % t for t in v]
-                                       for k, v in ts.items()}), flush=True)
+    for stage, size, th, tc, ts, card in rows:
+        print("   %-17s %-14s host %.4f s  cuda %.4f s (card %.4f s)   "
+              "(runs %s)" % (stage, size, th, tc, card,
+                             {k: ["%.4f" % t for t in v]
+                              for k, v in ts.items()}), flush=True)
+        check(card > 0, "%s at %s: no card time on the device clock"
+              % (stage, size))
     return rows
 
 
@@ -1502,11 +1685,12 @@ def e2e_phase(tmp, device):
     print("   fixture: %d input reads, %d variants, %.1f s"
           % (2 * sum(pairs), sum(nvar), time.perf_counter() - t0),
           flush=True)
-    from phaser_tpu_torch.engine import connections
+    from phaser_tpu_torch.engine import blocks, connections, phasing
+    from phaser_tpu_torch.mapper import dispatch as D
     walls = {}
-    launches, relaunches, stage_calls = None, 0, {}
-    for run in (device, "host", "gates_down"):
-        dv = "host" if run == "host" else device
+    launches, relaunches, stage_calls, run_launch = None, 0, {}, {}
+    for run in (device, "host", "gates_down", "auto"):
+        dv = run if run in ("host", "auto") else device
         argv = ["--vcf", vcf, "--bam", bam, "--sample", data.sample,
                 "--mapq", "10", "--baseq", "10", "--paired_end", "1",
                 "--o", os.path.join(d, run), "--device", dv]
@@ -1515,6 +1699,7 @@ def e2e_phase(tmp, device):
         if run == device:
             launches, relaunches = run_launches, run_relaunches
         stage_calls[run] = calls
+        run_launch[run] = run_launches
         check(rc == 0, "CLI %s failed:\n%s" % (run, stdout[-3000:]))
         lines = stdout.splitlines()
         start = next((i for i, x in enumerate(lines)
@@ -1524,20 +1709,33 @@ def e2e_phase(tmp, device):
                 print("   [%s] %s" % (run, line.strip()), flush=True)
         print("   [%s] device stage calls %s, reads over the pair K cap %d"
               % (run, calls, connections.COUNTS["host_reads"]), flush=True)
-        if run != "host":
-            from phaser_tpu_torch.mapper import dispatch as D
+        if run != "host" and (run != "auto" or D.AUTO_ON_CARD):
             filter_stats(D, "[%s] allele assignment" % run, dropped=False)
-    for run in (device, "gates_down"):
+    for run in (device, "gates_down", "auto"):
         same_outputs(os.path.join(d, run), os.path.join(d, "host"),
                      "e2e run %s" % run, vcf_text=False)
-    print("   outputs byte-identical to host in both cuda runs (%s)"
-          % ", ".join(SUFFIXES), flush=True)
+    print("   outputs byte-identical to host in the cuda, gates-down and "
+          "auto runs (%s)" % ", ".join(SUFFIXES), flush=True)
     print("   e2e wall (CLI main, in process): %s %.3f s, host %.3f s, "
-          "gates down %.3f s; kernel launches %s; capacity relaunches %d"
+          "gates down %.3f s, auto %.3f s; kernel launches %s; capacity "
+          "relaunches %d"
           % (device, walls[device], walls["host"], walls["gates_down"],
-             launches, relaunches), flush=True)
-    check(launches and min(launches[k] for k in MAIN_PATH) > 0,
-          "main path skipped a kernel: %s" % launches)
+             walls["auto"], launches, relaunches), flush=True)
+    check(launches and on_path_only(launches),
+          "the main path launched %s, not #2's kernels alone" % launches)
+    # auto: each stage on the card only where its module's AUTO_ON_CARD
+    # says (#3-#5 also only above their gates)
+    auto_2 = sum(run_launch["auto"].values()) > 0
+    stage_ok = all((stage_calls["auto"][m.__name__.rsplit(".", 1)[1]] > 0)
+                   <= m.AUTO_ON_CARD for m in (connections, blocks, phasing))
+    check(auto_2 == D.AUTO_ON_CARD and stage_ok,
+          "auto took a route its constants do not give: launches %s, stage "
+          "calls %s" % (run_launch["auto"], stage_calls["auto"]))
+    print("   auto's route: #2 %s (launches %s), stage calls %s; on the "
+          "card: #3 %s, #4 %s, #5 %s" % (
+              "card" if auto_2 else "host", run_launch["auto"],
+              stage_calls["auto"], connections.AUTO_ON_CARD,
+              blocks.AUTO_ON_CARD, phasing.AUTO_ON_CARD), flush=True)
     check(min(stage_calls["gates_down"].values()) > 0,
           "gates-down run skipped a device stage: %s"
           % stage_calls["gates_down"])
@@ -1656,13 +1854,13 @@ def sharded_phase(fx, device, smi):
         print("   [%s] %-38s wall %.3f s on %s; launches %s; stage calls %s; "
               "shard device/wall s: %s"
               % (name, " ".join(flags), wall, smi,
-                 {k: launches[k] for k in MAIN_PATH}, calls,
+                 {"ragged_join": launches["ragged_join"]}, calls,
                  shards[0] if shards else "-"), flush=True)
         if ref is not None:
             same_outputs(out, ref, "run %s" % name,
                          vcf_text=ref == host)
         record[name] = dict(launches=launches, calls=calls)
-    check(min(record["a"]["launches"][k] for k in MAIN_PATH) > 0,
+    check(record["a"]["launches"]["ragged_join"] > 0,
           "run a (--threads 4) skipped a main-path kernel: %s"
           % record["a"]["launches"])
     check(min(record["b"]["calls"].values()) > 0,
@@ -2567,10 +2765,7 @@ def main() -> int:
         else:
             line += "%d / %d" % (chrom_launches.get(name, 0),
                                  e2e_launches.get(name, 0))
-        if name == "affine_masked":
-            line += "   (%d on the 5M-read call without the nibble packer)" \
-                % own_launches[name]
-        elif name == "affine_planes":
+        if name in own_launches:
             line += "   (%d in its own phase-3 call; on no dispatcher path)" \
                 % own_launches[name]
         if len(bounds[name]) > 2 and bounds[name][2] != bound_ms:

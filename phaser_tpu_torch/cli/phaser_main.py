@@ -1,11 +1,15 @@
 """phaser_tpu_torch main CLI: phaser_tpu's `phaser` command (flag-compatible
 with phASER's phaser.py:26-81) on the PyTorch / CUDA port.
 
---device: cuda (default; auto is the same) runs the device stages on the
-GPU and fails without one: #2 allele assignment through the CUDA kernels,
-and, above their size gates, #3 pair counting, #4 components and the #5 2^n
-scorer as torch code.  cpu runs the same stages with the kernels' plain
-PyTorch versions on CPU tensors; host runs every stage on the host.
+--device: cuda (default) runs the device stages on the GPU and fails
+without one: #2 allele assignment through the CUDA kernels, and, above
+their size gates, #3 pair counting, #4 components and the #5 2^n scorer as
+torch code.  auto asks for the GPU as cuda does, then routes each stage by
+the H100 measurements its module records (mapper.dispatch.AUTO_ON_CARD,
+engine.connections.AUTO_ON_CARD, engine.blocks.AUTO_ON_CARD,
+engine.phasing.AUTO_ON_CARD): the card where it won, else the host code.
+cpu runs the device stages with the kernels' plain PyTorch versions on CPU
+tensors; host runs every stage on the host.
 
 Runners, as phaser_tpu routes them (phaser_tpu/cli/phaser_main.py:105-138):
 --process_slow 1 runs one engine per contig (engine.slow_mode), each
@@ -83,9 +87,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("cuda", "auto", "cpu", "host"),
                    help="Device of allele assignment and, above their "
                         "size gates, pair counting, components and the 2^n "
-                        "scorer: cuda (CUDA kernels and torch on the GPU; "
-                        "auto is the same), cpu (the kernels' plain PyTorch "
-                        "versions on CPU tensors) or host (host code only) "
+                        "scorer: cuda (CUDA kernels and torch on the GPU), "
+                        "auto (needs the GPU; each stage on the card where "
+                        "the H100 measurements say it wins, else on the "
+                        "host), cpu (the kernels' plain PyTorch versions on "
+                        "CPU tensors) or host (host code only) "
                         "(phaser_tpu_torch extension).")
     return p
 
@@ -117,7 +123,7 @@ def main(argv=None) -> int:
         gw_phase_vcf_min_confidence=args.gw_phase_vcf_min_confidence,
         gw_af_field=args.gw_af_field, chr_prefix=args.chr_prefix,
         show_warning=args.show_warning)
-    device = "cuda" if args.device == "auto" else args.device
+    device = args.device
     kwargs = dict(
         vcf=args.vcf, bam=args.bam, sample=args.sample, o=args.o,
         mapq=args.mapq, baseq=args.baseq, paired_end=args.paired_end,

@@ -20,6 +20,14 @@
 //                  (alleles.py:217-226): the affine rebuild from the unmasked
 //                  codes and quals planes, BASEQ applied in the kernel.  The
 //                  same body again, over a third code fetch.
+//   read_spans     the dispatcher's span pass (host code in phaser_tpu): a
+//                  flag byte a read (I op, N op, a table position under its
+//                  conservative span), written, not compacted.
+//   ragged_join    replaces the dispatcher's three packed routes (the same
+//                  Pallas body, fed the host packers' padded planes): each
+//                  read's reference positions from its pos and CIGAR, its
+//                  bases read where BAM decode put them.  The allele
+//                  dispatcher's one route for every non-insertion read.
 //
 // The unfused kernel-level entries write the (n_rows, l) int32 vidx and
 // allele planes of assign_alleles_device instead (vidx = table index or -1,
@@ -32,13 +40,15 @@
 //   planes_cmp     replaces _alleles_pallas_cmp_kernel (alleles.py:757).
 //
 // Table search, range-join entries (affine_nibble, affine_masked,
-// affine_planes, delta_nibble, plane: every fused entry).  The hits of a row
-// are the table entries whose position lies in the row's reference range, so
-// these kernels find that range on the card (no host planner, no window
-// argument) and visit its entries instead of searching once per base.  The
+// affine_planes, delta_nibble, plane, ragged_join: every fused entry).  The
+// hits of a row are the table entries whose position lies in the row's
+// reference range, so these kernels find that range on the card (no host
+// planner, no window argument) and visit its entries instead of searching
+// once per base.  The
 // affine kernels compute the range from (start, lo, hi), the delta kernel
 // takes it from the packer's per-row [rp_min, rp_max], the plane kernel
-// reduces it from the refpos plane.  See the note above each kernel.
+// reduces it from the refpos plane, the ragged join walks the row's CIGAR.
+// See the note above each kernel.
 //
 // Table search, windowed entries (planes, planes_cmp).  Row r belongs to row
 // block b = r / block_rows; the block searches table entries
@@ -76,6 +86,7 @@
 // Index arithmetic is int32 inside a row plane: the wrappers assert
 // n_rows * L < 2^31.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -474,6 +485,232 @@ affine_planes_kernel(const uint8_t* __restrict__ codes,
                      int32_t* __restrict__ out, int cap) {
   affine_body(CodesQualsPlanes{codes, quals, baseq}, start, lo, hi, n_rows, l,
               vpos, a0, a1, ni, mp, out, cap);
+}
+
+// CIGAR op classes of the ragged join, as bit masks over the op code (bit op
+// set: the op is of the class).  The launcher gets them from the caller,
+// which reads them off mapper/host.py's _ALIGNED, _REF_CONSUME and
+// _READ_CONSUME tables, so the kernel walks a CIGAR as expand_refpos does.
+struct OpClasses {
+  unsigned aligned, ref, query;
+};
+
+__device__ __forceinline__ bool in_class(unsigned mask, unsigned op) {
+  return (mask >> op) & 1u;
+}
+
+// The rows of one ragged block, one row per thread: search the row's first
+// aligned position in the table slice tv[0, tn_), then walk the entries up
+// to its last aligned position.  An entry's position p maps to a query
+// offset through a cursor over the row's ops (op c starts at reference
+// position r and query offset q): the cursor passes every op that ends at
+// or before p, ops of no reference length (I, S, H, P) included, and stops
+// at the op under p.  Entries ascend, so the cursor only moves forward: a
+// row's ops are read once however many entries it has, and an affine row
+// (clips around one aligned run) maps each entry with one subtraction.  An
+// entry under a D or N op, or whose query offset lies past the row's bases
+// (a CIGAR longer than the sequence, or a sequence of `*`), emits nothing.
+// All 32 lanes of a warp stay in the emission loop while any of them still
+// has a candidate.
+template <bool kGlobal>
+__device__ __forceinline__ void ragged_rows(
+    bool live, int row, int first, int last, const uint32_t* __restrict__ cig,
+    int c, int c1, long long r, const uint8_t* __restrict__ seq,
+    const uint8_t* __restrict__ qual, int n_bases, int baseq, OpClasses cls,
+    const int32_t* tv, const int32_t* t0, const int32_t* t1,
+    const int32_t* tni, int tn_, int tbase, int32_t* __restrict__ out,
+    int cap) {
+  int k = 0, k_first = 0;
+  if (live) {
+    k = lower_bound<kGlobal>(tv, tn_, first);
+    k_first = k;
+  }
+  int prev = 0;
+  long long q = 0;
+  while (__any_sync(kFull, live)) {
+    int word = -1;
+    while (live) {
+      if (k >= tn_) {
+        live = false;
+        break;
+      }
+      int p = tload<kGlobal>(tv + k);
+      if (p > last) {
+        live = false;
+        break;
+      }
+      // of entries at one position only the first is a hit (the lower
+      // bound of a per-base search)
+      bool is_first = k == k_first || p != prev;
+      prev = p;
+      int kk = k++;
+      if (!is_first) continue;
+      unsigned op = 0;
+      while (c < c1) {
+        uint32_t w = __ldg(cig + c);
+        op = w & 0xF;
+        long long len = w >> 4;
+        long long ref_len = in_class(cls.ref, op) ? len : 0;
+        if (p < r + ref_len) break;  // the op under p
+        r += ref_len;
+        if (in_class(cls.query, op)) q += len;
+        ++c;
+      }
+      if (c >= c1 || !in_class(cls.aligned, op)) continue;
+      long long at = q + (p - r);
+      if (at >= n_bases) continue;
+      int code = __ldg(qual + at) >= baseq ? (__ldg(seq + at) & 0xF) : 15;
+      if (code == 15) continue;
+      word = hit_word<kGlobal>(code, kk, t0, t1, tni, tbase);
+      break;
+    }
+    emit1(row, word, out, cap);
+  }
+}
+
+// Replaces the dispatcher's packed routes of phaser_tpu (the Pallas body at
+// alleles.py:673 through _nibble_windowed_impl :975, _delta_windowed_impl
+// :424 and _plane_windowed_impl :1038, with the host packers that build
+// their padded planes): one range join over the reads as BAM decode stores
+// them.  Row r is read r of the launch: its 0-based `pos`, its ops
+// cigar[cig_off[r], cig_off[r + 1]) (uint32, length << 4 | op) and its
+// bases seq / qual[seq_off[r], seq_off[r + 1]) (1 B each, the nibble code
+// and the phred score); masked = qual >= baseq ? code : 15.
+//
+// Bound: what the data needs is the row's pos and two offsets (12 B), its
+// ops (4 B each), the table entries between the rows' lowest and highest
+// aligned position (16 B each), one 32-byte sector of seq and one of qual
+// per entry under an aligned base, and 8 B per hit written.  The padded
+// planes of the TPU's routes (1-4 B per base and row, built on the host)
+// never exist: the bases reach the card as decoded, and the kernel reads
+// them only under a table entry.  What is left is latency, as in
+// affine_body: the ops walk, two block barriers, the search's dependent
+// loads.  What the design does about it: a block takes 256 consecutive rows
+// (BAM order is position order), first walks each row's ops for its aligned
+// range [first, last], finds the table slice under the block (block_slice)
+// and, when it fits kStage entries, searches and walks in shared memory;
+// rows whose slice does not fit search the whole table in global memory.
+__global__ void __launch_bounds__(kThreads)
+ragged_join_kernel(const int32_t* __restrict__ pos,
+                   const int32_t* __restrict__ cig_off,
+                   const uint32_t* __restrict__ cigar,
+                   const int32_t* __restrict__ seq_off,
+                   const uint8_t* __restrict__ seq,
+                   const uint8_t* __restrict__ qual, int n_rows, int baseq,
+                   OpClasses cls, const int32_t* __restrict__ vpos,
+                   const int32_t* __restrict__ a0,
+                   const int32_t* __restrict__ a1,
+                   const int32_t* __restrict__ ni, int mp,
+                   int32_t* __restrict__ out, int cap) {
+  __shared__ __align__(16) BlockTable bt;
+
+  int row = blockIdx.x * kThreads + threadIdx.x;
+  bool live = false;
+  int c0 = 0, c1 = 0, s0 = 0, n_bases = 0;
+  int first = 0x7fffffff, last = (int)0x80000000;
+  long long r0 = 0;  // the 1-based reference position of the row's first op
+  if (row < n_rows) {
+    c0 = __ldg(cig_off + row);
+    c1 = __ldg(cig_off + row + 1);
+    s0 = __ldg(seq_off + row);
+    n_bases = __ldg(seq_off + row + 1) - s0;
+    r0 = (long long)__ldg(pos + row) + 1;
+    // the row's aligned range: the first base of its first aligned op to the
+    // last base of its last one
+    long long r = r0, lo = LLONG_MAX, hi = LLONG_MIN;
+    for (int c = c0; c < c1; ++c) {
+      uint32_t w = __ldg(cigar + c);
+      unsigned op = w & 0xF;
+      long long len = w >> 4;
+      if (in_class(cls.aligned, op) && len > 0) {
+        lo = lo < r ? lo : r;
+        hi = r + len - 1;
+      }
+      if (in_class(cls.ref, op)) r += len;
+    }
+    // table positions lie in [1, INT32_MAX - 1]: INT32_MAX pads the table
+    lo = lo > 1 ? lo : 1;
+    hi = hi < 0x7ffffffe ? hi : 0x7ffffffe;
+    live = lo <= hi;
+    if (live) {
+      first = (int)lo;
+      last = (int)hi;
+    }
+  }
+  int k_lo, n_slice;
+  bool staged;
+  if (!block_slice(bt, first, last, vpos, a0, a1, ni, mp, &k_lo, &n_slice,
+                   &staged))
+    return;
+  const uint8_t* rseq = seq + s0;
+  const uint8_t* rqual = qual + s0;
+  if (staged) {
+    ragged_rows<false>(live, row, first, last, cigar, c0, c1, r0, rseq, rqual,
+                       n_bases, baseq, cls, bt.sv, bt.s0, bt.s1, bt.sn,
+                       n_slice, k_lo, out, cap);
+  } else {
+    ragged_rows<true>(live, row, first, last, cigar, c0, c1, r0, rseq, rqual,
+                      n_bases, baseq, cls, vpos, a0, a1, ni, mp, 0, out, cap);
+  }
+}
+
+// The allele dispatcher's span pass on the card (no TPU kernel: phaser_tpu's
+// dispatcher, like mapper/dispatch.py _read_spans, runs it on the host).
+// Per read one flag byte: bit 0 the read holds an op of ins_ops (I), bit 1
+// one of skip_ops (N), bit 2 `near`: a position of the padded, sorted table
+// vpos[0, mp) lies in [pos + 1, pos + total], total the sum of ALL the
+// read's op lengths (an end that can only be too large, so a read that is
+// not near has no aligned base on a table position).
+//
+// Bound: bytes, 4 B of pos, 8 B of offsets and 4 B per op read, 1 B
+// written, per read; the table entries under the reads once.  What the
+// design does about it: one read per thread, so a warp's loads of pos and
+// the offsets are coalesced and its ops (consecutive rows) nearly so; a
+// block takes 256 consecutive reads (position order), stages the table
+// slice under them (block_slice) and searches there, so a search costs
+// shared-memory loads instead of 17 dependent L2 loads.
+__global__ void __launch_bounds__(kThreads)
+read_spans_kernel(const int32_t* __restrict__ pos,
+                  const int64_t* __restrict__ cig_off,
+                  const uint32_t* __restrict__ cigar, int n, unsigned ins_ops,
+                  unsigned skip_ops, const int32_t* __restrict__ vpos, int mp,
+                  uint8_t* __restrict__ flags) {
+  __shared__ __align__(16) BlockTable bt;
+  int i = blockIdx.x * kThreads + threadIdx.x;
+  int f = 0, first = 0x7fffffff, last = (int)0x80000000;
+  bool live = false;
+  if (i < n) {
+    long long total = 0;
+    unsigned seen = 0;
+    for (long long c = __ldg(cig_off + i); c < __ldg(cig_off + i + 1); ++c) {
+      uint32_t w = __ldg(cigar + c);
+      total += w >> 4;
+      seen |= 1u << (w & 0xF);
+    }
+    f = ((seen & ins_ops) ? 1 : 0) | ((seen & skip_ops) ? 2 : 0);
+    long long lo = (long long)__ldg(pos + i) + 1, hi = lo - 1 + total;
+    // table positions lie in [1, INT32_MAX - 1]: INT32_MAX pads the table
+    lo = lo > 1 ? lo : 1;
+    hi = hi < 0x7ffffffe ? hi : 0x7ffffffe;
+    live = lo <= hi;
+    if (live) {
+      first = (int)lo;
+      last = (int)hi;
+    }
+  }
+  int k_lo, n_slice;
+  bool staged;
+  // block_slice stages four columns; the span pass needs the positions
+  // alone, so all four are vpos
+  if (block_slice(bt, first, last, vpos, vpos, vpos, vpos, mp, &k_lo,
+                  &n_slice, &staged) && live) {
+    int k = staged ? lower_bound<false>(bt.sv, n_slice, first)
+                   : lower_bound<true>(vpos, mp, first);
+    int at = staged ? (k < n_slice ? bt.sv[k] : 0x7fffffff)
+                    : (k < mp ? __ldg(vpos + k) : 0x7fffffff);
+    if (at <= last) f |= 4;
+  }
+  if (i < n) flags[i] = (uint8_t)f;
 }
 
 // Warp-aggregated compaction of up to four hits per lane (words of -1 are
@@ -1459,6 +1696,41 @@ int affine_planes_launch(const void* codes, const void* quals,
         (const int32_t*)lo, (const int32_t*)hi, n_rows, l, baseq,
         (const int32_t*)vpos, (const int32_t*)a0, (const int32_t*)a1,
         (const int32_t*)ni, mp, (int32_t*)out, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+int ragged_join_launch(const void* pos, const void* cig_off, const void* cigar,
+                       const void* seq_off, const void* seq, const void* qual,
+                       int n_rows, int baseq, int aligned_ops, int ref_ops,
+                       int query_ops, const void* vpos, const void* a0,
+                       const void* a1, const void* ni, int mp, void* out,
+                       int cap, void* stream) {
+  cudaError_t init = init_packed(out, cap, (cudaStream_t)stream);
+  if (init != cudaSuccess) return (int)init;
+  if (n_rows > 0) {
+    // one row per thread
+    OpClasses cls{(unsigned)aligned_ops, (unsigned)ref_ops,
+                  (unsigned)query_ops};
+    ragged_join_kernel<<<grid_for(n_rows), kThreads, 0,
+                         (cudaStream_t)stream>>>(
+        (const int32_t*)pos, (const int32_t*)cig_off, (const uint32_t*)cigar,
+        (const int32_t*)seq_off, (const uint8_t*)seq, (const uint8_t*)qual,
+        n_rows, baseq, cls, (const int32_t*)vpos, (const int32_t*)a0,
+        (const int32_t*)a1, (const int32_t*)ni, mp, (int32_t*)out, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+int read_spans_launch(const void* pos, const void* cig_off, const void* cigar,
+                      int n, int ins_ops, int skip_ops, const void* vpos,
+                      int mp, void* flags, void* stream) {
+  if (n > 0) {
+    // one read per thread
+    read_spans_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)pos, (const int64_t*)cig_off, (const uint32_t*)cigar,
+        n, (unsigned)ins_ops, (unsigned)skip_ops, (const int32_t*)vpos, mp,
+        (uint8_t*)flags);
   }
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,7 @@
 // feeds fixed-width int tensors. C API consumed via ctypes (no pybind11).
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstring>
 #include <cstdlib>
@@ -415,7 +416,8 @@ int64_t bam_parse_v2(const uint8_t* data, int64_t size, int64_t n,
                      uint16_t* flag, int32_t* tlen, int32_t* as_score,
                      uint8_t* has_as, int64_t* cigar_off, int64_t* seq_off,
                      int64_t* name_off, uint32_t* cigar, uint8_t* seq,
-                     uint8_t* qual, char* names, int n_threads) {
+                     uint8_t* qual, char* names, int32_t* span_end,
+                     uint8_t* span_flags, int n_threads) {
   // sequential offset walk (jump-only)
   std::vector<int64_t> rec_off((size_t)n);
   int64_t off = 0, tc = 0, ts = 0, tn = 0;
@@ -461,6 +463,19 @@ int64_t bam_parse_v2(const uint8_t* data, int64_t size, int64_t n,
           memcpy(names + name_off[i], q, l_read_name - 1);
         q += l_read_name;
         memcpy(cigar + cigar_off[i], q, 4 * (int64_t)n_cigar);
+        // the allele dispatcher's span summary, while the ops are hot: the
+        // end pos + (sum of ALL op lengths), clamped to int32, and whether
+        // the read holds an I (bit 0) or an N (bit 1) op
+        int64_t total = 0;
+        uint8_t sf = 0;
+        for (int64_t c = 0; c < n_cigar; c++) {
+          uint32_t w = cigar[cigar_off[i] + c];
+          total += w >> 4;
+          sf |= (w & 0xF) == 1 ? 1 : (w & 0xF) == 3 ? 2 : 0;
+        }
+        int64_t end = (int64_t)pos[i] + total;
+        span_end[i] = end > INT32_MAX ? INT32_MAX : (int32_t)end;
+        span_flags[i] = sf;
         q += 4 * (int64_t)n_cigar;
         uint8_t* sdst = seq + seq_off[i];
         int64_t pairs = l_seq >> 1;
@@ -971,7 +986,15 @@ int64_t exact_assign(
     if (!splice && hasN) continue;
 
     int64_t slen = seq_off[r + 1] - seq_off[r];
-    bases.resize(slen);
+    // bases past the read's own (a CIGAR longer than the sequence, a
+    // sequence of `*`) read as N, so the ops after them keep their places
+    int64_t qlen = 0;
+    for (int64_t c = cigar_off[r]; c < cigar_off[r + 1]; c++) {
+      uint32_t op = cigar[c] & 0xF;
+      if (op == 0 || op == 1 || op == 4 || op == 7 || op == 8)
+        qlen += cigar[c] >> 4;
+    }
+    bases.assign(slen > qlen ? slen : qlen, 'N');
     for (int64_t k = 0; k < slen; k++) {
       uint8_t q = quals[seq_off[r] + k];
       bases[k] = (q >= (uint8_t)baseq) ? kNibbleChars[seq[seq_off[r] + k] & 0xF]
@@ -1135,8 +1158,11 @@ void* map_simple_run(
             for (size_t u = 0; u < run_g.size(); u++) {
               if (vp >= run_g[u] && vp < run_g[u] + run_len[u]) {
                 int64_t k = seq_off[r] + run_ro[u] + (vp - run_g[u]);
-                uint8_t c = (qual[k] >= bq) ? (uint8_t)(seq[k] & 0xF)
-                                            : (uint8_t)15;
+                // a base past the read's own (a CIGAR longer than the
+                // sequence, a sequence of `*`) is absent: no row
+                uint8_t c = k >= seq_off[r + 1] ? (uint8_t)15
+                            : (qual[k] >= bq) ? (uint8_t)(seq[k] & 0xF)
+                                              : (uint8_t)15;
                 if (c != 15) {
                   out.read.push_back((int32_t)r);
                   out.vidx.push_back((int32_t)vi);
@@ -1303,6 +1329,88 @@ void gather_ragged_u32(int64_t k, const int64_t* idx, const uint32_t* src,
         int64_t i = idx[r];
         int64_t n = off[i + 1] - off[i];
         memcpy(out + new_off[r], src + off[i], (size_t)(n * 4));
+      }
+    });
+  }
+  for (auto& th : threads) th.join();
+}
+
+// len[r] = off[rows[r] + 1] - off[rows[r]]: the ragged lengths of the rows
+// a gather takes (CIGAR ops or bases), scattered loads of a large offsets
+// array spread over threads.
+void row_lengths_native(int64_t k, const int64_t* rows, const int64_t* off,
+                        int64_t* len, int n_threads) {
+  if (n_threads < 1) n_threads = 1;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < n_threads; t++) {
+    threads.emplace_back([=]() {
+      for (int64_t r = k * t / n_threads; r < k * (t + 1) / n_threads; r++)
+        len[r] = off[rows[r] + 1] - off[rows[r]];
+    });
+  }
+  for (auto& th : threads) th.join();
+}
+
+// The allele dispatcher's gather of one launch's reads into its staging
+// buffer, in the layout the ragged_join kernel takes: out row r is read
+// rows[r], with its pos, its CIGAR words, bases and qualities, at the int32
+// offsets new_cig_off[r] / new_seq_off[r] (given as int64 from 0; k + 1 of
+// each).  Every byte is read once and written once, straight into the
+// (pinned) buffer.  Threads take contiguous ranges of rows.
+void stage_reads_native(int64_t k, const int64_t* rows, const int32_t* pos,
+                        const uint32_t* cigar, const int64_t* cigar_off,
+                        const uint8_t* seq, const uint8_t* qual,
+                        const int64_t* seq_off, const int64_t* new_cig_off,
+                        const int64_t* new_seq_off, int32_t* out_pos,
+                        int32_t* out_cig_off, uint32_t* out_cigar,
+                        int32_t* out_seq_off, uint8_t* out_seq,
+                        uint8_t* out_qual, int n_threads) {
+  if (n_threads < 1) n_threads = 1;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < n_threads; t++) {
+    threads.emplace_back([=]() {
+      for (int64_t r = k * t / n_threads; r < k * (t + 1) / n_threads; r++) {
+        int64_t i = rows[r];
+        out_pos[r] = pos[i];
+        out_cig_off[r] = (int32_t)new_cig_off[r];
+        out_seq_off[r] = (int32_t)new_seq_off[r];
+        memcpy(out_cigar + new_cig_off[r], cigar + cigar_off[i],
+               (size_t)(cigar_off[i + 1] - cigar_off[i]) * 4);
+        int64_t n = seq_off[i + 1] - seq_off[i];
+        memcpy(out_seq + new_seq_off[r], seq + seq_off[i], (size_t)n);
+        memcpy(out_qual + new_seq_off[r], qual + seq_off[i], (size_t)n);
+      }
+    });
+  }
+  for (auto& th : threads) th.join();
+  out_cig_off[k] = (int32_t)new_cig_off[k];
+  out_seq_off[k] = (int32_t)new_seq_off[k];
+}
+
+// `near` of the allele dispatcher's pre-filter from the span summary BAM
+// decode wrote (bam_parse_v2's span_end): whether a position of the sorted
+// vpos[0, m) lies in [pos[i] + 1, span_end[i]].  Reads in position order
+// make it a merge: each thread searches once at the start of its range of
+// reads and then moves its table cursor forward; a read whose start lies
+// before the last one's searches again.
+void near_sorted_native(int64_t n, const int32_t* pos,
+                        const int32_t* span_end, int64_t m,
+                        const int64_t* vpos, uint8_t* near, int n_threads) {
+  if (n_threads < 1) n_threads = 1;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < n_threads; t++) {
+    threads.emplace_back([=]() {
+      int64_t a = n * t / n_threads, b = n * (t + 1) / n_threads;
+      int64_t k = 0, prev = 0;
+      for (int64_t i = a; i < b; i++) {
+        int64_t first = (int64_t)pos[i] + 1;
+        if (i == a || first < prev) {
+          k = std::lower_bound(vpos, vpos + m, first) - vpos;
+        } else {
+          while (k < m && vpos[k] < first) k++;
+        }
+        prev = first;
+        near[i] = k < m && vpos[k] <= (int64_t)span_end[i];
       }
     });
   }

@@ -20,6 +20,14 @@ from .connections import ContigConnections
 _DEVICE_EDGE_GATE = 100_000
 # device calls
 COUNTS = {"device_calls": 0}
+# --device auto labels components on the host.  chip_smoke.py phase 5
+# (NVIDIA H100 80GB HBM3, 700.00 W; stage walls, card against host, means
+# of three runs): 102,644 edges 0.2849 / 0.3229, 0.3881 / 0.3995, 0.2771 /
+# 0.3016 s with single calls 0.17-0.52 s either way, 969,224 edges 3.5865 /
+# 3.5493, 3.3139 / 3.3978, 3.7339 / 3.8838 s: inside the calls' spread,
+# and the card's own seconds are 0.001-0.004 s of them (the adjacency's
+# flattening on the host is both routes' work)
+AUTO_ON_CARD = False
 
 
 def find_blocks(conn: ContigConnections, vt,
@@ -35,10 +43,10 @@ def find_blocks(conn: ContigConnections, vt,
         return []
 
     n_edges = sum(len(nbrs) for nbrs in adj.values())  # 2x undirected count
+    from ..mapper.dispatch import stage_device
+    device = stage_device(device, AUTO_ON_CARD)
     if device not in ("host", "off") and n_edges >= _DEVICE_EDGE_GATE:
-        from ..utils.trace import device_section
-        with device_section():
-            blocks = _device_blocks(adj, device)
+        blocks = _device_blocks(adj, device)
     else:
         blocks = _host_blocks(adj)
 
@@ -90,8 +98,11 @@ def _device_blocks(adj: Dict[int, Set[int]], device) -> List[List[int]]:
     if not ea:
         # isolated self-connected keys only; treat each as its own block
         return [[v] for v in adj]
+    from ..utils.trace import DeviceClock
+    clock = DeviceClock(dev)
     comps = connected_components(np.asarray(ea, np.int64),
-                                 np.asarray(eb, np.int64), dev)
+                                 np.asarray(eb, np.int64), dev, clock)
+    clock.collect()
     # vertices present in adj but in no a<b edge (possible only if adj held
     # a vertex with an empty neighbor set) become singletons
     seen = {v for mem in comps for v in mem}

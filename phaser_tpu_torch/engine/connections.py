@@ -27,6 +27,12 @@ DEVICE_PAIR_GATE = 200_000
 MAX_K = 24
 # device calls, and reads sent to the host combos for exceeding K
 COUNTS = {"device_calls": 0, "host_reads": 0}
+# --device auto counts pairs on the host: chip_smoke.py phase 5 shows no
+# pair count from which the card won every run (NVIDIA H100 80GB HBM3,
+# 700.00 W; stage walls, card against host, two runs: 619,307 pairs 2.6679 /
+# 3.4985 s and 3.0198 / 3.1329 s, 846,667 4.3013 / 4.7606 s and 5.0733 /
+# 4.8604 s; the card's own seconds are 0.01-0.02 s of them)
+AUTO_ON_CARD = False
 
 
 @dataclass
@@ -134,6 +140,7 @@ def _device_pair_counts(vr: VariantReads, uniq_pk: np.ndarray, n_vars: int,
     from ..kernels.paircount import (count_pair_configs, emit_pairs,
                                      pack_read_hits)
     from ..mapper.dispatch import resolve_device
+    from ..utils.trace import DeviceClock
 
     dev = resolve_device(device)
     bump(COUNTS, "device_calls")
@@ -153,11 +160,17 @@ def _device_pair_counts(vr: VariantReads, uniq_pk: np.ndarray, n_vars: int,
     P = len(uniq_pk)
     counts = np.zeros((P, 3, 3), np.int64)
     if var_mat.shape[0]:
-        lo, hi, al, ah = emit_pairs(torch.from_numpy(var_mat).to(dev),
-                                    torch.from_numpy(allele_mat).to(dev), K)
-        keys, dev_counts, n_uniq = count_pair_configs(lo, hi, al, ah, n_vars)
-        keys = keys.cpu().numpy()
-        dev_counts = dev_counts.cpu().numpy().reshape(n_uniq, 3, 3)
+        # the card's own seconds of the uploads, the counting and the fetch
+        clock = DeviceClock(dev)
+        with clock.span():
+            lo, hi, al, ah = emit_pairs(torch.from_numpy(var_mat).to(dev),
+                                        torch.from_numpy(allele_mat).to(dev),
+                                        K)
+            keys, dev_counts, n_uniq = count_pair_configs(lo, hi, al, ah,
+                                                          n_vars)
+            keys = keys.cpu().numpy()
+            dev_counts = dev_counts.cpu().numpy().reshape(n_uniq, 3, 3)
+        clock.collect()
         pidx = np.searchsorted(uniq_pk, keys)
         ok = (pidx < P) & (uniq_pk[np.minimum(pidx, P - 1)] == keys)
         np.add.at(counts, pidx[ok], dev_counts[ok])
@@ -201,10 +214,10 @@ def build_connections(vr: VariantReads, noise_e: float,
         p_lo = p_hi = np.zeros(0, np.int64)
 
     # ---- counts over deduplicated hits (all allele classes)
+    from ..mapper.dispatch import stage_device
+    device = stage_device(device, AUTO_ON_CARD)
     if P >= DEVICE_PAIR_GATE and device not in ("host", "off"):
-        from ..utils.trace import device_section
-        with device_section():
-            counts = _device_pair_counts(vr, uniq_pk, len(vt), device)
+        counts = _device_pair_counts(vr, uniq_pk, len(vt), device)
     else:
         counts = np.zeros((P, 3, 3), np.int64)
         if P:

@@ -23,6 +23,11 @@ from ..utils.counters import bump
 DEVICE_SCORE_GATE = 16
 # device calls
 COUNTS = {"device_calls": 0}
+# --device auto scores on the card from DEVICE_SCORE_GATE, as cuda does:
+# the card won every run of chip_smoke.py phase 5 there (NVIDIA H100 80GB
+# HBM3, 700.00 W; n = 16: 0.0010 s against 0.0112 s host, n = 22: 0.0053
+# against 1.3093 s)
+AUTO_ON_CARD = True
 
 AlleleConn = Dict[Tuple[int, int], Set[Tuple[int, int]]]
 
@@ -132,9 +137,13 @@ def _device_full_enumeration(variants: Sequence[int], ac: AlleleConn,
                 j = local.get(w)
                 if j is not None and w != v:
                     M[i * 2 + a, j * 2 + b] = 1.0
-    scores = enumerate_scores(torch.from_numpy(M).to(dev), n)
-    # the first two configs of maximal score: one means a unique best
-    best = torch.nonzero(scores == scores.max()).flatten()[:2].cpu()
+    from ..utils.trace import DeviceClock
+    clock = DeviceClock(dev)
+    with clock.span():
+        scores = enumerate_scores(torch.from_numpy(M).to(dev), n)
+        # the first two configs of maximal score: one means a unique best
+        best = torch.nonzero(scores == scores.max()).flatten()[:2].cpu()
+    clock.collect()
     if len(best) == 1:
         bits = int(best[0])
         cfg = "0" + format(bits, "0%db" % (n - 1)) if n > 1 else "0"
@@ -162,10 +171,10 @@ def sub_block_phase(variants: Sequence[int], ac: AlleleConn,
             if xhap is not None:
                 return xhap[0]
         n = len(variants)
+        from ..mapper.dispatch import stage_device
+        device = stage_device(device, AUTO_ON_CARD)
         if n >= DEVICE_SCORE_GATE and device not in ("host", "off"):
-            from ..utils.trace import device_section
-            with device_section():
-                return _device_full_enumeration(variants, ac, n, device)
+            return _device_full_enumeration(variants, ac, n, device)
         # itertools.product("01", repeat=n) order, one per complement
         # class: exactly the configs starting with '0', scored as bit
         # patterns without materializing 2^(n-1) strings.

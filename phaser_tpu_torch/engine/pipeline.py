@@ -39,7 +39,8 @@ from .output_stage import (BlockOutputWriter, PhaserOptions,
                            write_allelic_counts, write_variant_connections)
 from .phasing import phase_v3
 from .varmap import build_variant_table
-from ..mapper.dispatch import assign_alleles_auto
+from ..mapper.dispatch import (AUTO_ON_CARD, assign_alleles_auto,
+                               stage_device)
 from ..utils.trace import Tracer
 from .vcf_writer import write_phased_vcf
 
@@ -281,8 +282,8 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
                 return c, chunk, pending
 
             with tracer.stage("#2 allele assignment", "reads"):
-                if pool is not None and device in ("host", "off") and \
-                        len(work) > 1:
+                if pool is not None and len(work) > 1 and stage_device(
+                        device, AUTO_ON_CARD) in ("host", "off"):
                     results = list(pool.map(_one, work))
                 else:
                     results = [_one(w) for w in work]

@@ -141,6 +141,11 @@ class BamData:
     seq_flat: np.ndarray = None       # uint8 nibble codes, one per base
     qual_flat: np.ndarray = None      # uint8 phred (not +33)
     seq_off: np.ndarray = None        # int64 [n+1]
+    # the allele dispatcher's span summary, written by the native decode
+    # (None elsewhere): pos + the sum of ALL op lengths (int32), and bit 0
+    # an I op, bit 1 an N op (uint8)
+    span_end: Optional[np.ndarray] = None
+    span_flags: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.refid)
@@ -168,6 +173,9 @@ class BamData:
             seq_flat=self.seq_flat[so[a]:so[b]],
             qual_flat=self.qual_flat[so[a]:so[b]],
             seq_off=so[a:b + 1] - so[a],
+            span_end=None if self.span_end is None else self.span_end[a:b],
+            span_flags=(None if self.span_flags is None
+                        else self.span_flags[a:b]),
         )
 
     def select(self, mask_or_idx) -> "BamData":
@@ -226,6 +234,9 @@ class BamData:
                    else [self.names[i] for i in idx]),
             cigar_flat=new_cig, cigar_off=new_co,
             seq_flat=new_seq, qual_flat=new_qual, seq_off=new_so,
+            span_end=None if self.span_end is None else self.span_end[idx],
+            span_flags=(None if self.span_flags is None
+                        else self.span_flags[idx]),
         )
 
 
@@ -417,10 +428,13 @@ def _parse_records_v2(lib, data: np.ndarray, ref_names, ref_lengths,
     seq = np.empty(ts_c.value, np.uint8)
     qual = np.empty(ts_c.value, np.uint8)
     names_blob = np.empty(tn_c.value, np.uint8)
+    span_end = np.empty(n, np.int32)
+    span_flags = np.empty(n, np.uint8)
     lib.bam_parse_v2(
         base, size, n, *(a.ctypes.data_as(ptr) for a in (
             refid, pos, mapq, flag, tlen, as_score, has_as, cigar_off,
-            seq_off, name_off, cigar, seq, qual, names_blob)),
+            seq_off, name_off, cigar, seq, qual, names_blob, span_end,
+            span_flags)),
         n_threads)
     bd = BamData(
         ref_names=ref_names, ref_lengths=ref_lengths, header_text=header_text,
@@ -428,7 +442,7 @@ def _parse_records_v2(lib, data: np.ndarray, ref_names, ref_lengths,
         as_score=as_score, has_as=has_as.astype(bool),
         names=NameView(names_blob.tobytes(), name_off),
         cigar_flat=cigar, cigar_off=cigar_off, seq_flat=seq, qual_flat=qual,
-        seq_off=seq_off)
+        seq_off=seq_off, span_end=span_end, span_flags=span_flags)
     return bd, consumed
 
 

@@ -74,7 +74,11 @@ def _declare(lib) -> None:
                                 c.c_void_p, c.c_void_p, c.c_void_p]
     lib.bam_parse_v2.restype = c.c_int64
     lib.bam_parse_v2.argtypes = [c.c_void_p, c.c_int64, c.c_int64] + \
-        [c.c_void_p] * 14 + [c.c_int]
+        [c.c_void_p] * 16 + [c.c_int]
+    lib.near_sorted_native.restype = None
+    lib.near_sorted_native.argtypes = [c.c_int64, c.c_void_p, c.c_void_p,
+                                       c.c_int64, c.c_void_p, c.c_void_p,
+                                       c.c_int]
     lib.map_simple_run.restype = c.c_void_p
     lib.map_simple_run.argtypes = [
         c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
@@ -130,6 +134,12 @@ def _declare(lib) -> None:
     lib.read_spans_native.argtypes = [
         c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64,
         c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int]
+    lib.row_lengths_native.restype = None
+    lib.row_lengths_native.argtypes = [c.c_int64, c.c_void_p, c.c_void_p,
+                                       c.c_void_p, c.c_int]
+    lib.stage_reads_native.restype = None
+    lib.stage_reads_native.argtypes = [c.c_int64] + [c.c_void_p] * 15 + \
+        [c.c_int]
     for fn in ("gather_ragged_u8", "gather_ragged_u32"):
         g = getattr(lib, fn)
         g.restype = None

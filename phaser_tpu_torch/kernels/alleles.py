@@ -11,10 +11,15 @@ hand-written CUDA kernel in csrc/alleles.cu beside a plain PyTorch version:
                                 card; on no path of the dispatcher
   assign_compact_delta_nibble   D / split-M reads, nibble plane + int16 delta
   assign_compact_plane          N-spliced reads / delta overflow, refpos plane
+  assign_compact_ragged         every non-insertion read as BAM decode stores
+                                it (pos, ragged CIGAR, seq and qual bytes):
+                                the dispatcher's one route
 
-All five are range joins: they find each row's table range themselves (on
+All six are range joins: they find each row's table range themselves (on
 the card, in the CUDA kernels) and take no window; the delta-nibble program
-takes the packer's per-row [rp_min, rp_max] for it.
+takes the packer's per-row [rp_min, rp_max] for it, the ragged join walks
+each row's CIGAR.  The first five and their packers are library entries
+on no dispatcher path.
 Each returns the packed-hit buffer of phaser_tpu's `_pack_hits`:
 int32 (2, capacity + 1), out[0, 0] = n_hits (exact
 even past capacity), row 0 = read index within the launch, row 1 =
@@ -59,8 +64,10 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 
 # kernel launches per wrapper (CUDA launches only; plain runs do not count)
 LAUNCHES = {"affine_nibble": 0, "delta_nibble": 0, "plane": 0,
-            "affine_masked": 0, "affine_planes": 0, "planes": 0,
-            "planes_resident": 0, "planes_cmp": 0, "planes_table": 0}
+            "affine_masked": 0, "affine_planes": 0, "ragged_join": 0,
+            "read_spans": 0,
+            "planes": 0, "planes_resident": 0, "planes_cmp": 0,
+            "planes_table": 0}
 
 
 def _next_pow2(n: int) -> int:
@@ -637,6 +644,109 @@ def plane_plain(codes, quals, refpos, baseq: int, table: Table,
                        table, capacity)
 
 
+def _op_classes():
+    """The CIGAR op classes of mapper/host.py (_ALIGNED, _REF_CONSUME,
+    _READ_CONSUME): what expand_refpos walks a CIGAR by."""
+    from ..mapper.host import _ALIGNED, _READ_CONSUME, _REF_CONSUME
+    return _ALIGNED, _REF_CONSUME, _READ_CONSUME
+
+
+def _row_starts(lens: torch.Tensor, co: torch.Tensor,
+                op_row: torch.Tensor) -> torch.Tensor:
+    """Exclusive cumulative sums of the per-op `lens` within each row (the
+    rows' ops are cigar[co[r], co[r + 1]))."""
+    incl = torch.cumsum(lens, 0)
+    before = torch.cat([incl.new_zeros(1), incl])[co[:-1]]
+    return incl - lens - before[op_row]
+
+
+def ragged_join_plain(pos, cig_off, cigar, seq_off, seq, qual, baseq: int,
+                      table: Table, capacity: int) -> torch.Tensor:
+    """The range join of the ragged_join kernel: row r's candidates are the
+    table entries between its first and its last aligned position (the
+    first of each position); an entry at p hits the base under p when the
+    op under p is aligned (M, =, X), its query offset lies inside the row's
+    own bases and the masked code is not 15.  Positions as expand_refpos
+    gives them: pos + 1 plus the reference lengths of the ops before."""
+    aligned_t, ref_t, query_t = (torch.from_numpy(t).to(pos.device)
+                                 for t in _op_classes())
+    vpos = table[0]
+    dev = pos.device
+    n = pos.shape[0]
+    co = cig_off.long()
+    op_row = torch.repeat_interleave(torch.arange(n, device=dev),
+                                     co[1:] - co[:-1])
+    w = cigar.long() & 0xFFFFFFFF
+    opc, ln = w & 0xF, w >> 4
+    is_aligned = aligned_t[opc]
+    r_start = pos.long()[op_row] + 1 + _row_starts(
+        torch.where(ref_t[opc], ln, 0), co, op_row)
+    q_start = _row_starts(torch.where(query_t[opc], ln, 0), co, op_row)
+    # each row's aligned range, within the positions a table holds
+    some = is_aligned & (ln > 0)
+    first = torch.full((n,), _INT32_MAX, dtype=torch.long, device=dev)
+    first.scatter_reduce_(0, op_row[some], r_start[some], "amin")
+    last = torch.zeros(n, dtype=torch.long, device=dev)
+    last.scatter_reduce_(0, op_row[some], (r_start + ln - 1)[some], "amax")
+    first = first.clamp(1, _INT32_MAX)
+    last = last.clamp(0, _INT32_MAX - 1)
+    k0 = torch.searchsorted(vpos, first.to(torch.int32))
+    k1 = torch.searchsorted(vpos, last.to(torch.int32), right=True)
+    rows, k = _ragged(k0, torch.where(first <= last, k1, k0))
+    keep = _first_of_equal(k, k0[rows], vpos)
+    rows, k = rows[keep], k[keep]
+    p = vpos[k].long()
+    # the op under p: the row's last op that starts at or before p (ops of
+    # no reference length start where the next one does)
+    key = (op_row << 32) | r_start.clamp(0, (1 << 32) - 1)
+    j = torch.searchsorted(key, (rows << 32) | p, right=True) - 1
+    at = q_start[j] + (p - r_start[j])
+    so = seq_off.long()
+    ok = is_aligned[j] & (p < r_start[j] + ln[j]) & \
+        (at < so[rows + 1] - so[rows])
+    rows, k, idx = rows[ok], k[ok], (so[rows] + at)[ok]
+    code = torch.where(qual[idx].to(torch.int32) >= baseq,
+                       seq[idx].to(torch.int32) & 0xF, 15)
+    keep = code != 15
+    return _pack_pairs(rows[keep], _classify_entries(k[keep], code[keep],
+                                                     table), capacity, dev)
+
+
+# read_spans' flag bits, also those of BamData.span_flags (the native
+# decode's span summary)
+SPAN_INS, SPAN_SPLICED, SPAN_NEAR = 1, 2, 4
+
+
+def read_spans_plain(pos, cig_off, cigar, vpos, ins_op: int,
+                     skip_op: int) -> torch.Tensor:
+    """The flag byte a read of the read_spans kernel: SPAN_INS where the
+    read has an ins_op op, SPAN_SPLICED a skip_op op, SPAN_NEAR where a
+    position of the sorted vpos lies in [pos + 1, pos + the sum of all its
+    op lengths] (INT32_MAX entries pad the table and never count)."""
+    dev = pos.device
+    n = pos.shape[0]
+    co = cig_off.long()
+    op_row = torch.repeat_interleave(torch.arange(n, device=dev),
+                                     co[1:] - co[:-1])
+    w = cigar.long() & 0xFFFFFFFF
+    opc = w & 0xF
+    total = torch.zeros(n, dtype=torch.long, device=dev).index_add_(
+        0, op_row, w >> 4)
+
+    def has(op):
+        return torch.zeros(n, dtype=torch.bool, device=dev).index_fill_(
+            0, op_row[opc == op], True)
+    first = (pos.long() + 1).clamp(1, _INT32_MAX)
+    last = (pos.long() + total).clamp(0, _INT32_MAX - 1)
+    k = torch.searchsorted(vpos, first.to(torch.int32)).clamp_max(
+        vpos.shape[0] - 1)
+    near = (first <= last) & (vpos[k].long() >= first) & \
+        (vpos[k].long() <= last)
+    return (has(ins_op).to(torch.uint8) * SPAN_INS +
+            has(skip_op).to(torch.uint8) * SPAN_SPLICED +
+            near.to(torch.uint8) * SPAN_NEAR)
+
+
 def planes_plain(codes, quals, refpos, baseq: int, ws, win: int,
                  block_rows: int, table: Table
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -687,6 +797,9 @@ _ARGTYPES = {  # each launcher's C signature (csrc/alleles.cu)
     "affine_masked_launch": [_P] * 4 + [_I, _I] + [_P] * 4 + [_I, _P, _I, _P],
     "affine_planes_launch": [_P] * 5 + [_I, _I, _I] + [_P] * 4 +
     [_I, _P, _I, _P],
+    "ragged_join_launch": [_P] * 6 + [_I] * 5 + [_P] * 4 +
+    [_I, _P, _I, _P],
+    "read_spans_launch": [_P] * 3 + [_I] * 3 + [_P, _I, _P, _P],
     "planes_launch": [_P] * 3 + [_I, _I, _I, _P, _I, _I] + [_P] * 4 +
     [_I, _I, _P, _P, _P],
     "planes_cmp_launch": [_P] * 3 + [_I, _I, _I, _P, _I] + [_P] * 4 +
@@ -933,6 +1046,78 @@ def assign_compact_affine(codes: torch.Tensor, quals: torch.Tensor,
         capacity, _stream(dev)))
     bump(LAUNCHES, "affine_planes")
     return out
+
+
+def _class_mask(cls: np.ndarray) -> int:
+    """Bit op set where the op table `cls` holds the op."""
+    return int(sum(1 << int(op) for op in np.flatnonzero(cls)))
+
+
+def assign_compact_ragged(pos: torch.Tensor, cig_off: torch.Tensor,
+                          cigar: torch.Tensor, seq_off: torch.Tensor,
+                          seq: torch.Tensor, qual: torch.Tensor, baseq: int,
+                          table: Table, capacity: int) -> torch.Tensor:
+    """Reads as BAM decode stores them: pos (N,) int32 (0-based), cig_off /
+    seq_off (N + 1,) int32 row offsets from 0, cigar (n_ops,) int32 (the
+    uint32 words, length << 4 | op), seq / qual (n_bases,) uint8 (nibble
+    codes, phred scores); masked = code where qual >= baseq, else 15.  Each
+    row's reference positions follow from pos and its CIGAR as
+    expand_refpos gives them; a base past the row's own bases (a CIGAR
+    longer than the sequence, a sequence of `*`) emits nothing.  The
+    offsets are trusted: cig_off[N] <= n_ops, seq_off[N] <= n_bases, both
+    non-decreasing.  The table must be position-sorted; each row's table
+    range is found by the program itself."""
+    dev = pos.device
+    n = pos.shape[0]
+    _check("pos", pos, torch.int32, (n,), dev)
+    _check("cig_off", cig_off, torch.int32, (n + 1,), dev)
+    _check("seq_off", seq_off, torch.int32, (n + 1,), dev)
+    _check("cigar", cigar, torch.int32, (cigar.shape[0],), dev)
+    nb = seq.shape[0]
+    _check("seq", seq, torch.uint8, (nb,), dev)
+    _check("qual", qual, torch.uint8, (nb,), dev)
+    _check_table(table, dev)
+    if not 1 <= capacity < (1 << 30):
+        raise ValueError("capacity %d out of range" % capacity)
+    if not _on_cuda(dev):
+        return ragged_join_plain(pos, cig_off, cigar, seq_off, seq, qual,
+                                 baseq, table, capacity)
+    _check_join_table(table)
+    out = _new_packed(capacity, dev)
+    vpos, a0, a1, ni = table
+    _launch("ragged_join_launch", (
+        pos.data_ptr(), cig_off.data_ptr(), cigar.data_ptr(),
+        seq_off.data_ptr(), seq.data_ptr(), qual.data_ptr(), n, int(baseq),
+        *[_class_mask(c) for c in _op_classes()], vpos.data_ptr(),
+        a0.data_ptr(), a1.data_ptr(), ni.data_ptr(), vpos.shape[0],
+        out.data_ptr(), capacity, _stream(dev)))
+    bump(LAUNCHES, "ragged_join")
+    return out
+
+
+def read_spans(pos: torch.Tensor, cig_off: torch.Tensor, cigar: torch.Tensor,
+               vpos: torch.Tensor, ins_op: int, skip_op: int) -> torch.Tensor:
+    """The allele dispatcher's span pass: (N,) uint8 flags (read_spans_plain)
+    of reads pos (N,) int32 (0-based), cig_off (N + 1,) int64, cigar
+    (n_ops,) int32 (the uint32 words) against vpos, a position-sorted int32
+    table padded with INT32_MAX to a non-zero multiple of 4 (padded_table's
+    first column).  The offsets are trusted as assign_compact_ragged's."""
+    dev = pos.device
+    n = pos.shape[0]
+    _check("pos", pos, torch.int32, (n,), dev)
+    _check("cig_off", cig_off, torch.int64, (n + 1,), dev)
+    _check("cigar", cigar, torch.int32, (cigar.shape[0],), dev)
+    _check("vpos", vpos, torch.int32, (vpos.shape[0],), dev)
+    if not _on_cuda(dev):
+        return read_spans_plain(pos, cig_off, cigar, vpos, ins_op, skip_op)
+    _check_join_table((vpos,) * 4)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    _launch("read_spans_launch", (
+        pos.data_ptr(), cig_off.data_ptr(), cigar.data_ptr(), n,
+        1 << int(ins_op), 1 << int(skip_op), vpos.data_ptr(), vpos.shape[0],
+        flags.data_ptr(), _stream(dev)))
+    bump(LAUNCHES, "read_spans")
+    return flags
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ ends after O(log n) rounds, each with one device-to-host check.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List
 
 import numpy as np
@@ -34,18 +35,23 @@ def label_components(edge_a: torch.Tensor, edge_b: torch.Tensor, n: int
 
 
 def connected_components(edge_a: np.ndarray, edge_b: np.ndarray,
-                         device) -> List[List[int]]:
+                         device, clock=None) -> List[List[int]]:
     """Components of the (edge_a, edge_b) graph over the vertices that
     appear in an edge, labelled on `device`.  One member list per
     component, components in order of their smallest vertex, members
-    ascending (phaser_tpu kernels/components.py:61-81)."""
+    ascending (phaser_tpu kernels/components.py:61-81).  `clock` (a
+    utils.trace.DeviceClock) spans the uploads, the labelling and the
+    fetch."""
     if len(edge_a) == 0:
         return []
     # compact vertex ids so the label array is sized to touched vertices
     verts = np.unique(np.concatenate([edge_a, edge_b]))
-    ca = torch.from_numpy(np.searchsorted(verts, edge_a)).to(device)
-    cb = torch.from_numpy(np.searchsorted(verts, edge_b)).to(device)
-    labels = label_components(ca, cb, len(verts)).cpu().numpy()
+    ia = np.searchsorted(verts, edge_a)
+    ib = np.searchsorted(verts, edge_b)
+    with clock.span() if clock is not None else contextlib.nullcontext():
+        labels = label_components(torch.from_numpy(ia).to(device),
+                                  torch.from_numpy(ib).to(device),
+                                  len(verts)).cpu().numpy()
     # a label is its component's smallest compact id, so a stable sort by
     # label lists components in first-appearance order
     order = np.argsort(labels, kind="stable")

@@ -1,31 +1,36 @@
 """GPU/host dispatch for allele assignment (the port of
 phaser_tpu/mapper/dispatch.py).
 
-The GPU kernels (kernels.alleles) take the common cases: affine reads as a
-nibble-packed masked plane with refpos rebuilt on the device (a 1 B/base
-masked plane when the native nibble packer is missing), deletion / split-M
-reads as nibble plane + int16 delta, and N-spliced reads (or delta overflow,
-or every non-affine read when the delta packer is missing) as an explicit
-refpos plane.  The affine-nibble and plane kernels find each row's table
-range on the card; only the delta-nibble path still plans table windows on
-the host.  The exact host mapper (mapper.host) keeps the remainder: insertion reads, multi-base
-alleles and duplicate-position table entries.  Row union and order equal
-the pure host path.
+One device route carries every non-insertion read: the reads go to the
+card as BAM decode stores them (pos, the ragged CIGAR words, one byte of
+seq and one of qual a base), and the ragged_join kernel
+(kernels.alleles.assign_compact_ragged) finds each read's reference
+positions from its CIGAR and its table range on the card.  phaser_tpu's
+dispatcher packs the reads on the host into padded planes first (a nibble
+plane with refpos rebuilt on the device for affine reads, nibble + int16
+delta planes for D / split-M reads, an explicit refpos plane for the
+rest): TPU shapes, which the port keeps as library entries on no path
+here.  The exact host mapper (mapper.host) keeps the remainder: insertion
+reads, multi-base alleles and duplicate-position table entries.  Row union
+and order equal the pure host path.
 
 Before any per-read work the device side drops every read whose reference
 span holds no device-eligible variant (`_read_spans`; the span's end can
-only be too large, so a dropped read has no hit); packers, uploads and
-kernels see the kept rows only and hits map back through each part's
-`row_map`.  Uploads go through pinned staging buffers (`_Stager`).
+only be too large, so a dropped read has no hit); the gather, the uploads
+and the kernel see the kept rows only, and hits map back through each
+part's `row_map`.  A launch's reads are gathered straight into this
+thread's pinned staging (`_Stager`) and cross to the card in one copy.
 
 `assign_alleles_auto(..., defer=True)` launches and returns a PendingHits;
 `resolve()` (or `resolve_all` over many chunks) fetches every part's hit
 counter in one small copy, then only the filled columns of the packed
 buffers in one more, and merges them with the host parts.
 
-`device` is "host" (exact host mapper), "cuda"/"auto" (the CUDA kernels;
-raises without a GPU) or "cpu" (the kernels' plain PyTorch versions on CPU
-tensors, the test path), or a torch.device.
+`device` is "host" (exact host mapper), "cuda" (the CUDA kernel; raises
+without a GPU), "auto" (AUTO_ON_CARD's route: the card or the host
+mapper, by the H100 measurements beside it; raises without a GPU all the
+same), "cpu" (the kernel's plain PyTorch version on CPU tensors, the test
+path), or a torch.device.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ import numpy as np
 import torch
 
 from ..engine.varmap import VariantTable
-from ..io.bam import (BamData, OP_EQ, OP_H, OP_I, OP_M, OP_N, OP_S, OP_X)
+from ..io.bam import BamData, OP_I, OP_N
+from ..kernels.alleles import SPAN_INS, SPAN_SPLICED
 from ..kernels.alleles import _n_threads
 from ..kernels.alleles import _next_pow2
 from .host import ContigHits, assign_alleles
@@ -46,6 +52,8 @@ from .host import ContigHits, assign_alleles
 from ..utils.counters import bump
 
 _SUB_ROWS = 1 << 18          # max reads per kernel launch
+# max bases (and CIGAR ops) per launch: the kernel's row offsets are int32
+_SUB_BASES = 1 << 30
 # max table entries per launch: the packed-hit word holds a table index
 # below 2^23 and the table pads to a power of two; larger tables launch
 # in slices
@@ -95,20 +103,32 @@ def _read_op_masks(bd: BamData):
 def _read_spans(bd: BamData, dev_pos: np.ndarray):
     """(has_ins, has_n, near) per read.  `near`: a position of the sorted
     `dev_pos` (1-based) lies in [pos + 1, pos + total], total the sum of ALL
-    the read's CIGAR op lengths.  BamData has no end column; this end can
-    only be too large (clips and insertions count as reference bases), so
-    a read that is not `near` has no aligned base on a device variant.
-    bd.pos is 0-based.  One native pass, else numpy."""
+    the read's CIGAR op lengths.  This end can only be too large (clips and
+    insertions count as reference bases), so a read that is not `near` has
+    no aligned base on a device variant.  bd.pos is 0-based.  From the span
+    summary the native BAM decode writes (BamData.span_end / span_flags: a
+    merge with the table, the fastest of the three ways chip_smoke.py
+    phase 3 times, a kernel among them), else one native pass over the
+    CIGARs, else numpy."""
     n = len(bd)
     dev_pos = np.ascontiguousarray(dev_pos, np.int64)
     from ..io import native as native_mod
     lib = native_mod.get_lib()
-    if lib is not None and hasattr(lib, "read_spans_native"):
+    ptr = ctypes.c_void_p
+    if bd.span_end is not None and hasattr(lib, "near_sorted_native"):
+        near = np.empty(n, np.uint8)
+        lib.near_sorted_native(
+            n, np.ascontiguousarray(bd.pos, np.int32).ctypes.data_as(ptr),
+            np.ascontiguousarray(bd.span_end, np.int32).ctypes.data_as(ptr),
+            len(dev_pos), dev_pos.ctypes.data_as(ptr),
+            near.ctypes.data_as(ptr), _n_threads())
+        return ((bd.span_flags & SPAN_INS) != 0,
+                (bd.span_flags & SPAN_SPLICED) != 0, near.view(bool))
+    if hasattr(lib, "read_spans_native"):
         out = [np.empty(n, np.uint8) for _ in range(3)]
         arrs = (np.ascontiguousarray(bd.pos, np.int32),
                 np.ascontiguousarray(bd.cigar_flat, np.uint32),
                 np.ascontiguousarray(bd.cigar_off, np.int64))
-        ptr = ctypes.c_void_p
         lib.read_spans_native(
             n, *[a.ctypes.data_as(ptr) for a in arrs], len(dev_pos),
             dev_pos.ctypes.data_as(ptr), *[o.ctypes.data_as(ptr) for o in out],
@@ -123,45 +143,9 @@ def _read_spans(bd: BamData, dev_pos: np.ndarray):
     return has_ins, has_n, near
 
 
-def _affine_params(bd: BamData):
-    """Per-read affine classification: reads whose CIGAR is one contiguous
-    M/=/X run plus end clips (S/H) have refpos[i] = pos+1 + (i - lo) on
-    [lo, hi) and 0 elsewhere. Returns (is_affine, start, lo, hi); reads
-    classified non-affine (D/N/I/P or split M runs) are simply routed to
-    the refpos-plane or host paths — classification is conservative."""
-    n = len(bd)
-    opc = (bd.cigar_flat & 0xF).astype(np.int64)
-    oplen = (bd.cigar_flat >> 4).astype(np.int64)
-    ops_per_read = np.diff(bd.cigar_off)
-    op_read = np.repeat(np.arange(n), ops_per_read)
-    within = np.arange(len(opc)) - np.repeat(bd.cigar_off[:-1], ops_per_read)
-
-    is_m = (opc == OP_M) | (opc == OP_EQ) | (opc == OP_X)
-    allowed = is_m | (opc == OP_S) | (opc == OP_H)
-    has_bad = np.zeros(n, bool)
-    np.logical_or.at(has_bad, op_read, ~allowed)
-
-    n_m = np.zeros(n, np.int64)
-    np.add.at(n_m, op_read, is_m.astype(np.int64))
-    first_m = np.full(n, np.iinfo(np.int64).max, np.int64)
-    np.minimum.at(first_m, op_read[is_m], within[is_m])
-    last_m = np.full(n, -1, np.int64)
-    np.maximum.at(last_m, op_read[is_m], within[is_m])
-    contig_m = (n_m >= 1) & (last_m - first_m + 1 == n_m)
-    is_affine = ~has_bad & contig_m
-
-    lo = np.zeros(n, np.int64)
-    lead_s = (opc == OP_S) & (within < first_m[op_read])
-    np.add.at(lo, op_read[lead_s], oplen[lead_s])
-    m_total = np.zeros(n, np.int64)
-    np.add.at(m_total, op_read[is_m], oplen[is_m])
-    start = bd.pos.astype(np.int64) + 1
-    return is_affine, start.astype(np.int32), lo.astype(np.int32), \
-        (lo + m_total).astype(np.int32)
-
-
 def resolve_device(device) -> torch.device:
-    """torch.device for a non-host `device` argument; "auto" means "cuda".
+    """torch.device for a non-host `device` argument; "auto" asks for the
+    card ("cuda"): a stage that `auto` routes to the host never calls this.
     Raises RuntimeError when CUDA is asked for and unavailable."""
     if isinstance(device, str) and device == "auto":
         device = "cuda"
@@ -239,6 +223,24 @@ def _adaptive_cap(fb_key, n_elems: int) -> int:
     return _next_pow2(max(n_elems // 32, 8192))
 
 
+# --device auto sends #2 allele assignment to the card (True) or to the host
+# mapper (False): the card only where its wall beat the host's in every run.
+# chip_smoke.py phase 3, the 5M-read call in turns on NVIDIA H100 80GB HBM3,
+# 700.00 W, two runs: this route 0.0559-0.0696 s (means 0.0629, 0.0568),
+# the host mapper 0.0379-0.0665 s (means 0.0423, 0.0460)
+AUTO_ON_CARD = False
+
+
+def stage_device(device, on_card: bool):
+    """The device of one stage: `auto` by the stage's route (on_card: the
+    card, "cuda"; else the host code, "host"), any other device as given.
+    The entry points ask for the card first (require_device), so `auto`
+    without one raises before any stage runs."""
+    if isinstance(device, str) and device == "auto":
+        return "cuda" if on_card else "host"
+    return device
+
+
 def require_device(device) -> None:
     """Raises when `device` asks for the card and there is none; "host" and
     "off" need no device.  What every entry point calls first, so that a
@@ -310,8 +312,17 @@ class PendingHits:
         all_r = np.concatenate([p[0] for p in rows_parts]).astype(np.int64)
         all_v = np.concatenate([p[1] for p in rows_parts]).astype(np.int64)
         all_c = np.concatenate([p[2] for p in rows_parts]).astype(np.int16)
-        order = np.lexsort((all_v, all_r))
-        hits = ContigHits(all_r[order], all_v[order], all_c[order])
+        if all_r.size == 0 or (all_r.max() < (1 << 31) and
+                               all_v.max() < (1 << 27)):
+            # one sort of packed (read, variant, code + 1) keys: the order
+            # of a lexsort by (read, variant), whose pairs are unique
+            key = (all_r << 32) | (all_v << 5) | (all_c + 1).astype(np.int64)
+            key.sort()
+            hits = ContigHits(key >> 32, (key >> 5) & ((1 << 27) - 1),
+                              ((key & 31) - 1).astype(np.int16))
+        else:
+            order = np.lexsort((all_v, all_r))
+            hits = ContigHits(all_r[order], all_v[order], all_c[order])
         if self._map:
             # rows are sorted by (read, variant): find each multi-base
             # allele's rows by its key, not by a pass over every hit
@@ -361,11 +372,11 @@ def _fetch(parts: list) -> List[np.ndarray]:
 
 
 class _Stager:
-    """Pinned staging buffers of one thread, used in turn.  An array is
-    copied into a buffer and from there to the card with a non-blocking
-    copy; the buffer's event says when that copy is done, and the next use
-    of the buffer waits for it.  The caller's array (a packer's reused
-    scratch) is free again as soon as `upload` returns."""
+    """Pinned staging buffers of one thread, used in turn.  A caller
+    `reserve`s a buffer, fills it and `send`s it to the card with a
+    non-blocking copy; the buffer's event says when that copy is done, and
+    the next use of the buffer waits for it.  `upload` does the three for a
+    numpy array, which is free again as soon as it returns."""
 
     SLOTS = 4
 
@@ -374,29 +385,47 @@ class _Stager:
         self._events = [None] * self.SLOTS
         self._next = 0
 
-    def upload(self, x: np.ndarray, dev: torch.device, clock) -> torch.Tensor:
+    def reserve(self, nbytes: int) -> Tuple[int, torch.Tensor]:
+        """(slot, pinned uint8 buffer of nbytes) whose last copy is done."""
         k = self._next
         self._next = (k + 1) % self.SLOTS
         if self._events[k] is not None:
             self._events[k].synchronize()   # the slot's last copy is done
         buf = self._bufs[k]
-        if buf is None or buf.numel() < x.nbytes:
-            grown = max(x.nbytes, 2 * (buf.numel() if buf is not None else 0),
+        if buf is None or buf.numel() < nbytes:
+            grown = max(nbytes, 2 * (buf.numel() if buf is not None else 0),
                         1 << 16)
             buf = self._bufs[k] = torch.empty(grown, dtype=torch.uint8,
                                               pin_memory=True)
-        host = buf[:x.nbytes].view(torch.from_numpy(x[:0].ravel()).dtype) \
-            .view(x.shape)
-        np.copyto(host.numpy(), x)
-        out = torch.empty(x.shape, dtype=host.dtype, device=dev)
+        return k, buf[:nbytes]
+
+    def send(self, k: int, host: torch.Tensor, dev: torch.device,
+             clock) -> torch.Tensor:
+        """Slot k's filled buffer `host` (or a view of it) on `dev`."""
+        out = torch.empty(host.shape, dtype=host.dtype, device=dev)
         with clock.span():
             out.copy_(host, non_blocking=True)
         self._events[k] = torch.cuda.Event()
         self._events[k].record(torch.cuda.current_stream(dev))
+        bump(STATS, "uploads")
+        bump(STATS, "uploads_pinned")
         return out
+
+    def upload(self, x: np.ndarray, dev: torch.device, clock) -> torch.Tensor:
+        k, buf = self.reserve(x.nbytes)
+        host = buf.view(torch.from_numpy(x[:0].ravel()).dtype).view(x.shape)
+        host.copy_(torch.from_numpy(x))   # torch copies in parallel
+        return self.send(k, host, dev, clock)
 
 
 _stage_tls = threading.local()
+
+
+def _stager() -> _Stager:
+    stager = getattr(_stage_tls, "stager", None)
+    if stager is None:
+        stager = _stage_tls.stager = _Stager()
+    return stager
 
 
 def _upload(x: np.ndarray, dev: torch.device, clock) -> torch.Tensor:
@@ -405,15 +434,117 @@ def _upload(x: np.ndarray, dev: torch.device, clock) -> torch.Tensor:
     x = np.ascontiguousarray(x)
     if dev.type == "cpu":
         return torch.from_numpy(x)
-    bump(STATS, "uploads")
     if x.nbytes == 0:
+        bump(STATS, "uploads")
         return torch.from_numpy(x).to(dev)
-    stager = getattr(_stage_tls, "stager", None)
-    if stager is None:
-        stager = _stage_tls.stager = _Stager()
-    out = stager.upload(x, dev, clock)
-    bump(STATS, "uploads_pinned")
+    return _stager().upload(x, dev, clock)
+
+
+def _row_offsets(bd: BamData, rows: np.ndarray):
+    """(CIGAR, base) int64 offsets from 0 of the reads `rows` laid end to
+    end, len(rows) + 1 each (the lengths by the native library's threads,
+    else numpy)."""
+    from ..io import native as native_mod
+    lib = native_mod.get_lib()
+    rows = np.ascontiguousarray(rows, np.int64)
+    out = []
+    for off in (bd.cigar_off, bd.seq_off):
+        if hasattr(lib, "row_lengths_native"):
+            lens = np.empty(len(rows), np.int64)
+            off = np.ascontiguousarray(off, np.int64)
+            ptr = ctypes.c_void_p
+            lib.row_lengths_native(len(rows), rows.ctypes.data_as(ptr),
+                                   off.ctypes.data_as(ptr),
+                                   lens.ctypes.data_as(ptr), _n_threads())
+        else:
+            lens = off[rows + 1] - off[rows]
+        o = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum(lens, out=o[1:])
+        out.append(o)
+    return tuple(out)
+
+
+def _launch_chunks(bd: BamData, kept: np.ndarray):
+    """(s, e, offsets) of each launch: the range [s, e) of `kept`, at most
+    _SUB_ROWS reads and _SUB_BASES bases and CIGAR ops (a single larger read
+    alone), and _row_offsets of its reads."""
+    cum = _row_offsets(bd, kept)
+    s, out = 0, []
+    while s < kept.size:
+        e = min(s + _SUB_ROWS, kept.size)
+        for c in cum:
+            e = min(e, int(np.searchsorted(c, c[s] + _SUB_BASES,
+                                           side="right")) - 1)
+        e = max(e, s + 1)
+        out.append((s, e, tuple(c[s:e + 1] - c[s] for c in cum)))
+        s = e
     return out
+
+
+def _stage_reads(bd: BamData, rows: np.ndarray, dev: torch.device, clock,
+                 offsets=None):
+    """(pos, cig_off, cigar, seq_off, seq, qual) of the reads `rows` as
+    assign_compact_ragged takes them, on `dev` (`offsets`: their
+    _row_offsets, computed here when None).  The reads are gathered
+    straight into one buffer (this thread's pinned staging, for a card:
+    each byte crosses host memory once) that reaches the card in one copy;
+    each array is a 16-byte aligned view of it.  The native gather fills
+    every part in one threaded pass; without the library numpy does."""
+    rows = np.ascontiguousarray(rows, np.int64)
+    cig_new, seq_new = _row_offsets(bd, rows) if offsets is None \
+        else offsets
+    n = len(rows)
+    n_ops, n_bases = int(cig_new[-1]), int(seq_new[-1])
+    parts = ((np.int32, n), (np.int32, n + 1), (np.uint32, n_ops),
+             (np.int32, n + 1), (np.uint8, n_bases), (np.uint8, n_bases))
+    starts, total = [], 0
+    for dt, cnt in parts:
+        starts.append(total)
+        total += (np.dtype(dt).itemsize * cnt + 15) & ~15
+    if dev.type == "cuda":
+        slot, host = _stager().reserve(total)
+        buf = host.numpy()
+    else:
+        buf = np.empty(total, np.uint8)
+    views = [buf[a:a + np.dtype(dt).itemsize * cnt].view(dt)
+             for a, (dt, cnt) in zip(starts, parts)]
+    from ..io import native as native_mod
+    lib = native_mod.get_lib()
+    if hasattr(lib, "stage_reads_native"):
+        srcs = (np.ascontiguousarray(bd.pos, np.int32),
+                np.ascontiguousarray(bd.cigar_flat, np.uint32),
+                np.ascontiguousarray(bd.cigar_off, np.int64),
+                np.ascontiguousarray(bd.seq_flat, np.uint8),
+                np.ascontiguousarray(bd.qual_flat, np.uint8),
+                np.ascontiguousarray(bd.seq_off, np.int64), cig_new, seq_new)
+        ptr = ctypes.c_void_p
+        lib.stage_reads_native(
+            n, rows.ctypes.data_as(ptr), *[a.ctypes.data_as(ptr)
+                                           for a in srcs],
+            *[v.ctypes.data_as(ptr) for v in views], _n_threads())
+    else:
+        pos, cig_off, cigar, seq_off, seq, qual = views
+        pos[:] = bd.pos[rows]
+        cig_off[:] = cig_new
+        seq_off[:] = seq_new
+        for flat, off, new, out in ((bd.cigar_flat, bd.cigar_off, cig_new,
+                                     cigar),
+                                    (bd.seq_flat, bd.seq_off, seq_new, seq),
+                                    (bd.qual_flat, bd.seq_off, seq_new,
+                                     qual)):
+            src = np.repeat(off[rows] - new[:-1], np.diff(new)) + \
+                np.arange(int(new[-1]), dtype=np.int64)
+            np.take(flat, src, out=out)
+    if dev.type == "cuda":
+        buf_t = _stager().send(slot, host, dev, clock)
+    else:
+        buf_t = torch.from_numpy(buf)
+    out = []
+    for a, (dt, cnt) in zip(starts, parts):
+        v = buf_t[a:a + np.dtype(dt).itemsize * cnt]
+        # the kernel takes the CIGAR's uint32 words as int32
+        out.append(v.view(torch.uint8 if dt == np.uint8 else torch.int32))
+    return tuple(out)
 
 
 def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
@@ -423,6 +554,8 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
 
     With defer=True returns a PendingHits (launch only); otherwise returns
     the resolved ContigHits directly."""
+    require_device(device)
+    device = stage_device(device, AUTO_ON_CARD)
     if device in ("host", "off") or len(bd) == 0 or len(vt) == 0:
         hits = assign_alleles(bd, vt, baseq=baseq, splice=splice,
                               isize_cutoff=isize_cutoff)
@@ -459,9 +592,6 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
     bump(STATS, "rows_in", n_dev)
     bump(STATS, "rows_kept", int(kept.size))
     bump(STATS, "rows_dropped", n_dev - int(kept.size))
-    # torch.from_numpy aliases on the CPU: packer scratch reuse is only safe
-    # where the upload is a real copy
-    reuse = dev.type == "cuda"
 
     dev_parts = []
     host_parts = []
@@ -472,100 +602,24 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
             return fn(*args)
 
     if kept.size:
-        # the packers fill row i from read kept[i]: no gathered copy of the
-        # kept reads (without the native library they gather their own)
-        rows = None if kept.size == len(bd) else kept
-        # packer order of phaser_tpu (mapper/dispatch.py:308-332): the
-        # nibble plane, else the 1 B/base masked plane, else the numpy
-        # affine classifier with codes/quals planes masked here
-        nibble = K.pack_affine_nibble(bd, baseq, reuse=reuse, rows=rows)
-        if nibble is not None:
-            mcodes, aff, a_start, a_lo, a_hi = nibble
-        else:
-            masked = K.pack_affine_masked(bd, baseq, reuse=reuse, rows=rows)
-            if masked is not None:
-                mcodes, aff, a_start, a_lo, a_hi = masked
-            else:
-                sub = bd if rows is None else bd.select(rows)
-                aff, a_start, a_lo, a_hi = _affine_params(sub)
-                codes, quals = K.pack_codes_quals(sub, reuse=reuse)
-                mcodes = np.where(quals >= baseq, codes,
-                                  np.uint8(15)).astype(np.uint8)
-        N, Lw = mcodes.shape
-        # bases per row: the nibble plane packs two per byte
-        L_bases = 2 * Lw if nibble is not None else Lw
-        st_k = np.where(aff, a_start, 0).astype(np.int32)
-        lo_k = np.where(aff, a_lo, 0).astype(np.int32)
-        hi_k = np.where(aff, a_hi, 0).astype(np.int32)
-        plane_all = np.flatnonzero(~aff)
-
+        tables = []
         for t in range(0, dev_vidx.size, _MAX_TABLE):
             tab_vidx = dev_vidx[t:t + _MAX_TABLE]
-            table = tuple(_upload(x, dev, clock)
-                          for x in K.padded_table(vt, tab_vidx))
-
-            # affine fast path: masked plane (BASEQ pre-applied), refpos
-            # rebuilt on the device, in <= _SUB_ROWS-row launches
-            for s in range(0, N if aff.any() else 0, _SUB_ROWS):
-                e = min(s + _SUB_ROWS, N)
-                if not aff[s:e].any():
-                    continue
-                n_sub = e - s
-                args = [_upload(x[s:e], dev, clock)
-                        for x in (mcodes, st_k, lo_k, hi_k)]
-                # either kernel finds each row's table range on the card
-                if nibble is not None:
-                    fb_key = ("affine_nib", _next_pow2(max(n_sub, 8)), Lw)
-                    cap = _adaptive_cap(fb_key, n_sub * L_bases)
-                    packed = launch(K.assign_compact_affine_nibble, *args,
-                                    table, cap)
-                else:
-                    fb_key = ("affine", _next_pow2(max(n_sub, 8)), Lw)
-                    cap = _adaptive_cap(fb_key, n_sub * L_bases)
-                    packed = launch(K.assign_compact_affine_masked, *args,
-                                    table, cap)
-                dev_parts.append((packed, cap, kept[s:e], tab_vidx, fb_key))
-
-            for s in range(0, plane_all.size, _SUB_ROWS):
-                # non-affine remainder: delta-nibble format for D/split-M
-                # reads, refpos plane only for what delta can't carry
-                # (N-spliced reads, delta overflow) or for every read when
-                # the delta packer is missing
-                plane_rows = kept[plane_all[s:s + _SUB_ROWS]]
-                dn = K.pack_delta_nibble(bd, baseq, reuse=reuse,
-                                         rows=plane_rows)
-                if dn is not None:
-                    ncd, dlt, okm, dst, rmn, rmx = dn
-                    ok_idx = np.flatnonzero(okm)
-                else:
-                    ok_idx = np.zeros(0, np.int64)
-                if ok_idx.size:
-                    Nd = ok_idx.size
-                    Ld = dlt.shape[1]
-                    # the packer's per-row [rp_min, rp_max] is all the
-                    # kernel needs to find each row's table range
-                    fb_key = ("delta_nib", _next_pow2(max(Nd, 8)), Ld)
-                    cap_d = _adaptive_cap(fb_key, Nd * Ld)
-                    packed_d = launch(
-                        K.assign_compact_delta_nibble,
-                        *[_upload(x[ok_idx], dev, clock)
-                          for x in (ncd, dst, dlt, rmn, rmx)], table, cap_d)
-                    dev_parts.append((packed_d, cap_d, plane_rows[ok_idx],
-                                      tab_vidx, fb_key))
-                if dn is not None:
-                    plane_rows = plane_rows[~okm]
-                    if plane_rows.size == 0:
-                        continue
-                codes2, quals2, refpos2 = K.pack_reads(bd, rows=plane_rows)
-                N2, L2 = codes2.shape
-                fb_key = ("plane", _next_pow2(max(N2, 8)), L2)
-                cap2 = _adaptive_cap(fb_key, N2 * L2)
-                packed2 = launch(
-                    K.assign_compact_plane, _upload(codes2, dev, clock),
-                    _upload(quals2, dev, clock), _upload(refpos2, dev, clock),
-                    baseq, table, cap2)
-                dev_parts.append((packed2, cap2, plane_rows, tab_vidx,
-                                  fb_key))
+            tables.append((tab_vidx, tuple(
+                _upload(x, dev, clock)
+                for x in K.padded_table(vt, tab_vidx))))
+        # each launch's reads cross to the card once, for every table slice
+        for s, e, offsets in _launch_chunks(bd, kept):
+            rows = kept[s:e]
+            reads = _stage_reads(bd, rows, dev, clock, offsets)
+            n_bases = int(reads[4].shape[0])
+            fb_key = ("ragged", _next_pow2(max(e - s, 8)),
+                      _next_pow2(max(n_bases // (e - s), 1)))
+            cap = _adaptive_cap(fb_key, n_bases)
+            for tab_vidx, table in tables:
+                packed = launch(K.assign_compact_ragged, *reads, baseq, table,
+                                cap)
+                dev_parts.append((packed, cap, rows, tab_vidx, fb_key))
     done = None
     if dev.type == "cuda" and dev_parts:
         done = torch.cuda.Event()
@@ -585,7 +639,7 @@ def assign_alleles_auto(bd: BamData, vt: VariantTable, *, baseq: int,
 
     # host remainder 2: non-device variants vs non-insertion reads
     rem_vidx = np.flatnonzero(~dev_var)
-    nonins_sel = np.flatnonzero(~has_ins)
+    nonins_sel = np.flatnonzero(~has_ins) if rem_vidx.size else rem_vidx
     if rem_vidx.size and nonins_sel.size:
         sub_vt = VariantTable(
             chrom=vt.chrom, pos=vt.pos[rem_vidx],

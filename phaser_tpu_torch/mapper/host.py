@@ -97,7 +97,10 @@ def expand_refpos(bd: BamData) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
             np.concatenate(([0], np.cumsum(a_lens)[:-1])), a_lens)
         base_idx = np.repeat(bd.seq_off[a_read] + a_rb, a_lens) + within
         gpos = np.repeat(bd.pos[a_read].astype(np.int64) + 1 + a_gb, a_lens) + within
-        refpos1[base_idx] = gpos.astype(np.int32)
+        # a base past the read's own (a CIGAR longer than the sequence, a
+        # sequence of `*`) does not exist: no position for it
+        own = base_idx < np.repeat(bd.seq_off[a_read + 1], a_lens)
+        refpos1[base_idx[own]] = gpos[own].astype(np.int32)
 
     has_ins = np.zeros(n_reads, bool)
     np.logical_or.at(has_ins, op_read, opc == OP_I)
@@ -121,8 +124,11 @@ def _exact_read_rows(pos1: int, seq: str, quals: np.ndarray,
     opc = cig & 0xF
     if (not splice) and np.any(opc == OP_N):
         return []
-    # BASEQ mask
+    # BASEQ mask; bases past the read's own (a CIGAR longer than the
+    # sequence, a sequence of `*`) read as N, so later ops keep their places
     bases = "".join(c if q >= baseq else "N" for c, q in zip(seq, quals))
+    qlen = sum(int(c) >> 4 for c in cig if _READ_CONSUME[int(c) & 0xF])
+    bases += "N" * (qlen - len(bases))
     segments = []  # (genome_start_off, pseudo, insertions)
     genome_start = 0
     genome_pos = 0

@@ -1,6 +1,6 @@
 """Synthetic read / variant-table layouts that reach every branch of the
 range-join kernels (affine_nibble, affine_masked, affine_planes,
-delta_nibble, plane):
+delta_nibble, plane, ragged_join):
 used by the CPU tests against the JAX programs and, at a larger size, by
 chip_smoke.py on the card.
 
@@ -15,6 +15,8 @@ ind (M, 2) uint8, ni (M,) int8.
 from __future__ import annotations
 
 import numpy as np
+
+from ..io.bam import OP_D, OP_EQ, OP_H, OP_M, OP_N, OP_P, OP_S, OP_X
 
 NAMES = ["sorted", "random_order", "dense", "L256", "L384", "lo_gt0",
          "empty_rows", "first_last", "one_entry", "table_slice",
@@ -169,6 +171,101 @@ def delta_inputs(d: dict, baseq: int = 10):
     rp_max = np.where(some, np.where(aligned, refpos, 0).max(axis=1),
                       0).astype(np.int32)
     return ncodes, start, delta, rp_min, rp_max
+
+
+def ragged_reads(d: dict):
+    """The rows of a layout as reads (pos0, ops, codes, quals), ops a list
+    of (length, op code): lo soft-clipped bases, the aligned run (M, = or
+    X) with `gap` as an N (odd rows) or a D (even rows) at the middle, the
+    trailing soft clip.  Beside them every branch of a CIGAR walk: hard
+    clips at both ends (every 11th row), a P op after the gap (every 13th),
+    a sequence of `*` (every 17th row), a sequence 30 bases shorter than
+    the CIGAR (every 19th) and one 10 bases longer (every 23rd), and rows
+    without an aligned base as all-clip rows or rows without ops."""
+    codes, quals = d["codes"], d["quals"]
+    N, L = codes.shape
+    mid = L // 2
+    out = []
+    for r in range(N):
+        lo, hi, gap = int(d["lo"][r]), int(d["hi"][r]), int(d["gap"][r])
+        run = (OP_M, OP_EQ, OP_X)[r % 3]
+        ops = []
+        if hi <= lo:
+            ops = [(L, OP_S)] if r % 2 else []
+        else:
+            if r % 11 == 3:
+                ops.append((5, OP_H))
+            if lo:
+                ops.append((lo, OP_S))
+            if gap and lo < mid < hi:
+                ops += [(mid - lo, run), (gap, OP_N if r % 2 else OP_D)]
+                if r % 13 == 5:
+                    ops.append((2, OP_P))
+                ops.append((hi - mid, OP_M))
+            else:
+                ops.append((hi - lo, run))
+            if hi < L:
+                ops.append((L - hi, OP_S))
+            if r % 11 == 3:
+                ops.append((7, OP_H))
+        c, q = codes[r], quals[r]
+        if r % 17 == 7:
+            c, q = c[:0], q[:0]
+        elif r % 19 == 4:
+            c, q = c[:L - 30], q[:L - 30]
+        elif r % 23 == 6:
+            c = np.concatenate([c, c[:10]])
+            q = np.concatenate([q, q[:10]])
+        out.append((int(d["start"][r]) - 1, ops, c, q))
+    return out
+
+
+def ragged_inputs(d: dict):
+    """(pos, cig_off, cigar, seq_off, seq, qual): ragged_reads(d) in the
+    layout BAM decode stores reads in and assign_compact_ragged takes
+    (int32 pos and offsets, the CIGAR's uint32 words as int32, uint8
+    bases)."""
+    reads = ragged_reads(d)
+    n_ops = np.array([len(ops) for _, ops, _, _ in reads], np.int64)
+    n_bases = np.array([len(c) for _, _, c, _ in reads], np.int64)
+    words = [(ln << 4) | op for _, ops, _, _ in reads for ln, op in ops]
+    return (np.array([p for p, _, _, _ in reads], np.int32),
+            np.concatenate([[0], np.cumsum(n_ops)]).astype(np.int32),
+            np.array(words, np.uint32).view(np.int32),
+            np.concatenate([[0], np.cumsum(n_bases)]).astype(np.int32),
+            np.concatenate([c for _, _, c, _ in reads]).astype(np.uint8),
+            np.concatenate([q for _, _, _, q in reads]).astype(np.uint8))
+
+
+def ragged_plane(d: dict):
+    """(codes, quals, refpos) planes of ragged_reads(d), L a multiple of
+    128, by a walk over each read's ops written out here: an M, = or X op
+    gives its bases consecutive positions from the read's current reference
+    position; I and S take bases, D and N reference positions, H and P
+    neither.  A position whose base lies past the read's own stays 0."""
+    reads = ragged_reads(d)
+    L = max([len(c) for _, _, c, _ in reads] + [1])
+    L = -(-L // 128) * 128
+    N = len(reads)
+    codes = np.zeros((N, L), np.uint8)
+    quals = np.zeros((N, L), np.uint8)
+    refpos = np.zeros((N, L), np.int32)
+    for r, (pos0, ops, c, q) in enumerate(reads):
+        codes[r, :len(c)] = c
+        quals[r, :len(q)] = q
+        g, i = pos0 + 1, 0
+        for ln, op in ops:
+            if op in (OP_M, OP_EQ, OP_X):
+                for k in range(ln):
+                    if i + k < len(c):
+                        refpos[r, i + k] = g + k
+                g += ln
+                i += ln
+            elif op in (OP_D, OP_N):
+                g += ln
+            elif op not in (OP_H, OP_P):   # I, S
+                i += ln
+    return codes, quals, refpos
 
 
 # ---------------------------------------------------------------------------

@@ -20,11 +20,10 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-# process-wide device-path time.  mapper.dispatch reports the card's own
-# seconds (DeviceClock: CUDA events around its uploads, kernels and hit
-# fetches); engine.connections, engine.blocks and engine.phasing report
-# host-clock seconds around device work that ends in a fetch
-# (device_section). Tracer snapshots this
+# process-wide device-path time: the card's own seconds (DeviceClock: CUDA
+# events around uploads, kernels and fetches) of mapper.dispatch and of the
+# device paths of engine.connections, engine.blocks and engine.phasing;
+# host-clock seconds of the same work on the CPU. Tracer snapshots this
 # around a run so the summary can state what fraction of wall-clock the
 # device path actually consumed under --device cuda, so a claim that the
 # card carries the run stays falsifiable.
@@ -57,6 +56,8 @@ def thread_device_seconds() -> float:
 
 @contextlib.contextmanager
 def device_section():
+    """Host-clock seconds of the work inside, added to the device-path
+    totals (phaser_tpu's measure; the port's stages use DeviceClock)."""
     t0 = time.perf_counter()
     try:
         yield

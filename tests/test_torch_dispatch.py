@@ -72,19 +72,32 @@ def _assert_equal_hits(got, want):
     assert got.allele_strs == want.allele_strs
 
 
+OLD_ROUTES = ("affine_nibble", "delta_nibble", "plane", "affine_masked")
+
+
 @pytest.fixture
 def spy(monkeypatch):
-    """Counts plain-version runs per program."""
-    calls = {"affine_nibble": 0, "delta_nibble": 0, "plane": 0,
-             "affine_masked": 0}
-    for name in calls:
+    """Counts plain-version runs per program, and (under "rows") the rows
+    the ragged join took."""
+    calls = dict.fromkeys(OLD_ROUTES + ("ragged_join",), 0)
+    rows = []
+    for name in list(calls):
         orig = getattr(K, name + "_plain")
 
         def wrapped(*a, _orig=orig, _name=name, **kw):
             calls[_name] += 1
+            if _name == "ragged_join":
+                rows.append(int(a[0].shape[0]))
             return _orig(*a, **kw)
         monkeypatch.setattr(K, name + "_plain", wrapped)
+    calls["rows"] = rows
     return calls
+
+
+def _only_ragged(spy):
+    """#2 ran the ragged join and none of the packed routes' programs."""
+    assert spy["ragged_join"] > 0, spy
+    assert not any(spy[k] for k in OLD_ROUTES), spy
 
 
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
@@ -93,36 +106,37 @@ def spy(monkeypatch):
 def test_dispatch_cpu_matches_host(tmp_path, spy, fixture, kw):
     bd, vt, jax_host = _load(tmp_path, fixture)
     want = jax_host(**kw)
+    D.reset_stats()
     got = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu", **kw)
     _assert_equal_hits(got, want)
     assert len(want) > 100
     if fixture == "indel_multiallelic":
         assert want.allele_strs  # multi-base alleles went to the host path
-    if not kw:
-        # the three programs of the nibble packer carried reads
-        assert spy.pop("affine_masked") == 0
-        assert min(spy.values()) > 0, spy
+    # every kept row went through the ragged join, once
+    _only_ragged(spy)
+    assert sum(spy["rows"]) == D.STATS["rows_kept"] > 0
 
 
 @pytest.mark.parametrize("nibble_packer", [True, False])
 def test_dispatcher_plans_no_window(tmp_path, monkeypatch, spy,
                                     nibble_packer):
-    """Every fused program finds its table ranges itself: the dispatcher
-    calls no window planner, with the nibble packer and without it (the
-    masked-affine program)."""
+    """The ragged join finds its table ranges itself: the dispatcher calls
+    no window planner and no packer, with the nibble packer and without it
+    (where phaser_tpu takes the masked-affine program)."""
     bd, vt, jax_host = _load(tmp_path, "indel_multiallelic")
 
     def planned(*a, **k):
-        raise AssertionError("the dispatcher planned a window")
-    for name in ("plan_windows_plane", "_plan_from_bounds"):
+        raise AssertionError("the dispatcher planned a window or packed")
+    for name in ("plan_windows_plane", "_plan_from_bounds", "pack_reads",
+                 "pack_affine_masked", "pack_delta_nibble",
+                 "pack_codes_quals") + (() if nibble_packer else
+                                        ("pack_affine_nibble",)):
         monkeypatch.setattr(K, name, planned)
-    if not nibble_packer:
-        monkeypatch.setattr(K, "pack_affine_nibble", lambda *a, **k: None)
+    if nibble_packer:
+        monkeypatch.setattr(K, "pack_affine_nibble", planned)
     _assert_equal_hits(
         D.assign_alleles_auto(bd, vt, baseq=10, device="cpu"), jax_host())
-    assert spy["delta_nibble"] > 0 and spy["plane"] > 0
-    assert (spy["affine_nibble"] > 0) == nibble_packer
-    assert (spy["affine_masked"] > 0) == (not nibble_packer)
+    _only_ragged(spy)
 
 
 def test_whole_table_and_overflow_paths(tmp_path, monkeypatch, spy):
@@ -137,19 +151,19 @@ def test_whole_table_and_overflow_paths(tmp_path, monkeypatch, spy):
                         H.assign_alleles(sub, *a, **k))
     adaptive_cap = D._adaptive_cap
     monkeypatch.setattr(D, "_adaptive_cap", lambda key, n: 2)
-    base = dict(spy)
+    base = {k: spy[k] for k in OLD_ROUTES + ("ragged_join",)}
     pend = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu", defer=True)
     monkeypatch.setattr(D, "_adaptive_cap", adaptive_cap)
-    launched = {k: spy[k] - base[k] for k in spy}
+    launched = {k: spy[k] - base[k] for k in OLD_ROUTES + ("ragged_join",)}
     host_launch = list(host_rows)
     before = D.RELAUNCHES["capacity"]
     _assert_equal_hits(pend.resolve(), want)
     assert D.RELAUNCHES["capacity"] == before + 1
-    # the relaunch ran every program again and sent the host mapper only
+    # the relaunch ran the ragged join again and sent the host mapper only
     # the remainders it sent the first time
-    assert spy.pop("affine_masked") == base.pop("affine_masked") == 0
-    assert all(spy[k] - base[k] == 2 * launched[k] > 0 for k in spy), \
-        (spy, base, launched)
+    _only_ragged(spy)
+    assert spy["ragged_join"] - base["ragged_join"] == \
+        2 * launched["ragged_join"] > 0, (spy, base, launched)
     assert host_rows == host_launch + host_launch
 
 
@@ -158,14 +172,17 @@ def test_table_slices(tmp_path, monkeypatch, spy):
     bd, vt, jax_host = _load(tmp_path, "spliced")
     want = jax_host()
     got = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu")
-    one = dict(spy)
+    one = {"ragged_join": spy["ragged_join"], "rows": list(spy["rows"])}
     monkeypatch.setattr(D, "_MAX_TABLE", 16)
     sliced = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu")
     _assert_equal_hits(got, want)
     _assert_equal_hits(sliced, want)
     n_slices = -(-len(vt) // 16)
     assert n_slices > 4
-    assert spy["affine_nibble"] == one["affine_nibble"] * (1 + n_slices)
+    # one chunk of reads, uploaded once, launched once a table slice
+    _only_ragged(spy)
+    assert spy["ragged_join"] == one["ragged_join"] * (1 + n_slices)
+    assert spy["rows"] == one["rows"] * (1 + n_slices)
 
 
 def test_deferred_resolve_all(tmp_path):
@@ -189,18 +206,44 @@ def test_cap_file_is_the_ports_own(tmp_path, monkeypatch):
 
 
 def test_fails_loud_without_gpu_or_native_packer(tmp_path, monkeypatch, spy):
-    """No GPU: cuda raises.  No nibble packer: the masked-affine program
-    takes the affine reads, as in phaser_tpu, with hits equal the host's."""
+    """No GPU: cuda and auto raise, in the dispatcher and in every entry
+    point and stage that takes a device (auto routes #2 and #4 to the host
+    mapper, but still asks for the card: no silent retreat).  No nibble
+    packer: the route is the same ragged join, with hits equal the
+    host's (phaser_tpu takes its masked-affine program there)."""
+    from types import SimpleNamespace
+
+    from phaser_tpu_torch.engine import blocks, connections, phasing
+    from phaser_tpu_torch.engine.pipeline import run_phaser
     bd, vt, jax_host = _load(tmp_path, "spliced")
     if not torch.cuda.is_available():
+        vr = SimpleNamespace(vt=vt, rv_uid=np.zeros(0, np.int64),
+                             rv_var=np.zeros(0, np.int64),
+                             h_uid=np.zeros(0, np.int64),
+                             h_var=np.zeros(0, np.int64),
+                             h_allele=np.zeros(0, np.int64))
+        conn = SimpleNamespace(adj={0: {1}, 1: {0}},
+                               var_rank=np.arange(2, dtype=np.int64))
         for dev in ("cuda", "auto"):
-            with pytest.raises(RuntimeError, match="CUDA"):
-                D.assign_alleles_auto(bd, vt, baseq=10, device=dev)
+            for call in (
+                    lambda: D.assign_alleles_auto(bd, vt, baseq=10,
+                                                  device=dev),
+                    lambda: run_phaser(vcf="x.vcf", bam="x.bam",
+                                       sample="s", o=str(tmp_path / "o"),
+                                       mapq=10, baseq=10, paired_end=1,
+                                       device=dev),
+                    lambda: connections.build_connections(vr, 0.01, 0.01,
+                                                          device=dev),
+                    lambda: blocks.find_blocks(conn, vt, device=dev),
+                    lambda: phasing.sub_block_phase([0, 1], {},
+                                                    device=dev)):
+                with pytest.raises(RuntimeError, match="CUDA"):
+                    call()
     want = jax_host()
     monkeypatch.setattr(K, "pack_affine_nibble", lambda *a, **k: None)
     _assert_equal_hits(D.assign_alleles_auto(bd, vt, baseq=10, device="cpu"),
                        want)
-    assert spy["affine_nibble"] == 0 and spy["affine_masked"] > 0, spy
+    _only_ragged(spy)
 
 
 class _NoDeltaLib:
@@ -219,10 +262,11 @@ class _NoDeltaLib:
 @pytest.mark.parametrize("lib", ["none", "no_delta"])
 def test_dispatch_without_native_packers(tmp_path, monkeypatch, spy, fixture,
                                          lib):
-    """Without the native library (numpy packers, masked-affine program,
-    refpos plane for every non-affine read) and without only its delta
-    packer (non-affine reads to the plane program), the port's hits equal
-    the host mapper's and phaser_tpu's dispatcher's."""
+    """Without the native library (the numpy span pass and row gather;
+    phaser_tpu's numpy packers, masked-affine and plane programs) and
+    without only its delta packer (phaser_tpu's non-affine reads to its
+    plane program), the port's hits equal the host mapper's and
+    phaser_tpu's dispatcher's, through the same ragged join."""
     from phaser_tpu.io import native as jax_native
     bd, vt, jax_host = _load(tmp_path, fixture)
     want = jax_host()
@@ -237,11 +281,7 @@ def test_dispatch_without_native_packers(tmp_path, monkeypatch, spy, fixture,
     got = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu")
     _assert_equal_hits(got, want)
     _assert_equal_hits(jax_host(device="auto"), want)
-    assert spy["delta_nibble"] == 0 and spy["plane"] > 0, spy
-    if lib == "none":
-        assert spy["affine_nibble"] == 0 and spy["affine_masked"] > 0, spy
-    else:
-        assert spy["affine_nibble"] > 0 and spy["affine_masked"] == 0, spy
+    _only_ragged(spy)
 
 
 def test_pack_reads_numpy_matches_native(tmp_path, monkeypatch):

@@ -66,6 +66,7 @@ FUSED = {
                       ()),
     "delta_nibble": (layouts.delta_inputs, K.assign_compact_delta_nibble, ()),
     "plane": (layouts.plane_inputs, K.assign_compact_plane, (10,)),
+    "ragged_join": (layouts.ragged_inputs, K.assign_compact_ragged, (10,)),
 }
 
 
@@ -245,6 +246,51 @@ def test_dispatcher_on_the_card_matches_host(cuda, tmp_path, monkeypatch):
     assert st["columns_fetched"] == st["columns_needed"] \
         <= len(want) + st["parts_fetched"]
     assert sum(K.LAUNCHES.values()) == st["parts_fetched"] > 0
+
+
+def test_read_spans_on_the_card(cuda, tmp_path, monkeypatch):
+    """The read_spans kernel == its plain version and == the dispatcher's
+    span pass (the merge over the decode's span summary) on a datagen
+    fixture's reads, in position order and shuffled; the dispatcher on the
+    card == the host mapper, launching the ragged join alone."""
+    from phaser_tpu_torch.engine.varmap import build_variant_table
+    from phaser_tpu_torch.io import bam as bamio
+    from phaser_tpu_torch.io import vcf as vcfio
+    from phaser_tpu_torch.io.bam import OP_I, OP_N
+    from phaser_tpu_torch.mapper import dispatch as D
+    from phaser_tpu_torch.testing import datagen
+
+    monkeypatch.setenv("PHASER_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    vcf, bam, _ = datagen.write_fixture_dir(
+        str(tmp_path), seed=72, contigs=("chr20",), contig_len=60000,
+        n_variants_per_contig=60, n_reads_per_contig=4000, frac_spliced=0.3,
+        frac_indel_reads=0.2, error_rate=0.01)
+    lines = [l for l in vcfio.het_filtered_lines(vcf, 9)
+             if not l.startswith("#")]
+    hs = vcfio.parse_het_sites(lines, "", ["_", ":"], True)
+    vt = build_variant_table("chr20", hs.pool["chr20"], include_indels=True)
+    bd = bamio.read_bam(bam)
+    bd = bd.select((bd.refid == 0) & ((bd.flag & 0x404) == 0))
+    dev_pos = vt.pos[vt.is_simple]
+    vpos = np.full(-(-len(dev_pos) // 4) * 4, 2 ** 31 - 1, np.int32)
+    vpos[:len(dev_pos)] = dev_pos
+    for part in (bd, bd.select(np.random.default_rng(1).permutation(
+            len(bd)))):
+        args = [_t(x) for x in (part.pos, part.cigar_off,
+                                part.cigar_flat.view(np.int32), vpos)]
+        want = K.read_spans(*args, OP_I, OP_N)
+        got = K.read_spans(*[a.to(cuda) for a in args], OP_I, OP_N)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+        flags = got.cpu().numpy()
+        for bit, b in zip((K.SPAN_INS, K.SPAN_SPLICED, K.SPAN_NEAR),
+                          D._read_spans(part, dev_pos)):
+            np.testing.assert_array_equal((flags & bit) != 0, b)
+    host = D.assign_alleles_auto(bd, vt, baseq=10, device="host")
+    K.reset_launches()
+    got = D.assign_alleles_auto(bd, vt, baseq=10, device="cuda")
+    for f in ("read_idx", "var_idx", "allele_code"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(host, f))
+    assert {k for k, n in K.LAUNCHES.items() if n} == {"ragged_join"}
 
 
 @pytest.mark.parametrize("program", ["affine_nibble", "delta_nibble", "plane"])

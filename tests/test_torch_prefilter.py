@@ -101,7 +101,7 @@ def _check(bd, vt, want, **kw):
 
     class NoSpans:
         def __getattr__(self, name):
-            if name == "read_spans_native":
+            if name in ("read_spans_native", "near_sorted_native"):
                 raise AttributeError(name)
             return getattr(real, name)
     orig = native.get_lib
@@ -198,8 +198,10 @@ def test_no_launch_with_zero_rows(tmp_path, monkeypatch):
         raise AssertionError("device-side work for zero rows")
     for name in ("pack_affine_nibble", "pack_affine_masked", "pack_reads",
                  "pack_delta_nibble", "assign_compact_affine_nibble",
-                 "assign_compact_plane", "padded_table"):
+                 "assign_compact_plane", "assign_compact_ragged",
+                 "padded_table"):
         monkeypatch.setattr(K, name, refuse)
+    monkeypatch.setattr(D, "_stage_reads", refuse)
     pend = D.assign_alleles_auto(bd, vt, baseq=10, device="cpu", defer=True)
     assert pend._dev == []
     _same(pend.resolve(), want())
@@ -262,12 +264,14 @@ def test_prefilter_on_datagen_fixtures(tmp_path, name, kw):
 
 
 def test_packers_see_only_kept_rows(tmp_path, monkeypatch):
+    """The device side gathers the kept reads' bytes and nothing else: one
+    gather of exactly the kept rows, in the kernel's ragged layout."""
     bd, vt, want = _datagen_case(tmp_path, "sparse")
     seen = []
-    pack = K.pack_affine_nibble
-    monkeypatch.setattr(K, "pack_affine_nibble",
-                        lambda b, *a, rows=None, **k: seen.append(len(rows))
-                        or pack(b, *a, rows=rows, **k))
+    stage = D._stage_reads
+    monkeypatch.setattr(D, "_stage_reads",
+                        lambda b, rows, *a: seen.append(rows.copy()) or
+                        stage(b, rows, *a))
     selected = []
     select = bamio.BamData.select
     monkeypatch.setattr(bamio.BamData, "select",
@@ -275,10 +279,24 @@ def test_packers_see_only_kept_rows(tmp_path, monkeypatch):
                         select(self, idx, **k))
     D.reset_stats()
     _same(D.assign_alleles_auto(bd, vt, baseq=10, device="cpu"), want())
-    assert seen == [D.STATS["rows_kept"]] and seen[0] < len(bd) // 2
-    # the kept reads are packed by index: the only gathered copies are the
-    # host remainders' (insertion reads, and the host mapper's own)
-    has_ins, _, _ = D._read_spans(bd, vt.pos)
+    selected = list(selected)
+    assert [len(r) for r in seen] == [D.STATS["rows_kept"]]
+    assert 0 < len(seen[0]) < len(bd) // 2
+    has_ins, _, near = D._read_spans(bd, vt.pos[vt.is_simple])
+    np.testing.assert_array_equal(seen[0], np.flatnonzero(near & ~has_ins))
+    # the staged arrays are those reads' own bytes, as BAM decode holds them
+    pos, co, cig, so, seq, qual = stage(bd, seen[0], torch.device("cpu"),
+                                        None)
+    sub = bd.select(seen[0])
+    np.testing.assert_array_equal(pos.numpy(), sub.pos)
+    np.testing.assert_array_equal(co.numpy(), sub.cigar_off)
+    np.testing.assert_array_equal(cig.numpy().view(np.uint32),
+                                  sub.cigar_flat)
+    np.testing.assert_array_equal(so.numpy(), sub.seq_off)
+    np.testing.assert_array_equal(seq.numpy(), sub.seq_flat)
+    np.testing.assert_array_equal(qual.numpy(), sub.qual_flat)
+    # the kept reads are gathered by index: the only selected copies are
+    # the host remainders' (insertion reads, and the host mapper's own)
     assert selected and max(selected) <= int(has_ins.sum())
 
 
