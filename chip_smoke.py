@@ -12,6 +12,8 @@ Phases (any failure exits non-zero; nothing here imports jax):
   3. kernel parity at chromosome scale (testing/benchdata.py: 5M reads, 100k
      hets, 200 Mbp, 10% N-spliced): assign_alleles_auto on the GPU == the
      exact host mapper, launching the ragged join and no other kernel,
+     once for each table slice (its kept reads fit one launch), with the
+     tile kernels' resident blocks an SM and waves printed,
      also with every launch's hit capacity forced to overflow (the chunk
      must be relaunched on the card, never rerun on the host) and with
      every host packer refusing (the route packs nothing);
@@ -35,8 +37,10 @@ Phases (any failure exits non-zero; nothing here imports jax):
      card (all six are range joins that take no window; the delta kernel
      gets per-row [rp_min, rp_max]; the ragged join the first 262,144
      rows the dispatcher keeps, staged as it stages them; hits compared
-     after a (read, var) sort; timed with CUDA events), and the read_spans
-     kernel on all 5M reads against its plain version (flags equal); then
+     after a (read, var) sort; timed with CUDA events; the ragged join's
+     packed-buffer fill, card time less kernel time, printed apart), and
+     the read_spans kernel on all 5M reads against its plain version
+     (flags equal); then
      the six range-join kernels on the layouts of
      testing/layouts.py that reach every branch (rows in random order, a
      table too dense for the shared-memory slice, L of 256 and 384, lo > 0,
@@ -45,8 +49,12 @@ Phases (any failure exits non-zero; nothing here imports jax):
      dispatcher's slice size, duplicate positions, a masked trailing clip
      at the position of an aligned base on a variant; for the ragged join
      the same rows as reads: clips, =, X, N, D, P and H ops, sequences of
-     `*`, shorter and longer than their CIGAR, reads without ops), each
-     also with a capacity of 4 (exact count past capacity); then a small
+     `*`, shorter and longer than their CIGAR, reads without ops; rows
+     past a tile's op stage, runs of zero-op and `*` reads across tile
+     boundaries, tables denser than a tile's stage, and more reads than
+     one wave of either tile kernel holds), each also with a capacity of 4
+     (exact count past capacity), and read_spans against its plain
+     version on the same reads; then a small
      testing/datagen.py fixture with deletion reads.  A kernel whose
      profiler window never comes back whole fails the phase;
   4. the kernel-level entries (assign_alleles_pallas_windowed with gather
@@ -205,7 +213,11 @@ profiler time.  The binom_cdf and conflict_prune records also hold, under
 long fractions, each with its launch floor.  `library_ms` is
 null throughout: no single PyTorch call classifies bases against the table
 and compacts the hits (`torch.searchsorted` is only the lookup), forms the
-within-row pairs, or has an incomplete beta.
+within-row pairs, or has an incomplete beta.  The tile kernels' records
+(ragged_join, read_spans) also hold blocks_per_sm, sms, tile_rows,
+smem_bytes and waves ({call: its tiles over the tiles of one wave}), and
+ragged_join's fill_ms (the launcher's -1 fill of the packed buffer at
+fill_capacity: the card time less the kernel's own).
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -626,6 +638,44 @@ def on_path_only(launches):
         not any(n for k, n in launches.items() if k != "ragged_join")
 
 
+# per kernel, keys the kernels' record adds to the standard ones: the tile
+# kernels' resident blocks and waves, the ragged join's buffer fill
+KERNEL_EXTRA = {}
+
+
+def tile_shapes(K, calls):
+    """Prints the tile kernels' shapes on this card (kernels.alleles
+    tile_shape: blocks resident on an SM as the runtime reports them, rows
+    a tile, what a tile stages, shared memory a block, tiles a block at
+    once) and, for each of `calls` ({what: (kernel, rows)}), its tiles and
+    waves (tiles over the tiles one wave of blocks works on at once);
+    records them in KERNEL_EXTRA.  Fails where the library's rows a tile
+    and stages differ from kernels.alleles' JOIN_* / SPAN_*."""
+    for what, (name, rows) in calls.items():
+        sh = K.tile_shape(name)
+        # the library's stages are the ones kernels.alleles reads from the
+        # source, which testing/layouts.py's tile layouts are built to pass
+        want = ((K.JOIN_TILE, K.JOIN_OPS, K.JOIN_STAGE)
+                if name == "ragged_join" else (K.SPAN_TILE, 0, K.SPAN_STAGE))
+        got = (sh["tile_rows"], sh["op_stage"], sh["table_stage"])
+        check(got == want, "%s: the library's tile shape %s, kernels.alleles"
+              " %s" % (name, got, want))
+        wave = sh["blocks_per_sm"] * sh["sms"] * sh["tiles_per_block"]
+        tiles = -(-rows // sh["tile_rows"])
+        KERNEL_EXTRA.setdefault(name, {}).update(
+            blocks_per_sm=sh["blocks_per_sm"], sms=sh["sms"],
+            tile_rows=sh["tile_rows"], smem_bytes=sh["smem_bytes"])
+        KERNEL_EXTRA[name].setdefault("waves", {})[what] = tiles / wave
+        print("   %s: %d blocks resident an SM x %d SMs (%d B of shared "
+              "memory a block, %d tile(s) a block at once; a tile %d rows, "
+              "%d CIGAR words, %d table entries staged); %s: %d rows, %d "
+              "tiles, %.3f waves"
+              % (name, sh["blocks_per_sm"], sh["sms"], sh["smem_bytes"],
+                 sh["tiles_per_block"], sh["tile_rows"], sh["op_stage"],
+                 sh["table_stage"], what, rows, tiles, tiles / wave),
+              flush=True)
+
+
 def spans_on_card(D, K, bd, dev_pos, dev):
     """The span pass as the read_spans kernel: the reads' pos, CIGAR
     offsets and words up through the dispatcher's pinned staging, one flag
@@ -776,6 +826,24 @@ def chromosome_phase(tmp, device):
           % chrom_launches)
     check(D.RELAUNCHES["capacity"] == 0,
           "chromosome-scale run overflowed its hit capacity")
+    # one ragged_join launch a table slice: the call's kept rows fit one
+    # launch (mapper/dispatch.py _SUB_ROWS), its table one slice or more
+    # (_MAX_TABLE) of the device-eligible variants (simple, unique position)
+    dup = np.zeros(len(vt), bool)
+    same = np.diff(vt.pos) == 0
+    dup[1:] |= same
+    dup[:-1] |= same
+    n_slices = -(-int((vt.is_simple & ~dup).sum()) // D._MAX_TABLE)
+    check(chrom_launches["ragged_join"] == n_slices,
+          "the 5M-read call launched ragged_join %d times, not once for each "
+          "of its %d table slice(s)" % (chrom_launches["ragged_join"],
+                                        n_slices))
+    tile_shapes(K, {"the 5M-read call's kept rows": (
+        "ragged_join", D.STATS["rows_kept"]),
+        "the span pass over all its reads": ("read_spans", len(bd))})
+    print("   one ragged_join launch for each of the call's %d table "
+          "slice(s), %d kept rows" % (n_slices, D.STATS["rows_kept"]),
+          flush=True)
 
     # forced hit-capacity overflow: every launch with more than one hit
     # overflows, and resolve() relaunches the chunk on the card with the
@@ -1081,6 +1149,17 @@ def chromosome_phase(tmp, device):
             own_launches.setdefault(name, K.LAUNCHES[name])
         err, ms, plain_ms, hits, on_card = kernel_vs_plain(name, k, p, rows)
         results[name] = (err, ms, plain_ms, on_card)
+        if name == "ragged_join":
+            # the launcher's -1 fill of the packed buffer (2 x (cap + 1)
+            # int32, _pack_hits' layout), apart from the kernel
+            fill = on_card[0] - on_card[1]
+            KERNEL_EXTRA.setdefault(name, {}).update(fill_ms=fill,
+                                                     fill_capacity=cap)
+            tile_shapes(K, {"phase 3's launch": (name, rows)})
+            print("   ragged_join's packed-buffer fill at capacity %d (%.1f "
+                  "MB): %.4f ms on the card (card %.4f - kernel alone %.4f)"
+                  % (cap, 8 * (cap + 1) / 1e6, fill, on_card[0], on_card[1]),
+                  flush=True)
         out_bytes = 8 * hits + 4
         if name == "affine_nibble":
             need = rows * 12 + a_under * TABLE_ROW_BYTES + 32 * hits
@@ -1139,14 +1218,21 @@ def branch_shapes_phase(device):
     """The six range-join kernels against their plain versions on the
     layouts that reach every branch (testing/layouts.py), 20,000 rows each
     (for the ragged join the same rows as reads, ragged_inputs), with room
-    for every hit and with a capacity of 4."""
+    for every hit and with a capacity of 4; read_spans against its plain
+    version on the same reads.  many_rows (16 x n_rows reads) is made for
+    the two tile kernels at more rows than one wave of either holds on
+    this card (tile_shape), for the other kernels at 20,000."""
     import numpy as np
     import torch
+    from phaser_tpu_torch.io.bam import OP_I, OP_N
     from phaser_tpu_torch.kernels import alleles as K
     from phaser_tpu_torch.testing import layouts
 
     dev = torch.device(device)
     T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    shapes = [K.tile_shape(k) for k in ("ragged_join", "read_spans")]
+    wave_rows = max(sh["blocks_per_sm"] * sh["sms"] * sh["tile_rows"] *
+                    sh["tiles_per_block"] for sh in shapes)
     for name in layouts.NAMES + ["big_table"]:
         d = layouts.make(name, n_rows=20_000, n_vars=16_000,
                          contig=4_000_000)
@@ -1156,8 +1242,24 @@ def branch_shapes_phase(device):
         pl_in = [T(x) for x in layouts.affine_planes_inputs(d)]
         d_in = [T(x) for x in layouts.delta_inputs(d)]
         p_in = [T(x) for x in layouts.plane_inputs(d)]
+        r_table = table
+        if name == "many_rows":
+            del d
+            d = layouts.make(name, n_rows=-(-(wave_rows + 1) // 16),
+                             n_vars=16_000, contig=4_000_000)
+            r_table = tuple(T(x) for x in layouts.padded_table(d))
         r_in = [T(x) for x in layouts.ragged_inputs(d)]
-        line = []
+        check(name != "many_rows" or r_in[0].shape[0] > wave_rows,
+              "many_rows: %d reads, one wave holds %d"
+              % (r_in[0].shape[0], wave_rows))
+        s_in = [r_in[0], r_in[1].long(), r_in[2], r_table[0]]
+        got_s = K.read_spans(*s_in, OP_I, OP_N)
+        want_s = K.read_spans_plain(*s_in, OP_I, OP_N)
+        torch.cuda.synchronize()
+        check(torch.equal(got_s, want_s), "read_spans on layout %s differs "
+              "from its plain version" % name)
+        line = ["read_spans %d near of %d" % (int(((want_s >> 2) & 1).sum()),
+                                              s_in[0].shape[0])]
         for prog, kernel, plain in (
                 ("affine_nibble",
                  lambda c: K.assign_compact_affine_nibble(*a_in, table, c),
@@ -1175,8 +1277,8 @@ def branch_shapes_phase(device):
                  lambda c: K.assign_compact_plane(*p_in, 10, table, c),
                  lambda c: K.plane_plain(*p_in, 10, table, c)),
                 ("ragged_join",
-                 lambda c: K.assign_compact_ragged(*r_in, 10, table, c),
-                 lambda c: K.ragged_join_plain(*r_in, 10, table, c))):
+                 lambda c: K.assign_compact_ragged(*r_in, 10, r_table, c),
+                 lambda c: K.ragged_join_plain(*r_in, 10, r_table, c))):
             got, want = kernel(1 << 22), plain(1 << 22)
             torch.cuda.synchronize()
             (nk, hk), (npl, hp) = sorted_hits(got), sorted_hits(want)
@@ -1195,6 +1297,7 @@ def branch_shapes_phase(device):
               "past capacity" % (name, d["codes"].shape[1],
                                  table[0].shape[0], ", ".join(line)),
               flush=True)
+        del d, a_in, m_in, pl_in, d_in, p_in, r_in, s_in
 
 
 def small_delta_phase(tmp, device):
@@ -2755,7 +2858,7 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "device_ms": dev_ms, "kernel_ms": kernel_ms,
             "profiles": profiles, "whole": whole,
-            **step_extra.get(name, {})})
+            **KERNEL_EXTRA.get(name, {}), **step_extra.get(name, {})})
         line = ("   %-15s %.4f (%.4f, %.4f)  %.4f  %.4f (%s)  %.1f%% (%.1f%%)  "
                 % (name, ms, dev_ms, kernel_ms, plain_ms, bound_ms, bound_by,
                    100.0 * bound_ms / ms, 100.0 * bound_ms / dev_ms))

@@ -22,12 +22,21 @@
 //                  same body again, over a third code fetch.
 //   read_spans     the dispatcher's span pass (host code in phaser_tpu): a
 //                  flag byte a read (I op, N op, a table position under its
-//                  conservative span), written, not compacted.
+//                  conservative span), written, not compacted.  Bound by
+//                  bytes: a streaming pass of warps over 128-read tiles.
 //   ragged_join    replaces the dispatcher's three packed routes (the same
 //                  Pallas body, fed the host packers' padded planes): each
 //                  read's reference positions from its pos and CIGAR, its
 //                  bases read where BAM decode put them.  The allele
 //                  dispatcher's one route for every non-insertion read.
+//                  Bound by bytes, held back by a chain of dependent
+//                  latencies: 256-read tiles.
+//   The two tile kernels share their pieces (the position skeleton and
+//   skel_bound) and their shape: a tile of consecutive reads whose CIGAR
+//   words are one run, the residency the card's thread limit or registers
+//   allow, and only the table each needs (the join stages a four-column
+//   slice in shared memory, the span pass holds the 32 positions under a
+//   warp's tile in registers).
 //
 // The unfused kernel-level entries write the (n_rows, l) int32 vidx and
 // allele planes of assign_alleles_device instead (vidx = table index or -1,
@@ -87,6 +96,7 @@
 // n_rows * L < 2^31.
 
 #include <climits>
+#include <cstddef>
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -499,72 +509,239 @@ __device__ __forceinline__ bool in_class(unsigned mask, unsigned op) {
   return (mask >> op) & 1u;
 }
 
-// The rows of one ragged block, one row per thread: search the row's first
-// aligned position in the table slice tv[0, tn_), then walk the entries up
-// to its last aligned position.  An entry's position p maps to a query
-// offset through a cursor over the row's ops (op c starts at reference
-// position r and query offset q): the cursor passes every op that ends at
-// or before p, ops of no reference length (I, S, H, P) included, and stops
-// at the op under p.  Entries ascend, so the cursor only moves forward: a
-// row's ops are read once however many entries it has, and an affine row
-// (clips around one aligned run) maps each entry with one subtraction.  An
-// entry under a D or N op, or whose query offset lies past the row's bases
-// (a CIGAR longer than the sequence, or a sequence of `*`), emits nothing.
-// All 32 lanes of a warp stay in the emission loop while any of them still
-// has a candidate.
+// Row tiles of the ragged join and the span pass.  A block (the join) or
+// a warp (the span pass) takes a tile of consecutive rows (BAM order is
+// position order), whose CIGAR words are one contiguous run
+// cigar[c_lo, c_hi): the join copies that run into shared memory once,
+// coalesced (stage_run), and every row reads its ops from there; the span
+// pass's lanes read neighbouring words of it.  The sizes are what each
+// kernel needs (the fixture's kept reads hold about 1.7 ops a read and,
+// under 256 of them, about 80 table entries; all its reads hold 1.2 ops a
+// read and, under 128 of them, one or two entries):
+constexpr int kJoinOps = 1024;   // CIGAR words a ragged_join tile stages
+constexpr int kJoinStage = 512;  // table entries it stages, four columns
+constexpr int kJoinHits = 1024;  // hits it gathers before one atomic
+constexpr int kSpanTile = 128;   // reads a read_spans warp takes
+constexpr int kSpanStage = 32;   // positions it holds, one a lane
+constexpr int kSpanRowsPerLane = kSpanTile / 32;
+// Every block of either kernel keeps a skeleton of the positions,
+// sk[i] = vpos[i * seg] for at most kSliceSkel entries (seg a power of two
+// from 1,024, set by the launcher: 128 entries for a table of 131,072),
+// from which a tile's slice bounds take one search in shared memory and
+// two levels of a warp's search in the table (three from 2^20 entries).
+constexpr int kSliceSkel = 512;
+// Blocks of 256 threads an SM: the join at the thread limit (8, 32
+// registers a thread); the span pass at 6 (40 registers), where 8 spill
+constexpr int kJoinBlocksPerSm = 8, kSpanBlocksPerSm = 6;
+
+// Starts 16-byte asynchronous copies (cp.async) of the elements
+// [src, src + n) of type T into dst (room for cap_bytes, a multiple of 16)
+// from the 16-byte boundary at or before src, as many as fit; the `lanes`
+// threads that copy call it (this one `lane` of them), and the caller
+// commits, waits and syncs.  A 16-byte
+// chunk that holds one element of the run lies in the run's page, so the
+// bytes around the run that the copies also read are never out of bounds.
+// Returns the index in dst of element src[0] and sets *n_staged: the
+// elements [0, n_staged) of src are staged.
+template <class T>
+__device__ __forceinline__ int stage_run(T* dst, int cap_bytes,
+                                         const T* __restrict__ src,
+                                         long long n, int* n_staged,
+                                         int lane, int lanes) {
+  *n_staged = 0;
+  if (n <= 0) return 0;
+  int shift = (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+  const T* base = src - shift;
+  long long want = (shift + n) * (long long)sizeof(T);
+  int bytes = want < cap_bytes ? (int)want : cap_bytes;
+  int chunks = (bytes + 15) >> 4;
+  for (int c = lane; c < chunks; c += lanes)
+    __pipeline_memcpy_async(reinterpret_cast<char*>(dst) + 16 * c,
+                            reinterpret_cast<const char*>(base) + 16 * c, 16);
+  long long whole = bytes / (long long)sizeof(T) - shift;
+  *n_staged = (int)(whole < n ? whole : n);
+  return shift;
+}
+
+// The ops [c0, c1) of a row of a tile whose CIGAR words from c_lo are
+// staged at sops (n_staged of them): in shared memory when all of them are
+// staged, else (a CIGAR past the stage) in global memory.  The same words
+// either way.
+__device__ __forceinline__ const uint32_t* row_ops(
+    const uint32_t* sops, int n_staged, const uint32_t* __restrict__ cigar,
+    long long c_lo, long long c0, long long c1) {
+  return c1 - c_lo <= n_staged ? sops + (c0 - c_lo) : cigar + c0;
+}
+
+// Starts the copy of the position skeleton sk[i] = vpos[i * seg], i <
+// n_sk, into shared memory (4-byte asynchronous copies; the caller
+// commits, waits and syncs).
+__device__ __forceinline__ void stage_skeleton(int32_t* sk,
+                                               const int32_t* __restrict__ v,
+                                               int n_sk, int seg) {
+  for (int i = threadIdx.x; i < n_sk; i += kThreads)
+    __pipeline_memcpy_async(sk + i, v + (long long)i * seg, 4);
+}
+
+// The first index in [0, mp) of the sorted v whose entry is >= key (kUpper:
+// > key), or mp, by one warp (all 32 lanes must call): the skeleton's
+// bound i in shared memory leaves the answer in ((i - 1) seg, i seg] (in
+// ((n_sk - 1) seg, mp] past the skeleton), which a cooperative 32-ary
+// search of that range finds in two levels at seg 1,024 (three for a
+// table of 2^22 entries, seg 8,192).
+template <bool kUpper>
+__device__ __forceinline__ int skel_bound(const int32_t* __restrict__ v,
+                                          int mp, const int32_t* sk,
+                                          int n_sk, int seg, int key) {
+  int i = lower_bound<false, kUpper>(sk, n_sk, key);
+  int lo = i > 0 ? (i - 1) * seg + 1 : 0;
+  int hi = i < n_sk ? i * seg : mp;
+  return lo + warp_bound<kUpper>(v + lo, hi - lo, key);
+}
+
+// The table slice under a join tile whose live rows cover the positions
+// [mn, mx] (mn = INT32_MAX and mx = INT32_MIN from a thread without a live
+// row): reduces the range over the block (red: 2 * kThreads / 32 + 2 ints
+// of shared memory), finds the slice's two ends by skel_bound, one warp an
+// end, and, when it holds at most `cap` entries, stages the four columns
+// in `stage` with 16-byte asynchronous copies.  Returns false, uniformly,
+// when no table entry lies under the tile.  Sets *k_lo (the slice's first
+// table index, rounded down to 4 entries for the copies), *n_slice and
+// *staged.  Every thread of the block must call; mp is a multiple of 4 and
+// the columns are 16-byte aligned.
+__device__ __forceinline__ bool tile_slice(
+    int* red, int mn, int mx, const int32_t* const (&col)[4],
+    int32_t* const (&stage)[4], int cap, int mp, const int32_t* sk,
+    int n_sk, int seg, int* k_lo, int* n_slice, bool* staged) {
+  constexpr int kWarps = kThreads / 32;
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    int omn = __shfl_xor_sync(kFull, mn, d);
+    int omx = __shfl_xor_sync(kFull, mx, d);
+    mn = omn < mn ? omn : mn;
+    mx = omx > mx ? omx : mx;
+  }
+  if (lane == 0) {
+    red[warp] = mn;
+    red[kWarps + warp] = mx;
+  }
+  __syncthreads();
+  mn = red[0];
+  mx = red[kWarps];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    mn = red[w] < mn ? red[w] : mn;
+    mx = red[kWarps + w] > mx ? red[kWarps + w] : mx;
+  }
+  if (mx < mn) return false;  // no live row in this tile
+  // the tile's table slice [red[2 kWarps], red[2 kWarps + 1]): one warp an
+  // end
+  if (warp == 0) {
+    int k = skel_bound<false>(col[0], mp, sk, n_sk, seg, mn);
+    if (lane == 0) red[2 * kWarps] = k;
+  } else if (warp == 1) {
+    int k = skel_bound<true>(col[0], mp, sk, n_sk, seg, mx);
+    if (lane == 0) red[2 * kWarps + 1] = k;
+  }
+  __syncthreads();
+  *k_lo = red[2 * kWarps] & ~3;  // 16-byte aligned for the copies
+  *n_slice = red[2 * kWarps + 1] - *k_lo;
+  if (*n_slice <= 0) return false;  // no table entry under this tile
+  *staged = *n_slice <= cap;
+  if (*staged) {
+    // mp is a multiple of 4, so every 4-entry chunk from k_lo lies inside
+    int chunks = (*n_slice + 3) >> 2;
+    for (int c = threadIdx.x; c < chunks; c += kThreads) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        __pipeline_memcpy_async(stage[j] + 4 * c, col[j] + *k_lo + 4 * c, 16);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+  return true;
+}
+
+// Shared memory of a ragged_join block (dynamic, 22.1 KB).
+struct JoinTile {
+  uint32_t ops[kJoinOps + 4];
+  int32_t sv[kJoinStage], s0[kJoinStage], s1[kJoinStage], sn[kJoinStage];
+  int32_t sk[kSliceSkel];
+  int32_t hit_row[kJoinHits], hit_word[kJoinHits];
+  int red[2 * (kThreads / 32) + 2];
+  int n_hits, base;
+};
+
+// One hit of a ragged tile into the tile's gather (a shared-memory atomic);
+// past kJoinHits straight into the packed stream with its own atomic.
+__device__ __forceinline__ void gather_hit(JoinTile& sm, int row, int word,
+                                           int32_t* __restrict__ out,
+                                           int cap) {
+  int slot = atomicAdd(&sm.n_hits, 1);
+  if (slot < kJoinHits) {
+    sm.hit_row[slot] = row;
+    sm.hit_word[slot] = word;
+    return;
+  }
+  slot = atomicAdd(out, 1);
+  if (slot < cap) {
+    out[1 + slot] = row;
+    out[(cap + 1) + 1 + slot] = word;
+  }
+}
+
+// The row of one thread of a ragged tile: search the row's first aligned
+// position in the table slice tv[0, tn_) (staged in shared memory, or the
+// same slice in global memory), then walk the entries up to its last
+// aligned position.  An entry's position p maps to a query offset through
+// a cursor over the row's n_ops ops (op c starts at reference position r
+// and query offset q): the cursor passes every op that ends at or before p,
+// ops of no reference length (I, S, H, P) included, and stops at the op
+// under p.  Entries ascend, so the cursor only moves forward: a row's ops
+// are read once however many entries it has, and an affine row (clips
+// around one aligned run) maps each entry with one subtraction.  An entry
+// under a D or N op, or whose query offset lies past the row's bases (a
+// CIGAR longer than the sequence, or a sequence of `*`), emits nothing.
+// Hits go to the tile's gather, so no lane waits on a device atomic.
 template <bool kGlobal>
-__device__ __forceinline__ void ragged_rows(
-    bool live, int row, int first, int last, const uint32_t* __restrict__ cig,
-    int c, int c1, long long r, const uint8_t* __restrict__ seq,
+__device__ __forceinline__ void ragged_row(
+    int row, int first, int last, const uint32_t* ops, int n_ops,
+    long long r, const uint8_t* __restrict__ seq,
     const uint8_t* __restrict__ qual, int n_bases, int baseq, OpClasses cls,
     const int32_t* tv, const int32_t* t0, const int32_t* t1,
-    const int32_t* tni, int tn_, int tbase, int32_t* __restrict__ out,
-    int cap) {
-  int k = 0, k_first = 0;
-  if (live) {
-    k = lower_bound<kGlobal>(tv, tn_, first);
-    k_first = k;
-  }
-  int prev = 0;
+    const int32_t* tni, int tn_, int tbase, JoinTile& sm,
+    int32_t* __restrict__ out, int cap) {
+  const int k_first = lower_bound<kGlobal>(tv, tn_, first);
+  int prev = 0, c = 0;
   long long q = 0;
-  while (__any_sync(kFull, live)) {
-    int word = -1;
-    while (live) {
-      if (k >= tn_) {
-        live = false;
-        break;
-      }
-      int p = tload<kGlobal>(tv + k);
-      if (p > last) {
-        live = false;
-        break;
-      }
-      // of entries at one position only the first is a hit (the lower
-      // bound of a per-base search)
-      bool is_first = k == k_first || p != prev;
-      prev = p;
-      int kk = k++;
-      if (!is_first) continue;
-      unsigned op = 0;
-      while (c < c1) {
-        uint32_t w = __ldg(cig + c);
-        op = w & 0xF;
-        long long len = w >> 4;
-        long long ref_len = in_class(cls.ref, op) ? len : 0;
-        if (p < r + ref_len) break;  // the op under p
-        r += ref_len;
-        if (in_class(cls.query, op)) q += len;
-        ++c;
-      }
-      if (c >= c1 || !in_class(cls.aligned, op)) continue;
-      long long at = q + (p - r);
-      if (at >= n_bases) continue;
-      int code = __ldg(qual + at) >= baseq ? (__ldg(seq + at) & 0xF) : 15;
-      if (code == 15) continue;
-      word = hit_word<kGlobal>(code, kk, t0, t1, tni, tbase);
-      break;
+  for (int k = k_first; k < tn_; ++k) {
+    int p = tload<kGlobal>(tv + k);
+    if (p > last) break;
+    // of entries at one position only the first is a hit (the lower bound
+    // of a per-base search)
+    bool is_first = k == k_first || p != prev;
+    prev = p;
+    if (!is_first) continue;
+    unsigned op = 0;
+    while (c < n_ops) {
+      uint32_t w = ops[c];
+      op = w & 0xF;
+      long long len = w >> 4;
+      long long ref_len = in_class(cls.ref, op) ? len : 0;
+      if (p < r + ref_len) break;  // the op under p
+      r += ref_len;
+      if (in_class(cls.query, op)) q += len;
+      ++c;
     }
-    emit1(row, word, out, cap);
+    if (c >= n_ops || !in_class(cls.aligned, op)) continue;
+    long long at = q + (p - r);
+    if (at >= n_bases) continue;
+    int code = __ldg(qual + at) >= baseq ? (__ldg(seq + at) & 0xF) : 15;
+    if (code == 15) continue;
+    gather_hit(sm, row, hit_word<kGlobal>(code, k, t0, t1, tni, tbase), out,
+               cap);
   }
 }
 
@@ -580,17 +757,27 @@ __device__ __forceinline__ void ragged_rows(
 // Bound: what the data needs is the row's pos and two offsets (12 B), its
 // ops (4 B each), the table entries between the rows' lowest and highest
 // aligned position (16 B each), one 32-byte sector of seq and one of qual
-// per entry under an aligned base, and 8 B per hit written.  The padded
-// planes of the TPU's routes (1-4 B per base and row, built on the host)
-// never exist: the bases reach the card as decoded, and the kernel reads
-// them only under a table entry.  What is left is latency, as in
-// affine_body: the ops walk, two block barriers, the search's dependent
-// loads.  What the design does about it: a block takes 256 consecutive rows
-// (BAM order is position order), first walks each row's ops for its aligned
-// range [first, last], finds the table slice under the block (block_slice)
-// and, when it fits kStage entries, searches and walks in shared memory;
-// rows whose slice does not fit search the whole table in global memory.
-__global__ void __launch_bounds__(kThreads)
+// per entry under an aligned base, and 8 B per hit written: bytes, a
+// sixth of the card time of the earlier one-row-a-thread kernel (the
+// ablation's `earlier` variant), whose chain of dependent latencies
+// (offsets, then ops, the block's range, the slice search, the slice copy,
+// the row's search, the walk, the bases, a device atomic a warp and hit)
+// ran in 1.3 waves.  The padded planes of the TPU's routes (1-4 B per base
+// and row, built on the host) never exist: the bases reach the card as
+// decoded, and the kernel reads them only under a table entry.  What the
+// design does about the chain: a block takes a tile of 256 consecutive
+// rows; every load of the tile's offsets is issued at once, and the tile's
+// ops arrive in one coalesced run (stage_run), from which each row reduces
+// its aligned range [first, last] and later walks its cursor, so no row
+// reads its ops from device memory twice (a row past the stage reads them
+// there); the slice bounds come from the skeleton in shared memory and two
+// levels of warp search (tile_slice), and the slice is staged when it fits
+// kJoinStage entries (four columns, 8 KB; searched in device memory
+// otherwise); hits gather in shared memory and take one device atomic a
+// tile.  At 32 registers a thread and 22 KB a block the card holds 8
+// blocks an SM (its thread limit), 1,056 of them: the 1,024 tiles of a
+// 262,144-read launch run in one wave.
+__global__ void __launch_bounds__(kThreads, kJoinBlocksPerSm)
 ragged_join_kernel(const int32_t* __restrict__ pos,
                    const int32_t* __restrict__ cig_off,
                    const uint32_t* __restrict__ cigar,
@@ -600,59 +787,89 @@ ragged_join_kernel(const int32_t* __restrict__ pos,
                    OpClasses cls, const int32_t* __restrict__ vpos,
                    const int32_t* __restrict__ a0,
                    const int32_t* __restrict__ a1,
-                   const int32_t* __restrict__ ni, int mp,
+                   const int32_t* __restrict__ ni, int mp, int seg, int n_sk,
                    int32_t* __restrict__ out, int cap) {
-  __shared__ __align__(16) BlockTable bt;
-
-  int row = blockIdx.x * kThreads + threadIdx.x;
-  bool live = false;
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  JoinTile& sm = *reinterpret_cast<JoinTile*>(tile_smem);
+  stage_skeleton(sm.sk, vpos, n_sk, seg);
+  const int r0 = blockIdx.x * kThreads, row = r0 + threadIdx.x;
+  const int r1 = n_rows - r0 < kThreads ? n_rows : r0 + kThreads;
+  // every load of the tile's offsets at once: the ends of its op run (the
+  // same two words for every thread) and the row's own
+  const int c_lo = __ldg(cig_off + r0), c_hi = __ldg(cig_off + r1);
   int c0 = 0, c1 = 0, s0 = 0, n_bases = 0;
-  int first = 0x7fffffff, last = (int)0x80000000;
-  long long r0 = 0;  // the 1-based reference position of the row's first op
+  long long r_start = 0;  // the 1-based reference position of op 0
   if (row < n_rows) {
     c0 = __ldg(cig_off + row);
     c1 = __ldg(cig_off + row + 1);
     s0 = __ldg(seq_off + row);
     n_bases = __ldg(seq_off + row + 1) - s0;
-    r0 = (long long)__ldg(pos + row) + 1;
-    // the row's aligned range: the first base of its first aligned op to the
-    // last base of its last one
-    long long r = r0, lo = LLONG_MAX, hi = LLONG_MIN;
-    for (int c = c0; c < c1; ++c) {
-      uint32_t w = __ldg(cigar + c);
-      unsigned op = w & 0xF;
-      long long len = w >> 4;
-      if (in_class(cls.aligned, op) && len > 0) {
-        lo = lo < r ? lo : r;
-        hi = r + len - 1;
-      }
-      if (in_class(cls.ref, op)) r += len;
-    }
-    // table positions lie in [1, INT32_MAX - 1]: INT32_MAX pads the table
-    lo = lo > 1 ? lo : 1;
-    hi = hi < 0x7ffffffe ? hi : 0x7ffffffe;
-    live = lo <= hi;
-    if (live) {
-      first = (int)lo;
-      last = (int)hi;
-    }
+    r_start = (long long)__ldg(pos + row) + 1;
   }
+  if (threadIdx.x == 0) sm.n_hits = 0;
+  int n_staged;
+  const int shift = stage_run(sm.ops, sizeof(sm.ops), cigar + c_lo,
+                              c_hi - c_lo, &n_staged, threadIdx.x, kThreads);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const uint32_t* ops = row_ops(sm.ops + shift, n_staged, cigar, c_lo, c0, c1);
+  const int n_ops = c1 - c0;
+  // the row's aligned range: the first base of its first aligned op to the
+  // last base of its last one
+  long long r = r_start, lo = LLONG_MAX, hi = LLONG_MIN;
+  for (int c = 0; c < n_ops; ++c) {
+    uint32_t w = ops[c];
+    unsigned op = w & 0xF;
+    long long len = w >> 4;
+    if (in_class(cls.aligned, op) && len > 0) {
+      lo = lo < r ? lo : r;
+      hi = r + len - 1;
+    }
+    if (in_class(cls.ref, op)) r += len;
+  }
+  // table positions lie in [1, INT32_MAX - 1]: INT32_MAX pads the table
+  lo = lo > 1 ? lo : 1;
+  hi = hi < 0x7ffffffe ? hi : 0x7ffffffe;
+  const bool live = row < n_rows && lo <= hi;
+  const int first = live ? (int)lo : 0x7fffffff;
+  const int last = live ? (int)hi : (int)0x80000000;
   int k_lo, n_slice;
   bool staged;
-  if (!block_slice(bt, first, last, vpos, a0, a1, ni, mp, &k_lo, &n_slice,
-                   &staged))
+  const int32_t* const cols[4] = {vpos, a0, a1, ni};
+  int32_t* const stage[4] = {sm.sv, sm.s0, sm.s1, sm.sn};
+  if (!tile_slice(sm.red, first, last, cols, stage, kJoinStage, mp, sm.sk,
+                  n_sk, seg, &k_lo, &n_slice, &staged))
     return;
-  const uint8_t* rseq = seq + s0;
-  const uint8_t* rqual = qual + s0;
-  if (staged) {
-    ragged_rows<false>(live, row, first, last, cigar, c0, c1, r0, rseq, rqual,
-                       n_bases, baseq, cls, bt.sv, bt.s0, bt.s1, bt.sn,
-                       n_slice, k_lo, out, cap);
-  } else {
-    ragged_rows<true>(live, row, first, last, cigar, c0, c1, r0, rseq, rqual,
-                      n_bases, baseq, cls, vpos, a0, a1, ni, mp, 0, out, cap);
+  if (live && staged) {
+    ragged_row<false>(row, first, last, ops, n_ops, r_start, seq + s0,
+                      qual + s0, n_bases, baseq, cls, sm.sv, sm.s0, sm.s1,
+                      sm.sn, n_slice, k_lo, sm, out, cap);
+  } else if (live) {
+    ragged_row<true>(row, first, last, ops, n_ops, r_start, seq + s0,
+                     qual + s0, n_bases, baseq, cls, vpos + k_lo, a0 + k_lo,
+                     a1 + k_lo, ni + k_lo, n_slice, k_lo, sm, out, cap);
+  }
+  // the tile's gathered hits: one device atomic for their slots, then
+  // coalesced stores (slots >= cap are counted, not written)
+  __syncthreads();
+  const int n_hits = sm.n_hits < kJoinHits ? sm.n_hits : kJoinHits;
+  if (threadIdx.x == 0) sm.base = n_hits > 0 ? atomicAdd(out, n_hits) : 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_hits; i += kThreads) {
+    int slot = sm.base + i;
+    if (slot < cap) {
+      out[1 + slot] = sm.hit_row[i];
+      out[(cap + 1) + 1 + slot] = sm.hit_word[i];
+    }
   }
 }
+
+// Shared memory of a read_spans block (dynamic): the block's position
+// skeleton (2 KB).
+struct SpanTile {
+  int32_t sk[kSliceSkel];
+};
 
 // The allele dispatcher's span pass on the card (no TPU kernel: phaser_tpu's
 // dispatcher, like mapper/dispatch.py _read_spans, runs it on the host).
@@ -664,53 +881,117 @@ ragged_join_kernel(const int32_t* __restrict__ pos,
 //
 // Bound: bytes, 4 B of pos, 8 B of offsets and 4 B per op read, 1 B
 // written, per read; the table entries under the reads once.  What the
-// design does about it: one read per thread, so a warp's loads of pos and
-// the offsets are coalesced and its ops (consecutive rows) nearly so; a
-// block takes 256 consecutive reads (position order), stages the table
-// slice under them (block_slice) and searches there, so a search costs
-// shared-memory loads instead of 17 dependent L2 loads.
-__global__ void __launch_bounds__(kThreads)
+// design does about it: a streaming pass of warps that never wait on each
+// other, so that one warp's chain of latencies overlaps the others' loads.
+// A warp takes a tile of 128 consecutive reads, four consecutive reads a
+// lane: it loads their offsets and positions at once (coalesced), and each
+// lane sums its reads' lengths and gathers their op sets from the tile's
+// one contiguous op run, the warp's lanes on neighbouring words of it (a
+// copy of the run into shared memory first made the pass a third slower on
+// the H100: step_kernels_ablation's `ragged` section, variant `ops`); the
+// warp's range [mn, mx] takes one skeleton bound (skel_bound: shared
+// memory and two levels of the table in device memory), and the 32
+// positions from there arrive in one coalesced load, a lane each, which
+// every lane tests against its reads by shuffles: the table is staged in
+// registers, its positions alone.  A warp whose tile holds 32 entries or
+// more (a dense table) finds the slice's end and searches it in device
+// memory instead.  The grid holds a block for every eight tiles, a warp a
+// tile.
+__global__ void __launch_bounds__(kThreads, kSpanBlocksPerSm)
 read_spans_kernel(const int32_t* __restrict__ pos,
                   const int64_t* __restrict__ cig_off,
                   const uint32_t* __restrict__ cigar, int n, unsigned ins_ops,
                   unsigned skip_ops, const int32_t* __restrict__ vpos, int mp,
-                  uint8_t* __restrict__ flags) {
-  __shared__ __align__(16) BlockTable bt;
-  int i = blockIdx.x * kThreads + threadIdx.x;
-  int f = 0, first = 0x7fffffff, last = (int)0x80000000;
-  bool live = false;
-  if (i < n) {
-    long long total = 0;
-    unsigned seen = 0;
-    for (long long c = __ldg(cig_off + i); c < __ldg(cig_off + i + 1); ++c) {
-      uint32_t w = __ldg(cigar + c);
+                  int seg, int n_sk, uint8_t* __restrict__ flags) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  SpanTile& sm = *reinterpret_cast<SpanTile*>(tile_smem);
+  stage_skeleton(sm.sk, vpos, n_sk, seg);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_tiles = (int)(((long long)n + kSpanTile - 1) / kSpanTile);
+  const int tile = blockIdx.x * kWarps + warp;
+  if (tile >= n_tiles) return;  // no block barrier follows
+  const int mine = tile * kSpanTile + kSpanRowsPerLane * lane;  // lane's 1st
+  // every load at once: the lane's reads' offsets and positions
+  long long off[kSpanRowsPerLane + 1];
+  int p[kSpanRowsPerLane];
+#pragma unroll
+  for (int j = 0; j <= kSpanRowsPerLane; ++j)
+    off[j] = mine + j <= n ? __ldg(cig_off + mine + j) : 0;
+#pragma unroll
+  for (int j = 0; j < kSpanRowsPerLane; ++j)
+    p[j] = mine + j < n ? __ldg(pos + mine + j) : 0;
+  // the first op of each of the lane's reads at once (most reads have one
+  // op: one latency for the four), the rest in each read's walk
+  uint32_t op0[kSpanRowsPerLane];
+#pragma unroll
+  for (int j = 0; j < kSpanRowsPerLane; ++j)
+    op0[j] = mine + j < n && off[j + 1] > off[j] ? __ldg(cigar + off[j]) : 0;
+  int first[kSpanRowsPerLane], last[kSpanRowsPerLane];
+  unsigned f = 0;  // a byte of flags a read
+  int mn = 0x7fffffff, mx = (int)0x80000000;
+#pragma unroll
+  for (int j = 0; j < kSpanRowsPerLane; ++j) {
+    first[j] = 0x7fffffff;
+    last[j] = (int)0x80000000;
+    if (mine + j >= n) continue;
+    const long long n_ops = off[j + 1] - off[j];
+    long long total = op0[j] >> 4;
+    unsigned seen = n_ops > 0 ? 1u << (op0[j] & 0xF) : 0u;
+    for (long long c = 1; c < n_ops; ++c) {
+      uint32_t w = __ldg(cigar + off[j] + c);
       total += w >> 4;
       seen |= 1u << (w & 0xF);
     }
-    f = ((seen & ins_ops) ? 1 : 0) | ((seen & skip_ops) ? 2 : 0);
-    long long lo = (long long)__ldg(pos + i) + 1, hi = lo - 1 + total;
+    f |= (((seen & ins_ops) ? 1u : 0u) | ((seen & skip_ops) ? 2u : 0u))
+         << (8 * j);
+    long long lo = (long long)p[j] + 1, hi = lo - 1 + total;
     // table positions lie in [1, INT32_MAX - 1]: INT32_MAX pads the table
     lo = lo > 1 ? lo : 1;
     hi = hi < 0x7ffffffe ? hi : 0x7ffffffe;
-    live = lo <= hi;
-    if (live) {
-      first = (int)lo;
-      last = (int)hi;
+    if (lo <= hi) {
+      first[j] = (int)lo;
+      last[j] = (int)hi;
+      mn = first[j] < mn ? first[j] : mn;
+      mx = last[j] > mx ? last[j] : mx;
     }
   }
-  int k_lo, n_slice;
-  bool staged;
-  // block_slice stages four columns; the span pass needs the positions
-  // alone, so all four are vpos
-  if (block_slice(bt, first, last, vpos, vpos, vpos, vpos, mp, &k_lo,
-                  &n_slice, &staged) && live) {
-    int k = staged ? lower_bound<false>(bt.sv, n_slice, first)
-                   : lower_bound<true>(vpos, mp, first);
-    int at = staged ? (k < n_slice ? bt.sv[k] : 0x7fffffff)
-                    : (k < mp ? __ldg(vpos + k) : 0x7fffffff);
-    if (at <= last) f |= 4;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    int omn = __shfl_xor_sync(kFull, mn, d);
+    int omx = __shfl_xor_sync(kFull, mx, d);
+    mn = omn < mn ? omn : mn;
+    mx = omx > mx ? omx : mx;
   }
-  if (i < n) flags[i] = (uint8_t)f;
+  if (mn <= mx) {  // a live read in the tile
+    const int k0 = skel_bound<false>(vpos, mp, sm.sk, n_sk, seg, mn);
+    // the positions from k0, one a lane (INT32_MAX past the table)
+    const int e = k0 + lane < mp ? __ldg(vpos + k0 + lane) : 0x7fffffff;
+    const int under = __popc(__ballot_sync(kFull, e <= mx));
+    if (under < kSpanStage) {
+      for (int s = 0; s < under; ++s) {
+        int v = __shfl_sync(kFull, e, s);
+#pragma unroll
+        for (int j = 0; j < kSpanRowsPerLane; ++j)
+          if (v >= first[j] && v <= last[j]) f |= 4u << (8 * j);
+      }
+    } else {
+      // a dense table: the slice [k0, k1) in device memory
+      const int k1 = skel_bound<true>(vpos, mp, sm.sk, n_sk, seg, mx);
+#pragma unroll
+      for (int j = 0; j < kSpanRowsPerLane; ++j) {
+        if (first[j] > last[j]) continue;
+        int k = k0 + lower_bound<true>(vpos + k0, k1 - k0, first[j]);
+        if (k < k1 && __ldg(vpos + k) <= last[j]) f |= 4u << (8 * j);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kSpanRowsPerLane; ++j)
+    if (mine + j < n) flags[mine + j] = (uint8_t)(f >> (8 * j));
 }
 
 // Warp-aggregated compaction of up to four hits per lane (words of -1 are
@@ -1574,6 +1855,41 @@ inline cudaError_t init_packed(void* out, int cap, cudaStream_t stream) {
   return cudaMemsetAsync(out, 0, sizeof(int32_t), stream);
 }
 
+// The tile kernels' residency on the current device: the blocks of one
+// (which) that an SM holds at once, and the SMs.
+constexpr int kJoinShape = 0, kSpanShape = 1;
+
+inline cudaError_t tile_residency(int which, int* per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  return which == kJoinShape
+             ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   per_sm, ragged_join_kernel, kThreads, sizeof(JoinTile))
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   per_sm, read_spans_kernel, kThreads, sizeof(SpanTile));
+}
+
+// The skeleton's stride for a table of mp entries: a power of two from 1,024
+// that leaves at most kSliceSkel skeleton entries.
+inline int slice_seg(int mp) {
+  int seg = 1024;
+  while ((long long)seg * kSliceSkel < mp) seg <<= 1;
+  return seg;
+}
+
+// The grid of a tile kernel over n rows: a block a join tile, a block for
+// every kThreads / 32 span tiles (a warp a tile).  A grid of one wave whose
+// blocks walk the tiles measured slower past one wave (the ablation's
+// `grid` variant).
+inline unsigned tile_grid(int which, int n) {
+  long long rows = which == kJoinShape ? kThreads
+                                       : (long long)kSpanTile * (kThreads / 32);
+  return (unsigned)(((long long)n + rows - 1) / rows);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1709,15 +2025,18 @@ int ragged_join_launch(const void* pos, const void* cig_off, const void* cigar,
   cudaError_t init = init_packed(out, cap, (cudaStream_t)stream);
   if (init != cudaSuccess) return (int)init;
   if (n_rows > 0) {
-    // one row per thread
+    // a block a 256-read tile
+    unsigned grid = tile_grid(kJoinShape, n_rows);
     OpClasses cls{(unsigned)aligned_ops, (unsigned)ref_ops,
                   (unsigned)query_ops};
-    ragged_join_kernel<<<grid_for(n_rows), kThreads, 0,
+    int seg = slice_seg(mp);
+    ragged_join_kernel<<<grid, kThreads, sizeof(JoinTile),
                          (cudaStream_t)stream>>>(
         (const int32_t*)pos, (const int32_t*)cig_off, (const uint32_t*)cigar,
         (const int32_t*)seq_off, (const uint8_t*)seq, (const uint8_t*)qual,
         n_rows, baseq, cls, (const int32_t*)vpos, (const int32_t*)a0,
-        (const int32_t*)a1, (const int32_t*)ni, mp, (int32_t*)out, cap);
+        (const int32_t*)a1, (const int32_t*)ni, mp, seg, (mp + seg - 1) / seg,
+        (int32_t*)out, cap);
   }
   return (int)cudaGetLastError();
 }
@@ -1726,13 +2045,35 @@ int read_spans_launch(const void* pos, const void* cig_off, const void* cigar,
                       int n, int ins_ops, int skip_ops, const void* vpos,
                       int mp, void* flags, void* stream) {
   if (n > 0) {
-    // one read per thread
-    read_spans_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+    // a block for every eight 128-read tiles, a warp a tile
+    unsigned grid = tile_grid(kSpanShape, n);
+    int seg = slice_seg(mp);
+    read_spans_kernel<<<grid, kThreads, sizeof(SpanTile),
+                        (cudaStream_t)stream>>>(
         (const int32_t*)pos, (const int64_t*)cig_off, (const uint32_t*)cigar,
         n, (unsigned)ins_ops, (unsigned)skip_ops, (const int32_t*)vpos, mp,
-        (uint8_t*)flags);
+        seg, (mp + seg - 1) / seg, (uint8_t*)flags);
   }
   return (int)cudaGetLastError();
+}
+
+// The tile shape of the ragged join (which 0) or the span pass (which 1)
+// on the current device, for the smoke's record: out[0] blocks resident on
+// an SM, out[1] SMs, out[2] rows a tile, out[3] CIGAR words a tile stages,
+// out[4] table entries a tile stages, out[5] shared memory bytes a block,
+// out[6] tiles a block works on at once (one; the span pass one a warp).
+int tile_shape(int which, int* out) {
+  if (which != kJoinShape && which != kSpanShape)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = tile_residency(which, &out[0], &out[1]);
+  if (e != cudaSuccess) return (int)e;
+  bool join = which == kJoinShape;
+  out[2] = join ? kThreads : kSpanTile;
+  out[3] = join ? kJoinOps : 0;
+  out[4] = join ? kJoinStage : kSpanStage;
+  out[5] = (int)(join ? sizeof(JoinTile) : sizeof(SpanTile));
+  out[6] = join ? 1 : kThreads / 32;
+  return 0;
 }
 
 // resident != 0 stages the whole table (win must be mp) in shared memory;

@@ -49,6 +49,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import threading
 from typing import Optional, Sequence, Tuple
 
@@ -800,6 +801,7 @@ _ARGTYPES = {  # each launcher's C signature (csrc/alleles.cu)
     "ragged_join_launch": [_P] * 6 + [_I] * 5 + [_P] * 4 +
     [_I, _P, _I, _P],
     "read_spans_launch": [_P] * 3 + [_I] * 3 + [_P, _I, _P, _P],
+    "tile_shape": [_I, _P],
     "planes_launch": [_P] * 3 + [_I, _I, _I, _P, _I, _I] + [_P] * 4 +
     [_I, _I, _P, _P, _P],
     "planes_cmp_launch": [_P] * 3 + [_I, _I, _I, _P, _I] + [_P] * 4 +
@@ -1118,6 +1120,51 @@ def read_spans(pos: torch.Tensor, cig_off: torch.Tensor, cigar: torch.Tensor,
         flags.data_ptr(), _stream(dev)))
     bump(LAUNCHES, "read_spans")
     return flags
+
+
+def _tile_constants() -> dict:
+    """The tile kernels' shapes as csrc/alleles.cu sets them, read from its
+    `constexpr int kName = <number>;` lines, so that the source is the one
+    place that sets them: rows a tile (kThreads, a block's for the join;
+    kSpanTile, a warp's for the span pass), CIGAR words (kJoinOps, the
+    join's) and table entries (kJoinStage, kSpanStage) a tile stages."""
+    from ..utils import build
+    with open(os.path.join(build.CSRC, "alleles.cu")) as fh:
+        found = re.findall(r"^constexpr int (k\w+) = (\d+);", fh.read(),
+                           re.MULTILINE)
+    names = ("kThreads", "kJoinOps", "kJoinStage", "kSpanTile", "kSpanStage")
+    values = {k: [int(v) for n, v in found if n == k] for k in names}
+    for k, v in values.items():
+        if len(v) != 1:
+            raise RuntimeError("csrc/alleles.cu sets %s %d times"
+                               % (k, len(v)))
+    return {k: v[0] for k, v in values.items()}
+
+
+# testing/layouts.py builds the rows that pass these stages; tile_shape()
+# reads them back from the kernel library on the card.
+_SHAPES = _tile_constants()
+JOIN_TILE, JOIN_OPS, JOIN_STAGE = (_SHAPES[k] for k in
+                                   ("kThreads", "kJoinOps", "kJoinStage"))
+SPAN_TILE, SPAN_STAGE = _SHAPES["kSpanTile"], _SHAPES["kSpanStage"]
+_TILE_KERNELS = ("ragged_join", "read_spans")
+
+
+def tile_shape(kernel: str) -> dict:
+    """The shape of a tile kernel ("ragged_join" or "read_spans") on the
+    current card: blocks resident on an SM (as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them), SMs, rows
+    a tile, CIGAR words and table entries a tile stages, the block's
+    shared memory bytes and the tiles a block works on at once (the span
+    pass: one a warp).  A launch takes a block for every tiles_per_block
+    tiles, blocks_per_sm * sms of them at once.  Needs the kernel library
+    (a card)."""
+    out = (ctypes.c_int * 7)()
+    _launch("tile_shape", (_TILE_KERNELS.index(kernel),
+                           ctypes.addressof(out)))
+    return dict(zip(("blocks_per_sm", "sms", "tile_rows", "op_stage",
+                     "table_stage", "smem_bytes", "tiles_per_block"),
+                    list(out)))
 
 
 # ---------------------------------------------------------------------------

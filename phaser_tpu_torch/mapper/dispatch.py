@@ -51,7 +51,11 @@ from .host import ContigHits, assign_alleles
 
 from ..utils.counters import bump
 
-_SUB_ROWS = 1 << 18          # max reads per kernel launch
+# max reads per kernel launch: the ragged join takes a block a 256-read
+# tile, so a launch's rows are bounded by its pinned staging (about 210 B
+# a read at 100 bp), not by the kernel; a chromosome's kept reads (332,907
+# of 5M in chip_smoke.py phase 3) take one launch a table slice
+_SUB_ROWS = 1 << 19
 # max bases (and CIGAR ops) per launch: the kernel's row offsets are int32
 _SUB_BASES = 1 << 30
 # max table entries per launch: the packed-hit word holds a table index

@@ -20,7 +20,27 @@ from ..io.bam import OP_D, OP_EQ, OP_H, OP_M, OP_N, OP_P, OP_S, OP_X
 
 NAMES = ["sorted", "random_order", "dense", "L256", "L384", "lo_gt0",
          "empty_rows", "first_last", "one_entry", "table_slice",
-         "duplicates", "clip_collide"]
+         "duplicates", "clip_collide", "long_cigar", "empty_runs",
+         "wide_slice", "many_rows"]
+
+# what the last four reach in the tile kernels ragged_join and read_spans
+# (csrc/alleles.cu: a tile of JOIN_TILE / SPAN_TILE consecutive rows stages
+# at most JOIN_OPS of their CIGAR words (the join) and JOIN_STAGE /
+# SPAN_STAGE table entries; kernels.alleles reads the numbers from there):
+#   long_cigar  every 7th row's aligned bases written one op each, with a
+#               1-base D and a 1-base P after each (about 1,150 ops a row
+#               at L = 384): rows past a tile's op stage, and single rows
+#               longer than the join's whole stage
+#   empty_runs  runs of 48 rows across every multiple of 256 rows (so of
+#               1,024 too), in turns 6 rows without ops and 6 rows whose
+#               sequence is `*`
+#   wide_slice  a variant every few bases, so that a tile's table slice
+#               holds about 1,500 entries: past both kernels' stages (and
+#               inside the earlier design's 2,048)
+#   many_rows   16 x n_rows sorted rows (the sorted layout's density over a
+#               16 times longer contig): more rows than one wave of either
+#               kernel holds on an H100 at the size chip_smoke.py makes it
+_WIDE_SLICE_ENTRIES = 1500
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
 
@@ -31,12 +51,19 @@ def make(name: str, n_rows: int = 300, n_vars: int = 200,
     slice, 2^22 entries, of a table above the dispatcher's slice size)."""
     rng = np.random.default_rng(sum(map(ord, name)))
     N, L, M = n_rows, 128, n_vars
-    if name in ("L256", "L384"):
-        L = int(name[1:])
+    if name == "many_rows":
+        N, M, contig = 16 * n_rows, 16 * n_vars, 16 * contig
+    if name in ("L256", "L384", "long_cigar"):
+        L = 384 if name == "long_cigar" else int(name[1:])
+    extra = {}
     lo = np.zeros(N, np.int32)
     hi = np.full(N, L, np.int32)
-    vpos = np.sort(rng.choice(np.arange(1, contig, dtype=np.int64), size=M,
-                              replace=False))
+    if name == "many_rows":
+        # without the draw over every position of a long contig
+        vpos = np.unique(rng.integers(1, contig, size=M))
+    else:
+        vpos = np.sort(rng.choice(np.arange(1, contig, dtype=np.int64),
+                                  size=M, replace=False))
     start = np.sort(rng.integers(1, contig - 2 * L, size=N))
     gap = np.where(rng.random(N) < 0.5, rng.integers(20, 400, size=N), 0)
     if name == "random_order":
@@ -83,7 +110,18 @@ def make(name: str, n_rows: int = 300, n_vars: int = 200,
         last = start + (hi - lo) - 1 + gap
         vpos = np.unique(np.concatenate([vpos[::4], last[::2],
                                          last[1::4] - 2]))
-    elif name not in ("sorted", "L256", "L384"):
+    elif name == "long_cigar":
+        extra["split"] = np.arange(N) % 7 == 2
+    elif name == "empty_runs":
+        run = (np.arange(N) + 24) % 256 < 48
+        no_ops = run & ((np.arange(N) // 6) % 2 == 0)
+        extra["no_ops"] = no_ops
+        extra["star"] = run & ~no_ops
+        hi = np.where(no_ops, lo, hi).astype(np.int32)
+    elif name == "wide_slice":
+        step = max(1, 256 * contig // (N * _WIDE_SLICE_ENTRIES))
+        vpos = np.arange(1, contig, step, dtype=np.int64)
+    elif name not in ("sorted", "L256", "L384", "many_rows"):
         raise ValueError("unknown layout %r" % name)
     M = len(vpos)
     return dict(
@@ -92,7 +130,7 @@ def make(name: str, n_rows: int = 300, n_vars: int = 200,
         quals=rng.integers(0, 40, size=(N, L)).astype(np.uint8),
         vpos=vpos.astype(np.int32),
         ind=rng.integers(1, 9, size=(M, 2)).astype(np.uint8),
-        ni=rng.integers(0, 3, size=M).astype(np.int8))
+        ni=rng.integers(0, 3, size=M).astype(np.int8), **extra)
 
 
 def padded_table(d: dict):
@@ -173,6 +211,15 @@ def delta_inputs(d: dict, baseq: int = 10):
     return ncodes, start, delta, rp_min, rp_max
 
 
+def _aligned(n: int, op: int, split: bool):
+    """n aligned bases of `op`: one op, or (split) one op a base with a
+    1-base D and a 1-base P after every base but the last."""
+    if not split:
+        return [(n, op)]
+    return [x for i in range(n) for x in
+            ([(1, op), (1, OP_D), (1, OP_P)] if i < n - 1 else [(1, op)])]
+
+
 def ragged_reads(d: dict):
     """The rows of a layout as reads (pos0, ops, codes, quals), ops a list
     of (length, op code): lo soft-clipped bases, the aligned run (M, = or
@@ -181,16 +228,24 @@ def ragged_reads(d: dict):
     clips at both ends (every 11th row), a P op after the gap (every 13th),
     a sequence of `*` (every 17th row), a sequence 30 bases shorter than
     the CIGAR (every 19th) and one 10 bases longer (every 23rd), and rows
-    without an aligned base as all-clip rows or rows without ops."""
+    without an aligned base as all-clip rows or rows without ops.  A
+    layout's optional (N,) bool arrays `split` (the aligned run one op a
+    base, _aligned), `no_ops` (no ops) and `star` (a sequence of `*`) set
+    those rows apart."""
     codes, quals = d["codes"], d["quals"]
     N, L = codes.shape
     mid = L // 2
+    none = np.zeros(N, bool)
+    split, no_ops, star = (d.get(k, none) for k in ("split", "no_ops",
+                                                    "star"))
     out = []
     for r in range(N):
         lo, hi, gap = int(d["lo"][r]), int(d["hi"][r]), int(d["gap"][r])
         run = (OP_M, OP_EQ, OP_X)[r % 3]
         ops = []
-        if hi <= lo:
+        if no_ops[r]:
+            pass
+        elif hi <= lo:
             ops = [(L, OP_S)] if r % 2 else []
         else:
             if r % 11 == 3:
@@ -198,18 +253,19 @@ def ragged_reads(d: dict):
             if lo:
                 ops.append((lo, OP_S))
             if gap and lo < mid < hi:
-                ops += [(mid - lo, run), (gap, OP_N if r % 2 else OP_D)]
+                ops += _aligned(mid - lo, run, split[r]) + \
+                    [(gap, OP_N if r % 2 else OP_D)]
                 if r % 13 == 5:
                     ops.append((2, OP_P))
-                ops.append((hi - mid, OP_M))
+                ops += _aligned(hi - mid, OP_M, split[r])
             else:
-                ops.append((hi - lo, run))
+                ops += _aligned(hi - lo, run, split[r])
             if hi < L:
                 ops.append((L - hi, OP_S))
             if r % 11 == 3:
                 ops.append((7, OP_H))
         c, q = codes[r], quals[r]
-        if r % 17 == 7:
+        if r % 17 == 7 or star[r]:
             c, q = c[:0], q[:0]
         elif r % 19 == 4:
             c, q = c[:L - 30], q[:L - 30]

@@ -605,7 +605,650 @@ STATS_VARIANTS = {
 SASS_BINOM = {"default": "binom_cdf_kernelINS_13BinomOperandsIdd",
               "variant": "v_binom_cdf_kernelIdd"}
 SASS_OPS = ("DFMA", "DMUL", "DADD", "MUFU.RCP64H", "CALL", "BRA", "BSSY")
-SECTIONS = ("band_counts", "tail", "binom")
+
+# The ragged join and the span pass beside their earlier designs.  This source
+# includes csrc/alleles.cu (every helper the variants share) and adds:
+#   earlier  the first designs as they were: one row a thread, every row's
+#            CIGAR walked from device memory (twice for the join), the
+#            32 KB four-column BlockTable stage (the span pass stages the
+#            positions four times), a grid of one block a 256-row tile
+#   ops      the other op path: the join with every row's ops read from
+#            device memory (no staged run), the span pass with each warp's
+#            op run staged in shared memory first
+#   grid     one wave of blocks that walk their tiles in a loop, where the
+#            kernels take a block for each tile (the span pass: for each
+#            eight, a warp a tile)
+#   bounds   the other register bound: the join without its minimum of
+#            8 blocks an SM, the span pass with a minimum of 8 (at most 32
+#            registers a thread) for its 6
+# ops, grid and bounds run copies of the current bodies (templated on the
+# op path, their tiles walked in a loop that the tile grid runs once), so
+# that csrc/alleles.cu holds the chosen design alone.
+# Exported: v_ragged_join_launch(variant, ...ragged_join_launch's
+# arguments) and v_read_spans_launch(variant, ...read_spans_launch's),
+# variant an index of RAGGED_VARIANTS; v_blocks_per_sm(variant, which).
+RAGGED_SOURCE = r'''
+#include "%(alleles)s"
+
+namespace {
+
+// The rows of one ragged block, one row per thread: search the row's first
+// aligned position in the table slice tv[0, tn_), then walk the entries up
+// to its last aligned position.  An entry's position p maps to a query
+// offset through a cursor over the row's ops (op c starts at reference
+// position r and query offset q): the cursor passes every op that ends at
+// or before p, ops of no reference length (I, S, H, P) included, and stops
+// at the op under p.  Entries ascend, so the cursor only moves forward: a
+// row's ops are read once however many entries it has, and an affine row
+// (clips around one aligned run) maps each entry with one subtraction.  An
+// entry under a D or N op, or whose query offset lies past the row's bases
+// (a CIGAR longer than the sequence, or a sequence of `*`), emits nothing.
+// All 32 lanes of a warp stay in the emission loop while any of them still
+// has a candidate.
+template <bool kGlobal>
+__device__ __forceinline__ void earlier_ragged_rows(
+    bool live, int row, int first, int last, const uint32_t* __restrict__ cig,
+    int c, int c1, long long r, const uint8_t* __restrict__ seq,
+    const uint8_t* __restrict__ qual, int n_bases, int baseq, OpClasses cls,
+    const int32_t* tv, const int32_t* t0, const int32_t* t1,
+    const int32_t* tni, int tn_, int tbase, int32_t* __restrict__ out,
+    int cap) {
+  int k = 0, k_first = 0;
+  if (live) {
+    k = lower_bound<kGlobal>(tv, tn_, first);
+    k_first = k;
+  }
+  int prev = 0;
+  long long q = 0;
+  while (__any_sync(kFull, live)) {
+    int word = -1;
+    while (live) {
+      if (k >= tn_) {
+        live = false;
+        break;
+      }
+      int p = tload<kGlobal>(tv + k);
+      if (p > last) {
+        live = false;
+        break;
+      }
+      // of entries at one position only the first is a hit (the lower
+      // bound of a per-base search)
+      bool is_first = k == k_first || p != prev;
+      prev = p;
+      int kk = k++;
+      if (!is_first) continue;
+      unsigned op = 0;
+      while (c < c1) {
+        uint32_t w = __ldg(cig + c);
+        op = w & 0xF;
+        long long len = w >> 4;
+        long long ref_len = in_class(cls.ref, op) ? len : 0;
+        if (p < r + ref_len) break;  // the op under p
+        r += ref_len;
+        if (in_class(cls.query, op)) q += len;
+        ++c;
+      }
+      if (c >= c1 || !in_class(cls.aligned, op)) continue;
+      long long at = q + (p - r);
+      if (at >= n_bases) continue;
+      int code = __ldg(qual + at) >= baseq ? (__ldg(seq + at) & 0xF) : 15;
+      if (code == 15) continue;
+      word = hit_word<kGlobal>(code, kk, t0, t1, tni, tbase);
+      break;
+    }
+    emit1(row, word, out, cap);
+  }
+}
+
+// Replaces the dispatcher's packed routes of phaser_tpu (the Pallas body at
+// alleles.py:673 through _nibble_windowed_impl :975, _delta_windowed_impl
+// :424 and _plane_windowed_impl :1038, with the host packers that build
+// their padded planes): one range join over the reads as BAM decode stores
+// them.  Row r is read r of the launch: its 0-based `pos`, its ops
+// cigar[cig_off[r], cig_off[r + 1]) (uint32, length << 4 | op) and its
+// bases seq / qual[seq_off[r], seq_off[r + 1]) (1 B each, the nibble code
+// and the phred score); masked = qual >= baseq ? code : 15.
+//
+// Bound: what the data needs is the row's pos and two offsets (12 B), its
+// ops (4 B each), the table entries between the rows' lowest and highest
+// aligned position (16 B each), one 32-byte sector of seq and one of qual
+// per entry under an aligned base, and 8 B per hit written.  The padded
+// planes of the TPU's routes (1-4 B per base and row, built on the host)
+// never exist: the bases reach the card as decoded, and the kernel reads
+// them only under a table entry.  What is left is latency, as in
+// affine_body: the ops walk, two block barriers, the search's dependent
+// loads.  What the design does about it: a block takes 256 consecutive rows
+// (BAM order is position order), first walks each row's ops for its aligned
+// range [first, last], finds the table slice under the block (block_slice)
+// and, when it fits kStage entries, searches and walks in shared memory;
+// rows whose slice does not fit search the whole table in global memory.
+__global__ void __launch_bounds__(kThreads)
+earlier_ragged_join_kernel(const int32_t* __restrict__ pos,
+                   const int32_t* __restrict__ cig_off,
+                   const uint32_t* __restrict__ cigar,
+                   const int32_t* __restrict__ seq_off,
+                   const uint8_t* __restrict__ seq,
+                   const uint8_t* __restrict__ qual, int n_rows, int baseq,
+                   OpClasses cls, const int32_t* __restrict__ vpos,
+                   const int32_t* __restrict__ a0,
+                   const int32_t* __restrict__ a1,
+                   const int32_t* __restrict__ ni, int mp,
+                   int32_t* __restrict__ out, int cap) {
+  __shared__ __align__(16) BlockTable bt;
+
+  int row = blockIdx.x * kThreads + threadIdx.x;
+  bool live = false;
+  int c0 = 0, c1 = 0, s0 = 0, n_bases = 0;
+  int first = 0x7fffffff, last = (int)0x80000000;
+  long long r0 = 0;  // the 1-based reference position of the row's first op
+  if (row < n_rows) {
+    c0 = __ldg(cig_off + row);
+    c1 = __ldg(cig_off + row + 1);
+    s0 = __ldg(seq_off + row);
+    n_bases = __ldg(seq_off + row + 1) - s0;
+    r0 = (long long)__ldg(pos + row) + 1;
+    // the row's aligned range: the first base of its first aligned op to the
+    // last base of its last one
+    long long r = r0, lo = LLONG_MAX, hi = LLONG_MIN;
+    for (int c = c0; c < c1; ++c) {
+      uint32_t w = __ldg(cigar + c);
+      unsigned op = w & 0xF;
+      long long len = w >> 4;
+      if (in_class(cls.aligned, op) && len > 0) {
+        lo = lo < r ? lo : r;
+        hi = r + len - 1;
+      }
+      if (in_class(cls.ref, op)) r += len;
+    }
+    // table positions lie in [1, INT32_MAX - 1]: INT32_MAX pads the table
+    lo = lo > 1 ? lo : 1;
+    hi = hi < 0x7ffffffe ? hi : 0x7ffffffe;
+    live = lo <= hi;
+    if (live) {
+      first = (int)lo;
+      last = (int)hi;
+    }
+  }
+  int k_lo, n_slice;
+  bool staged;
+  if (!block_slice(bt, first, last, vpos, a0, a1, ni, mp, &k_lo, &n_slice,
+                   &staged))
+    return;
+  const uint8_t* rseq = seq + s0;
+  const uint8_t* rqual = qual + s0;
+  if (staged) {
+    earlier_ragged_rows<false>(live, row, first, last, cigar, c0, c1, r0, rseq, rqual,
+                       n_bases, baseq, cls, bt.sv, bt.s0, bt.s1, bt.sn,
+                       n_slice, k_lo, out, cap);
+  } else {
+    earlier_ragged_rows<true>(live, row, first, last, cigar, c0, c1, r0, rseq, rqual,
+                      n_bases, baseq, cls, vpos, a0, a1, ni, mp, 0, out, cap);
+  }
+}
+
+// The allele dispatcher's span pass on the card (no TPU kernel: phaser_tpu's
+// dispatcher, like mapper/dispatch.py _read_spans, runs it on the host).
+// Per read one flag byte: bit 0 the read holds an op of ins_ops (I), bit 1
+// one of skip_ops (N), bit 2 `near`: a position of the padded, sorted table
+// vpos[0, mp) lies in [pos + 1, pos + total], total the sum of ALL the
+// read's op lengths (an end that can only be too large, so a read that is
+// not near has no aligned base on a table position).
+//
+// Bound: bytes, 4 B of pos, 8 B of offsets and 4 B per op read, 1 B
+// written, per read; the table entries under the reads once.  What the
+// design does about it: one read per thread, so a warp's loads of pos and
+// the offsets are coalesced and its ops (consecutive rows) nearly so; a
+// block takes 256 consecutive reads (position order), stages the table
+// slice under them (block_slice) and searches there, so a search costs
+// shared-memory loads instead of 17 dependent L2 loads.
+__global__ void __launch_bounds__(kThreads)
+earlier_read_spans_kernel(const int32_t* __restrict__ pos,
+                  const int64_t* __restrict__ cig_off,
+                  const uint32_t* __restrict__ cigar, int n, unsigned ins_ops,
+                  unsigned skip_ops, const int32_t* __restrict__ vpos, int mp,
+                  uint8_t* __restrict__ flags) {
+  __shared__ __align__(16) BlockTable bt;
+  int i = blockIdx.x * kThreads + threadIdx.x;
+  int f = 0, first = 0x7fffffff, last = (int)0x80000000;
+  bool live = false;
+  if (i < n) {
+    long long total = 0;
+    unsigned seen = 0;
+    for (long long c = __ldg(cig_off + i); c < __ldg(cig_off + i + 1); ++c) {
+      uint32_t w = __ldg(cigar + c);
+      total += w >> 4;
+      seen |= 1u << (w & 0xF);
+    }
+    f = ((seen & ins_ops) ? 1 : 0) | ((seen & skip_ops) ? 2 : 0);
+    long long lo = (long long)__ldg(pos + i) + 1, hi = lo - 1 + total;
+    // table positions lie in [1, INT32_MAX - 1]: INT32_MAX pads the table
+    lo = lo > 1 ? lo : 1;
+    hi = hi < 0x7ffffffe ? hi : 0x7ffffffe;
+    live = lo <= hi;
+    if (live) {
+      first = (int)lo;
+      last = (int)hi;
+    }
+  }
+  int k_lo, n_slice;
+  bool staged;
+  // block_slice stages four columns; the span pass needs the positions
+  // alone, so all four are vpos
+  if (block_slice(bt, first, last, vpos, vpos, vpos, vpos, mp, &k_lo,
+                  &n_slice, &staged) && live) {
+    int k = staged ? lower_bound<false>(bt.sv, n_slice, first)
+                   : lower_bound<true>(vpos, mp, first);
+    int at = staged ? (k < n_slice ? bt.sv[k] : 0x7fffffff)
+                    : (k < mp ? __ldg(vpos + k) : 0x7fffffff);
+    if (at <= last) f |= 4;
+  }
+  if (i < n) flags[i] = (uint8_t)f;
+}
+
+// Copies of the two tile kernels' bodies (csrc/alleles.cu ragged_join_kernel
+// and read_spans_kernel) with the parts that the ops, grid and bounds
+// variants change: kStageOps picks where a row's ops come from (false: the
+// join reads them from device memory; true: the span pass stages its
+// warp's op run in shared memory, VSpanTile's ops), and the tiles are
+// walked in a loop, so that a grid of one wave serves (a grid of one block
+// a tile runs the loop once, as the kernels run).
+constexpr int kVSpanOps = 256;  // words a span warp stages
+
+struct VSpanTile {
+  int32_t sk[kSliceSkel];
+  uint32_t ops[kThreads / 32][kVSpanOps];
+};
+constexpr size_t kVSpanSmem = offsetof(VSpanTile, ops);
+
+template <bool kStageOps>
+__device__ __forceinline__ void v_ragged_join_body(
+    const int32_t* __restrict__ pos, const int32_t* __restrict__ cig_off,
+    const uint32_t* __restrict__ cigar, const int32_t* __restrict__ seq_off,
+    const uint8_t* __restrict__ seq, const uint8_t* __restrict__ qual,
+    int n_rows, int baseq, OpClasses cls, const int32_t* __restrict__ vpos,
+    const int32_t* __restrict__ a0, const int32_t* __restrict__ a1,
+    const int32_t* __restrict__ ni, int mp, int seg, int n_sk,
+    int32_t* __restrict__ out, int cap) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  JoinTile& sm = *reinterpret_cast<JoinTile*>(tile_smem);
+  stage_skeleton(sm.sk, vpos, n_sk, seg);
+  const int n_tiles = (n_rows + kThreads - 1) / kThreads;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int r0 = tile * kThreads, row = r0 + threadIdx.x;
+    const int r1 = n_rows - r0 < kThreads ? n_rows : r0 + kThreads;
+    // every load of the tile's offsets at once: the ends of its op run (the
+    // same two words for every thread) and the row's own
+    const int c_lo = __ldg(cig_off + r0), c_hi = __ldg(cig_off + r1);
+    int c0 = 0, c1 = 0, s0 = 0, n_bases = 0;
+    long long r_start = 0;  // the 1-based reference position of op 0
+    if (row < n_rows) {
+      c0 = __ldg(cig_off + row);
+      c1 = __ldg(cig_off + row + 1);
+      s0 = __ldg(seq_off + row);
+      n_bases = __ldg(seq_off + row + 1) - s0;
+      r_start = (long long)__ldg(pos + row) + 1;
+    }
+    __syncthreads();  // the last tile's rows are done with the stage
+    if (threadIdx.x == 0) sm.n_hits = 0;
+    int n_staged = 0, shift = 0;
+    if (kStageOps)
+      shift = stage_run(sm.ops, sizeof(sm.ops), cigar + c_lo, c_hi - c_lo,
+                        &n_staged, threadIdx.x, kThreads);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    const uint32_t* ops =
+        row_ops(sm.ops + shift, n_staged, cigar, c_lo, c0, c1);
+    const int n_ops = c1 - c0;
+    // the row's aligned range: the first base of its first aligned op to
+    // the last base of its last one
+    long long r = r_start, lo = LLONG_MAX, hi = LLONG_MIN;
+    for (int c = 0; c < n_ops; ++c) {
+      uint32_t w = ops[c];
+      unsigned op = w & 0xF;
+      long long len = w >> 4;
+      if (in_class(cls.aligned, op) && len > 0) {
+        lo = lo < r ? lo : r;
+        hi = r + len - 1;
+      }
+      if (in_class(cls.ref, op)) r += len;
+    }
+    // table positions lie in [1, INT32_MAX - 1]: INT32_MAX pads the table
+    lo = lo > 1 ? lo : 1;
+    hi = hi < 0x7ffffffe ? hi : 0x7ffffffe;
+    const bool live = row < n_rows && lo <= hi;
+    const int first = live ? (int)lo : 0x7fffffff;
+    const int last = live ? (int)hi : (int)0x80000000;
+    int k_lo, n_slice;
+    bool staged;
+    const int32_t* const cols[4] = {vpos, a0, a1, ni};
+    int32_t* const stage[4] = {sm.sv, sm.s0, sm.s1, sm.sn};
+    if (!tile_slice(sm.red, first, last, cols, stage, kJoinStage, mp, sm.sk,
+                    n_sk, seg, &k_lo, &n_slice, &staged))
+      continue;
+    if (live && staged) {
+      ragged_row<false>(row, first, last, ops, n_ops, r_start, seq + s0,
+                        qual + s0, n_bases, baseq, cls, sm.sv, sm.s0, sm.s1,
+                        sm.sn, n_slice, k_lo, sm, out, cap);
+    } else if (live) {
+      ragged_row<true>(row, first, last, ops, n_ops, r_start, seq + s0,
+                       qual + s0, n_bases, baseq, cls, vpos + k_lo,
+                       a0 + k_lo, a1 + k_lo, ni + k_lo, n_slice, k_lo, sm,
+                       out, cap);
+    }
+    // the tile's gathered hits: one device atomic for their slots, then
+    // coalesced stores (slots >= cap are counted, not written)
+    __syncthreads();
+    const int n_hits = sm.n_hits < kJoinHits ? sm.n_hits : kJoinHits;
+    if (threadIdx.x == 0) sm.base = n_hits > 0 ? atomicAdd(out, n_hits) : 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_hits; i += kThreads) {
+      int slot = sm.base + i;
+      if (slot < cap) {
+        out[1 + slot] = sm.hit_row[i];
+        out[(cap + 1) + 1 + slot] = sm.hit_word[i];
+      }
+    }
+  }
+}
+
+#define RAGGED_JOIN_PARAMS                                                   \
+  const int32_t *__restrict__ pos, const int32_t *__restrict__ cig_off,      \
+      const uint32_t *__restrict__ cigar,                                    \
+      const int32_t *__restrict__ seq_off, const uint8_t *__restrict__ seq,  \
+      const uint8_t *__restrict__ qual, int n_rows, int baseq,               \
+      OpClasses cls, const int32_t *__restrict__ vpos,                       \
+      const int32_t *__restrict__ a0, const int32_t *__restrict__ a1,        \
+      const int32_t *__restrict__ ni, int mp, int seg, int n_sk,             \
+      int32_t *__restrict__ out, int cap
+#define RAGGED_JOIN_ARGS                                                     \
+  pos, cig_off, cigar, seq_off, seq, qual, n_rows, baseq, cls, vpos, a0, a1, \
+      ni, mp, seg, n_sk, out, cap
+
+template <bool kStageOps>
+__device__ __forceinline__ void v_read_spans_body(
+    const int32_t* __restrict__ pos, const int64_t* __restrict__ cig_off,
+    const uint32_t* __restrict__ cigar, int n, unsigned ins_ops,
+    unsigned skip_ops, const int32_t* __restrict__ vpos, int mp, int seg,
+    int n_sk, uint8_t* __restrict__ flags) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  VSpanTile& sm = *reinterpret_cast<VSpanTile*>(tile_smem);
+  stage_skeleton(sm.sk, vpos, n_sk, seg);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* wops = sm.ops[warp];
+  const int n_tiles = (int)(((long long)n + kSpanTile - 1) / kSpanTile);
+  for (int tile = blockIdx.x * kWarps + warp; tile < n_tiles;
+       tile += gridDim.x * kWarps) {
+    const int r0 = tile * kSpanTile;
+    const int rows = n - r0 < kSpanTile ? n - r0 : kSpanTile;
+    const int mine = r0 + kSpanRowsPerLane * lane;  // the lane's first read
+    // every load at once: the lane's reads' offsets and positions (and, to
+    // stage the op run, its two ends: the same two words for every lane)
+    const long long c_lo = kStageOps ? __ldg(cig_off + r0) : 0,
+                    c_hi = kStageOps ? __ldg(cig_off + r0 + rows) : 0;
+    long long off[kSpanRowsPerLane + 1];
+    int p[kSpanRowsPerLane];
+#pragma unroll
+    for (int j = 0; j <= kSpanRowsPerLane; ++j)
+      off[j] = mine + j <= n ? __ldg(cig_off + mine + j) : 0;
+#pragma unroll
+    for (int j = 0; j < kSpanRowsPerLane; ++j)
+      p[j] = mine + j < n ? __ldg(pos + mine + j) : 0;
+    int n_staged = 0, ops_at = 0;
+    if (kStageOps) {
+      __syncwarp();  // the warp's last tile is done with its stage
+      ops_at = stage_run(wops, sizeof(sm.ops[0]), cigar + c_lo, c_hi - c_lo,
+                         &n_staged, lane, 32);
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncwarp();
+    }
+    // the first op of each of the lane's reads at once (most reads have
+    // one op: one latency for the four), the rest in each read's walk
+    uint32_t op0[kSpanRowsPerLane];
+#pragma unroll
+    for (int j = 0; j < kSpanRowsPerLane; ++j)
+      op0[j] = mine + j < n && off[j + 1] > off[j]
+                   ? (kStageOps ? *row_ops(wops + ops_at, n_staged, cigar,
+                                           c_lo, off[j], off[j + 1])
+                                : __ldg(cigar + off[j]))
+                   : 0;
+    int first[kSpanRowsPerLane], last[kSpanRowsPerLane];
+    unsigned f = 0;  // a byte of flags a read
+    int mn = 0x7fffffff, mx = (int)0x80000000;
+#pragma unroll
+    for (int j = 0; j < kSpanRowsPerLane; ++j) {
+      first[j] = 0x7fffffff;
+      last[j] = (int)0x80000000;
+      if (mine + j >= n) continue;
+      const uint32_t* ops =
+          kStageOps ? row_ops(wops + ops_at, n_staged, cigar, c_lo, off[j],
+                              off[j + 1])
+                    : cigar + off[j];
+      const long long n_ops = off[j + 1] - off[j];
+      long long total = op0[j] >> 4;
+      unsigned seen = n_ops > 0 ? 1u << (op0[j] & 0xF) : 0u;
+      for (long long c = 1; c < n_ops; ++c) {
+        uint32_t w = ops[c];
+        total += w >> 4;
+        seen |= 1u << (w & 0xF);
+      }
+      f |= (((seen & ins_ops) ? 1u : 0u) | ((seen & skip_ops) ? 2u : 0u))
+           << (8 * j);
+      long long lo = (long long)p[j] + 1, hi = lo - 1 + total;
+      // table positions lie in [1, INT32_MAX - 1]: INT32_MAX pads the table
+      lo = lo > 1 ? lo : 1;
+      hi = hi < 0x7ffffffe ? hi : 0x7ffffffe;
+      if (lo <= hi) {
+        first[j] = (int)lo;
+        last[j] = (int)hi;
+        mn = first[j] < mn ? first[j] : mn;
+        mx = last[j] > mx ? last[j] : mx;
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      int omn = __shfl_xor_sync(kFull, mn, d);
+      int omx = __shfl_xor_sync(kFull, mx, d);
+      mn = omn < mn ? omn : mn;
+      mx = omx > mx ? omx : mx;
+    }
+    if (mn <= mx) {  // a live read in the tile
+      const int k0 = skel_bound<false>(vpos, mp, sm.sk, n_sk, seg, mn);
+      // the positions from k0, one a lane (INT32_MAX past the table)
+      const int e = k0 + lane < mp ? __ldg(vpos + k0 + lane) : 0x7fffffff;
+      const int under = __popc(__ballot_sync(kFull, e <= mx));
+      if (under < kSpanStage) {
+        for (int s = 0; s < under; ++s) {
+          int v = __shfl_sync(kFull, e, s);
+#pragma unroll
+          for (int j = 0; j < kSpanRowsPerLane; ++j)
+            if (v >= first[j] && v <= last[j]) f |= 4u << (8 * j);
+        }
+      } else {
+        // a dense table: the slice [k0, k1) in device memory
+        const int k1 = skel_bound<true>(vpos, mp, sm.sk, n_sk, seg, mx);
+#pragma unroll
+        for (int j = 0; j < kSpanRowsPerLane; ++j) {
+          if (first[j] > last[j]) continue;
+          int k = k0 + lower_bound<true>(vpos + k0, k1 - k0, first[j]);
+          if (k < k1 && __ldg(vpos + k) <= last[j]) f |= 4u << (8 * j);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSpanRowsPerLane; ++j)
+      if (mine + j < n) flags[mine + j] = (uint8_t)(f >> (8 * j));
+  }
+}
+
+#define READ_SPANS_PARAMS                                                  \
+  const int32_t *__restrict__ pos, const int64_t *__restrict__ cig_off,    \
+      const uint32_t *__restrict__ cigar, int n, unsigned ins_ops,         \
+      unsigned skip_ops, const int32_t *__restrict__ vpos, int mp,         \
+      int seg, int n_sk, uint8_t *__restrict__ flags
+#define READ_SPANS_ARGS \
+  pos, cig_off, cigar, n, ins_ops, skip_ops, vpos, mp, seg, n_sk, flags
+
+__global__ void __launch_bounds__(kThreads, kJoinBlocksPerSm)
+v_global_ops_join(RAGGED_JOIN_PARAMS) {
+  v_ragged_join_body<false>(RAGGED_JOIN_ARGS);
+}
+__global__ void __launch_bounds__(kThreads, kJoinBlocksPerSm)
+v_grid_join(RAGGED_JOIN_PARAMS) {
+  v_ragged_join_body<true>(RAGGED_JOIN_ARGS);
+}
+__global__ void __launch_bounds__(kThreads)
+v_bounds_join(RAGGED_JOIN_PARAMS) {
+  v_ragged_join_body<true>(RAGGED_JOIN_ARGS);
+}
+__global__ void __launch_bounds__(kThreads, kSpanBlocksPerSm)
+v_staged_ops_spans(READ_SPANS_PARAMS) {
+  v_read_spans_body<true>(READ_SPANS_ARGS);
+}
+__global__ void __launch_bounds__(kThreads, kSpanBlocksPerSm)
+v_grid_spans(READ_SPANS_PARAMS) {
+  v_read_spans_body<false>(READ_SPANS_ARGS);
+}
+__global__ void __launch_bounds__(kThreads, 8)
+v_bounds_spans(READ_SPANS_PARAMS) {
+  v_read_spans_body<false>(READ_SPANS_ARGS);
+}
+
+template <class Kernel>
+int per_sm_of(Kernel kernel, size_t smem) {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
+  return n > 0 ? n : 1;
+}
+
+int sms_of() {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// blocks an SM of each variant's kernel (0-3), for the join (which 0) and
+// the span pass (which 1); asked once
+int v_per_sm(int variant, int which) {
+  static int cache[2][4];
+  int& c = cache[which][variant];
+  if (c == 0) {
+    if (which == 0) {
+      c = variant == 0   ? per_sm_of(earlier_ragged_join_kernel, 0)
+          : variant == 1 ? per_sm_of(v_global_ops_join, sizeof(JoinTile))
+          : variant == 2 ? per_sm_of(v_grid_join, sizeof(JoinTile))
+                         : per_sm_of(v_bounds_join, sizeof(JoinTile));
+    } else {
+      c = variant == 0   ? per_sm_of(earlier_read_spans_kernel, 0)
+          : variant == 1 ? per_sm_of(v_staged_ops_spans, sizeof(VSpanTile))
+          : variant == 2 ? per_sm_of(v_grid_spans, kVSpanSmem)
+                         : per_sm_of(v_bounds_spans, kVSpanSmem);
+    }
+  }
+  return c;
+}
+
+// the grid each variant runs over `blocks` blocks of work: every block,
+// but variant 2's one wave of them (whose blocks walk the tiles)
+unsigned v_grid(long long blocks, int variant, int which) {
+  static int sms = 0;
+  if (sms == 0) sms = sms_of();
+  if (variant != 2) return (unsigned)blocks;
+  long long w = (long long)v_per_sm(variant, which) * sms;
+  return (unsigned)(blocks < w ? blocks : w);
+}
+
+}  // namespace
+
+extern "C" {
+
+int v_blocks_per_sm(int variant, int which) {
+  if (variant < 0 || variant > 3 || which < 0 || which > 1) return -1;
+  return v_per_sm(variant, which);
+}
+
+int v_ragged_join_launch(int variant, const void* pos, const void* cig_off,
+                         const void* cigar, const void* seq_off,
+                         const void* seq, const void* qual, int n_rows,
+                         int baseq, int aligned_ops, int ref_ops,
+                         int query_ops, const void* vpos, const void* a0,
+                         const void* a1, const void* ni, int mp, void* out,
+                         int cap, void* stream) {
+  if (variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t init = init_packed(out, cap, s);
+  if (init != cudaSuccess) return (int)init;
+  if (n_rows > 0) {
+    OpClasses cls{(unsigned)aligned_ops, (unsigned)ref_ops,
+                  (unsigned)query_ops};
+    long long tiles = ((long long)n_rows + kThreads - 1) / kThreads;
+    unsigned grid = v_grid(tiles, variant, 0);
+    if (variant == 0) {
+      earlier_ragged_join_kernel<<<grid, kThreads, 0, s>>>(
+          (const int32_t*)pos, (const int32_t*)cig_off,
+          (const uint32_t*)cigar, (const int32_t*)seq_off,
+          (const uint8_t*)seq, (const uint8_t*)qual, n_rows, baseq, cls,
+          (const int32_t*)vpos, (const int32_t*)a0, (const int32_t*)a1,
+          (const int32_t*)ni, mp, (int32_t*)out, cap);
+    } else {
+      int seg = slice_seg(mp);
+      auto kernel = variant == 1   ? v_global_ops_join
+                    : variant == 2 ? v_grid_join
+                                   : v_bounds_join;
+      kernel<<<grid, kThreads, sizeof(JoinTile), s>>>(
+          (const int32_t*)pos, (const int32_t*)cig_off,
+          (const uint32_t*)cigar, (const int32_t*)seq_off,
+          (const uint8_t*)seq, (const uint8_t*)qual, n_rows, baseq, cls,
+          (const int32_t*)vpos, (const int32_t*)a0, (const int32_t*)a1,
+          (const int32_t*)ni, mp, seg, (mp + seg - 1) / seg, (int32_t*)out,
+          cap);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+int v_read_spans_launch(int variant, const void* pos, const void* cig_off,
+                        const void* cigar, int n, int ins_ops, int skip_ops,
+                        const void* vpos, int mp, void* flags,
+                        void* stream) {
+  if (variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    // earlier: a block a 256-read tile; now: a warp a 128-read tile
+    long long rows = variant == 0 ? kThreads : kSpanTile * (kThreads / 32);
+    unsigned grid = v_grid(((long long)n + rows - 1) / rows, variant, 1);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (variant == 0) {
+      earlier_read_spans_kernel<<<grid, kThreads, 0, s>>>(
+          (const int32_t*)pos, (const int64_t*)cig_off,
+          (const uint32_t*)cigar, n, (unsigned)ins_ops, (unsigned)skip_ops,
+          (const int32_t*)vpos, mp, (uint8_t*)flags);
+    } else {
+      int seg = slice_seg(mp);
+      auto kernel = variant == 1   ? v_staged_ops_spans
+                    : variant == 2 ? v_grid_spans
+                                   : v_bounds_spans;
+      kernel<<<grid, kThreads, variant == 1 ? sizeof(VSpanTile) : kVSpanSmem,
+               s>>>(
+          (const int32_t*)pos, (const int64_t*)cig_off,
+          (const uint32_t*)cigar, n, (unsigned)ins_ops, (unsigned)skip_ops,
+          (const int32_t*)vpos, mp, seg, (mp + seg - 1) / seg,
+          (uint8_t*)flags);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+'''
+RAGGED_VARIANTS = ("earlier", "ops", "grid", "bounds")
+SECTIONS = ("band_counts", "tail", "binom", "ragged")
 BINOM_INPUTS = ("e2e", "chromosome", "long", "one_live", "live_%d" % 873)
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 TAIL_ARGTYPES = [_P, _P, _I, _I, _D, _D, _P, _I, _P, _I] + [_P] * 5
@@ -630,6 +1273,12 @@ def _build(work: str, sections) -> dict:
     if "band_counts" in sections:
         for name, defines in VARIANTS.items():
             jobs[name] = (os.path.join(build.CSRC, "mesh.cu"), defines)
+    if "ragged" in sections:
+        rsrc = os.path.join(work, "ragged_variants.cu")
+        with open(rsrc, "w") as fh:
+            fh.write(RAGGED_SOURCE % {
+                "alleles": os.path.join(build.CSRC, "alleles.cu")})
+        jobs["ragged"] = (rsrc, [])
     if "binom" in sections:
         vsrc = os.path.join(work, "stats_variants.cu")
         with open(vsrc, "w") as fh:
@@ -733,21 +1382,34 @@ def _on_card(fns: dict, iters: int) -> dict:
     return out
 
 
+_fixtures: dict = {}
+
+
+def _chromosome_reads(n_reads: int, n_vars: int, work: str):
+    """Smoke phase 3's fixture: benchdata's n_reads reads (BamData) and
+    its n_vars-het table, generated once a process."""
+    key = (n_reads, n_vars)
+    if key not in _fixtures:
+        from ..engine.varmap import build_variant_table
+        from ..io import bam as bamio
+        from . import benchdata
+        contig_len = 200_000_000
+        bam = os.path.join(work, "chrscale.bam")
+        benchdata.generate_bam(bam, n_reads=n_reads, contig_len=contig_len)
+        vt = build_variant_table("chr1", benchdata.generate_variants(
+            n_vars, contig_len))
+        bd = bamio.read_bam(bam)
+        os.remove(bam)
+        _fixtures[key] = (bd, vt)
+    return _fixtures[key]
+
+
 def _chromosome_input(n_reads: int, n_rows: int, n_vars: int, work: str):
     """Smoke phase 3's step input: the first n_rows of benchdata's n_reads
     reads as (codes, quals, refpos) planes, and its het table."""
     from ..dist.multihost import table_arrays
-    from ..engine.varmap import build_variant_table
-    from ..io import bam as bamio
     from ..kernels.alleles import pack_reads
-    from . import benchdata
-    contig_len = 200_000_000
-    bam = os.path.join(work, "chrscale.bam")
-    benchdata.generate_bam(bam, n_reads=n_reads, contig_len=contig_len)
-    vt = build_variant_table("chr1", benchdata.generate_variants(
-        n_vars, contig_len))
-    bd = bamio.read_bam(bam)
-    os.remove(bam)
+    bd, vt = _chromosome_reads(n_reads, n_vars, work)
     return pack_reads(bd, rows=np.arange(min(n_rows, len(bd)))) + \
         table_arrays(vt)
 
@@ -1182,7 +1844,158 @@ def _run(args, work: str, smi: str) -> dict:
               % (m, blocks, int(want[1].sum())), flush=True)
     if "binom" in args.sections:
         record["binom"] = _binom_section(args, libs, work, smi, chromosome)
+    if "ragged" in args.sections:
+        record["ragged"] = _ragged_section(args, libs["ragged"], work, smi)
     return record
+
+
+def _sorted_hits(packed) -> tuple:
+    """(hit count, (read, var, allele, code) rows sorted) of a packed-hit
+    buffer: the kernels compact in no order."""
+    from ..kernels.alleles import decode_packed_hits
+    r, v, a, mc, nh = decode_packed_hits(packed.cpu().numpy())
+    order = np.lexsort((v, r))
+    return nh, np.stack([r[order], v[order], a[order], mc[order]])
+
+
+def _ragged_section(args, lib, work: str, smi: str) -> dict:
+    """ragged_join and read_spans as they are ("current", through their
+    wrappers) beside RAGGED_VARIANTS (the earlier kernels and the current
+    design with one part taken out), on smoke phase 3's inputs (the join on
+    the first `--rows` reads the dispatcher keeps, staged as it stages
+    them, against the 100,000-het table; the span pass on all `--reads`
+    reads) and, before them, on testing/layouts.py's NAMES and big_table
+    at 20,000 rows (many_rows: 320,000).  Every variant's hits (flags) equal the plain
+    version's; each is timed in turns by CUDA events (the join's packed
+    buffer's fill included) and on the card by the profiler; the blocks an
+    SM holds of each, as the runtime reports them."""
+    import torch
+    from ..io.bam import OP_I, OP_N
+    from ..kernels import alleles as K
+    from ..mapper import dispatch as D
+    from ..utils.trace import DeviceClock
+    from . import layouts
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    I = ctypes.c_int
+    lib.v_ragged_join_launch.argtypes = [I] + \
+        K._ARGTYPES["ragged_join_launch"]
+    lib.v_read_spans_launch.argtypes = [I] + K._ARGTYPES["read_spans_launch"]
+    lib.v_blocks_per_sm.argtypes = [I, I]
+    classes = [K._class_mask(c) for c in K._op_classes()]
+    cap = 1 << 20
+
+    def T(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def join_fns(r_in, table):
+        vpos, a0, a1, ni = table
+
+        def variant(i):
+            def fn():
+                out = torch.empty((2, cap + 1), dtype=torch.int32,
+                                  device=dev)
+                err = lib.v_ragged_join_launch(
+                    i, *[x.data_ptr() for x in r_in], r_in[0].shape[0], 10,
+                    *classes, vpos.data_ptr(), a0.data_ptr(), a1.data_ptr(),
+                    ni.data_ptr(), vpos.shape[0], out.data_ptr(), cap,
+                    stream)
+                if err:
+                    raise RuntimeError("ragged variant %s: CUDA error %d"
+                                       % (RAGGED_VARIANTS[i], err))
+                return out
+            return fn
+        fns = {"current": lambda: K.assign_compact_ragged(*r_in, 10, table,
+                                                          cap)}
+        fns.update({v: variant(i) for i, v in enumerate(RAGGED_VARIANTS)})
+        return fns
+
+    def span_fns(s_in):
+        def variant(i):
+            def fn():
+                flags = torch.empty(s_in[0].shape[0], dtype=torch.uint8,
+                                    device=dev)
+                err = lib.v_read_spans_launch(
+                    i, *[x.data_ptr() for x in s_in[:3]], s_in[0].shape[0],
+                    1 << OP_I, 1 << OP_N, s_in[3].data_ptr(),
+                    s_in[3].shape[0], flags.data_ptr(), stream)
+                if err:
+                    raise RuntimeError("span variant %s: CUDA error %d"
+                                       % (RAGGED_VARIANTS[i], err))
+                return flags
+            return fn
+        fns = {"current": lambda: K.read_spans(*s_in, OP_I, OP_N)}
+        fns.update({v: variant(i) for i, v in enumerate(RAGGED_VARIANTS)})
+        return fns
+
+    shapes = {k: K.tile_shape(k) for k in ("ragged_join", "read_spans")}
+    per_sm = {k: {v: lib.v_blocks_per_sm(i, w)
+                  for i, v in enumerate(RAGGED_VARIANTS)}
+              for w, k in enumerate(("ragged_join", "read_spans"))}
+    print("[ragged] tile shapes %s; blocks an SM by variant %s; on %s"
+          % (shapes, per_sm, smi), flush=True)
+    out = {"tile_shape": shapes, "variant_blocks_per_sm": per_sm}
+
+    def make_inputs(name):
+        if name == "chromosome":
+            bd, vt = _chromosome_reads(args.reads, args.vars, work)
+            table = K.device_table(vt, np.arange(len(vt)), dev)
+            has_ins, _, near = D._read_spans(bd, vt.pos)
+            rows = np.flatnonzero(near & ~has_ins)[:args.rows]
+            return (D._stage_reads(bd, rows, dev, DeviceClock(dev)), table,
+                    [T(x) for x in (bd.pos, bd.cigar_off,
+                                    bd.cigar_flat.view(np.int32))] +
+                    [table[0]])
+        d = layouts.make(name, n_rows=20_000, n_vars=16_000,
+                         contig=4_000_000)
+        r_np = layouts.ragged_inputs(d)
+        tab = tuple(T(x) for x in layouts.padded_table(d))
+        return ([T(x) for x in r_np], tab,
+                [T(r_np[0]), T(r_np[1].astype(np.int64)), T(r_np[2]),
+                 tab[0]])
+
+    for name in layouts.NAMES + ["big_table", "chromosome"]:
+        r_in, tab, s_in = make_inputs(name)
+        res = {"rows": int(r_in[0].shape[0]), "ops": int(r_in[2].shape[0]),
+               "span_reads": int(s_in[0].shape[0]),
+               "span_ops": int(s_in[2].shape[0]),
+               "table": int(tab[0].shape[0])}
+        for kernel, fns in (("ragged_join", join_fns(r_in, tab)),
+                            ("read_spans", span_fns(s_in))):
+            if kernel == "ragged_join":
+                want = _sorted_hits(K.ragged_join_plain(*r_in, 10, tab,
+                                                        cap))
+            else:
+                want = K.read_spans_plain(*s_in, OP_I, OP_N)
+            for k, fn in fns.items():
+                got = fn()
+                torch.cuda.synchronize()
+                same = (lambda g: g[0] == want[0] and
+                        np.array_equal(g[1], want[1]))(_sorted_hits(got)) \
+                    if kernel == "ragged_join" else torch.equal(got, want)
+                if not same:
+                    raise RuntimeError("%s %s differs from the plain "
+                                       "version on %s" % (kernel, k, name))
+            ms = _in_turns(fns, args.iters)
+            card = _on_card(fns, args.iters)
+            sh = shapes[kernel]
+            tiles = -(-res["rows" if kernel == "ragged_join" else
+                           "span_reads"] // sh["tile_rows"])
+            wave = sh["blocks_per_sm"] * sh["sms"] * sh["tiles_per_block"]
+            res[kernel] = {"ms": ms, "card_ms_activities_whole": card,
+                           "tiles": tiles, "waves": tiles / wave}
+            if kernel == "ragged_join":
+                res[kernel]["hits"] = int(want[0])
+            for k in fns:
+                c = card[k]
+                print("[ragged %s] %-11s %-10s call %.4f ms (CUDA events); "
+                      "on the card %s; %d tiles, %.3f waves; on %s"
+                      % (name, kernel, k, ms[k], c and "%.5f ms in %g "
+                         "device activities a call (%s)" % (
+                             c[0], c[1], "whole" if c[2] else "not whole"),
+                         tiles, tiles / wave, smi), flush=True)
+        out[name] = res
+    return out
 
 
 if __name__ == "__main__":

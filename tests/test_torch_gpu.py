@@ -249,10 +249,13 @@ def test_dispatcher_on_the_card_matches_host(cuda, tmp_path, monkeypatch):
 
 
 def test_read_spans_on_the_card(cuda, tmp_path, monkeypatch):
-    """The read_spans kernel == its plain version and == the dispatcher's
-    span pass (the merge over the decode's span summary) on a datagen
-    fixture's reads, in position order and shuffled; the dispatcher on the
-    card == the host mapper, launching the ragged join alone."""
+    """The tile kernels' shapes in the library are kernels.alleles' (read
+    from csrc/alleles.cu); the read_spans kernel == its plain version on
+    the reads of every layout of testing/layouts.py and on a datagen
+    fixture's reads, there also == the dispatcher's span pass (the merge
+    over the decode's span summary), in position order and shuffled; the
+    dispatcher on the card == the host mapper, launching the ragged join
+    alone."""
     from phaser_tpu_torch.engine.varmap import build_variant_table
     from phaser_tpu_torch.io import bam as bamio
     from phaser_tpu_torch.io import vcf as vcfio
@@ -260,6 +263,19 @@ def test_read_spans_on_the_card(cuda, tmp_path, monkeypatch):
     from phaser_tpu_torch.mapper import dispatch as D
     from phaser_tpu_torch.testing import datagen
 
+    for kernel, want in (("ragged_join", (K.JOIN_TILE, K.JOIN_OPS,
+                                          K.JOIN_STAGE)),
+                         ("read_spans", (K.SPAN_TILE, 0, K.SPAN_STAGE))):
+        sh = K.tile_shape(kernel)
+        assert (sh["tile_rows"], sh["op_stage"], sh["table_stage"]) == want
+    for layout in layouts.NAMES:
+        d = layouts.make(layout, n_rows=3000, n_vars=2000, contig=600_000)
+        pos, co, cig = layouts.ragged_inputs(d)[:3]
+        args = [_t(x) for x in (pos, co.astype(np.int64), cig,
+                                layouts.padded_table(d)[0])]
+        np.testing.assert_array_equal(
+            K.read_spans(*[a.to(cuda) for a in args], OP_I, OP_N).cpu(),
+            K.read_spans(*args, OP_I, OP_N))
     monkeypatch.setenv("PHASER_TPU_TORCH_CACHE", str(tmp_path / "cache"))
     vcf, bam, _ = datagen.write_fixture_dir(
         str(tmp_path), seed=72, contigs=("chr20",), contig_len=60000,

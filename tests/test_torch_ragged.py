@@ -138,6 +138,66 @@ def test_ragged_layouts_reach_every_branch():
     for r in range(len(reads)):
         rp = refpos[r][refpos[r] > 0]
         assert np.all(np.diff(rp) > 0)
+    _reach_tile_branches()
+
+
+def _tile_runs(co, rows):
+    """The CIGAR words of each tile of `rows` consecutive rows, plus the
+    (at most 3 words of) 16-byte alignment the stage copies from."""
+    ends = co[np.minimum(np.arange(0, len(co) - 1 + rows, rows),
+                         len(co) - 1)]
+    return np.diff(ends) + 3
+
+
+def _reach_tile_branches():
+    """The tile kernels' branches (csrc/alleles.cu ragged_join and
+    read_spans, shapes in kernels.alleles): rows whose ops pass a join
+    tile's op stage, a single row past that whole stage, runs of zero-op
+    and `*` rows across a tile boundary, tiles whose table slice passes
+    both kernels' stages, and more rows than one H100 wave holds."""
+    pos, co, cig, so, seq, qual = layouts.ragged_inputs(
+        layouts.make("long_cigar"))
+    n_ops = np.diff(co)
+    assert n_ops.max() > K.JOIN_OPS and n_ops.min() < 10
+    assert _tile_runs(co, K.JOIN_TILE).max() > K.JOIN_OPS
+    # a tile whose first rows fit the stage and whose later ones do not
+    run = np.cumsum(n_ops[:K.JOIN_TILE])
+    assert run.min() <= K.JOIN_OPS - 3 < K.JOIN_OPS < run.max()
+
+    d = layouts.make("empty_runs")
+    pos, co, cig, so, seq, qual = layouts.ragged_inputs(d)
+    n_ops, n_bases = np.diff(co), np.diff(so)
+    across = np.arange(K.JOIN_TILE - 12, K.JOIN_TILE + 12)
+    assert (n_ops[across] == 0).sum() >= 12
+    star = (n_ops > 0) & (n_bases == 0)
+    assert star[across].sum() >= 12
+    for side in (across[:12], across[12:]):
+        assert (n_ops[side] == 0).any() and star[side].any()
+    assert np.array_equal(n_ops == 0, d["no_ops"] |
+                          (d["hi"] <= d["lo"]) & (np.arange(len(pos)) % 2 ==
+                                                  0))
+
+    d = layouts.make("wide_slice")
+    refpos = layouts.ragged_plane(d)[2]
+    vpos = d["vpos"]
+    for rows, stage in ((K.JOIN_TILE, K.JOIN_STAGE),
+                        (K.SPAN_TILE, K.SPAN_STAGE)):
+        under = []
+        for t in range(0, len(refpos), rows):
+            rp = refpos[t:t + rows]
+            rp = rp[rp > 0]
+            under.append(np.searchsorted(vpos, rp.max(), "right") -
+                         np.searchsorted(vpos, rp.min()))
+        assert max(under) > stage
+
+    # an H100 (132 SMs) holds at most 2,048 threads an SM: at the size
+    # chip_smoke.py makes it (the card's tests make it at 48,000 reads,
+    # inside one wave), many_rows is more rows than one wave of the join
+    # (256-row tiles of 256 threads) holds
+    assert len(layouts.make("many_rows")["start"]) == 16 * 300
+    big = layouts.make("many_rows", n_rows=20_000, n_vars=16_000,
+                       contig=4_000_000)
+    assert len(big["start"]) > 132 * 2048 // 256 * K.JOIN_TILE
 
 
 def test_ragged_join_reads_only_its_own_bases():
