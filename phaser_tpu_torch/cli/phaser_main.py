@@ -29,6 +29,7 @@ import sys
 import time
 
 from ..engine.output_stage import PhaserOptions
+from ..utils import trace
 from ..version import PHASER_COMPAT_VERSION, __version__
 
 from ..engine.pipeline import run_phaser
@@ -97,89 +98,100 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    print("")
-    print("##################################################")
-    print("       phaser_tpu_torch v%s (phASER v%s compatible)"
-          % (__version__, PHASER_COMPAT_VERSION))
-    print("   PyTorch / CUDA read-backed phasing + ASE engine")
-    print("##################################################")
-    print("")
-    start = time.time()
-    print('STARTED "Read backed phasing and ASE/haplotype analyses" ... ')
-    print("    DATE, TIME : %s"
-          % datetime.datetime.now().strftime("%Y-%m-%d, %H:%M:%S"))
+    with trace.root_span("phaser main"):
+        return _main(argv)
 
-    opts = PhaserOptions(
-        id_separator=args.id_separator, unique_ids=args.unique_ids,
-        gw_phase_method=args.gw_phase_method,
-        output_read_ids=args.output_read_ids,
-        output_network=args.output_network,
-        unphased_vars=args.unphased_vars, max_block_size=args.max_block_size,
-        cc_threshold=args.cc_threshold, as_q_cutoff=args.as_q_cutoff,
-        pass_only=args.pass_only, include_indels=args.include_indels,
-        remove_dups=args.remove_dups, write_vcf=args.write_vcf,
-        gw_phase_vcf=args.gw_phase_vcf,
-        gw_phase_vcf_min_confidence=args.gw_phase_vcf_min_confidence,
-        gw_af_field=args.gw_af_field, chr_prefix=args.chr_prefix,
-        show_warning=args.show_warning)
-    device = args.device
-    kwargs = dict(
-        vcf=args.vcf, bam=args.bam, sample=args.sample, o=args.o,
-        mapq=args.mapq, baseq=args.baseq, paired_end=args.paired_end,
-        isize=args.isize, blacklist=args.blacklist,
-        haplo_count_blacklist=args.haplo_count_blacklist,
-        haplo_count_bam_exclude=args.haplo_count_bam_exclude)
-    threads = max(1, args.threads)
-    if args.process_slow == 1:
-        from ..engine.slow_mode import run_phaser_slow
-        _run = functools.partial(run_phaser_slow, resume=bool(args.resume),
-                                 chrom=args.chr, opts=opts, threads=threads,
-                                 device=device)
-    elif threads > 1 and device == "host":
-        from ..dist.engine_multihost import run_phaser_multiproc
-        _run = functools.partial(run_phaser_multiproc, threads,
-                                 chrom=args.chr, opts=opts, device=device,
-                                 resume=bool(args.resume))
-    elif threads > 1:
-        from ..dist.engine_multihost import run_phaser_sharded_threads
-        _run = functools.partial(run_phaser_sharded_threads,
-                                 n_shards=threads, chrom=args.chr,
-                                 opts=opts, device=device,
-                                 position_shards=True)
-    else:
-        _run = functools.partial(run_phaser, chrom=args.chr, opts=opts,
-                                 threads=1, device=device)
+
+def _main(argv) -> int:
+    with trace.span("cli"):
+        args = build_parser().parse_args(argv)
+        print("")
+        print("##################################################")
+        print("       phaser_tpu_torch v%s (phASER v%s compatible)"
+              % (__version__, PHASER_COMPAT_VERSION))
+        print("   PyTorch / CUDA read-backed phasing + ASE engine")
+        print("##################################################")
+        print("")
+        start = time.time()
+        print('STARTED "Read backed phasing and ASE/haplotype analyses" ... ')
+        print("    DATE, TIME : %s"
+              % datetime.datetime.now().strftime("%Y-%m-%d, %H:%M:%S"))
+
+        opts = PhaserOptions(
+            id_separator=args.id_separator, unique_ids=args.unique_ids,
+            gw_phase_method=args.gw_phase_method,
+            output_read_ids=args.output_read_ids,
+            output_network=args.output_network,
+            unphased_vars=args.unphased_vars,
+            max_block_size=args.max_block_size,
+            cc_threshold=args.cc_threshold, as_q_cutoff=args.as_q_cutoff,
+            pass_only=args.pass_only, include_indels=args.include_indels,
+            remove_dups=args.remove_dups, write_vcf=args.write_vcf,
+            gw_phase_vcf=args.gw_phase_vcf,
+            gw_phase_vcf_min_confidence=args.gw_phase_vcf_min_confidence,
+            gw_af_field=args.gw_af_field, chr_prefix=args.chr_prefix,
+            show_warning=args.show_warning)
+        device = args.device
+        kwargs = dict(
+            vcf=args.vcf, bam=args.bam, sample=args.sample, o=args.o,
+            mapq=args.mapq, baseq=args.baseq, paired_end=args.paired_end,
+            isize=args.isize, blacklist=args.blacklist,
+            haplo_count_blacklist=args.haplo_count_blacklist,
+            haplo_count_bam_exclude=args.haplo_count_bam_exclude)
+        threads = max(1, args.threads)
+        if args.process_slow == 1:
+            from ..engine.slow_mode import run_phaser_slow
+            _run = functools.partial(run_phaser_slow,
+                                     resume=bool(args.resume),
+                                     chrom=args.chr, opts=opts,
+                                     threads=threads, device=device)
+        elif threads > 1 and device == "host":
+            from ..dist.engine_multihost import run_phaser_multiproc
+            _run = functools.partial(run_phaser_multiproc, threads,
+                                     chrom=args.chr, opts=opts,
+                                     device=device, resume=bool(args.resume))
+        elif threads > 1:
+            from ..dist.engine_multihost import run_phaser_sharded_threads
+            _run = functools.partial(run_phaser_sharded_threads,
+                                     n_shards=threads, chrom=args.chr,
+                                     opts=opts, device=device,
+                                     position_shards=True)
+        else:
+            _run = functools.partial(run_phaser, chrom=args.chr, opts=opts,
+                                     threads=1, device=device)
     try:
         res = _run(**kwargs)
     except (ValueError, RuntimeError, FileNotFoundError) as e:
-        from ..utils.failures import write_failure_record
-        record = write_failure_record(args.o, "phaser", e, argv)
-        print("     FATAL ERROR: %s" % e)
-        if record:
-            print("     failure record: %s" % record)
+        with trace.span("cli"):
+            from ..utils.failures import write_failure_record
+            record = write_failure_record(args.o, "phaser", e, argv)
+            print("     FATAL ERROR: %s" % e)
+            if record:
+                print("     failure record: %s" % record)
         return 1
-    from ..utils.failures import clear_failure_record
-    clear_failure_record(args.o)
-    if res.shard_device:
-        print("     shard device/wall seconds: %s"
-              % " ".join("%.3f/%.3f" % dw for dw in res.shard_device))
-    if device != "host":
-        from ..engine import blocks, connections, phasing
-        from ..kernels.alleles import LAUNCHES
-        print("     kernel launches: %s"
-              % " ".join("%s=%d" % kv for kv in LAUNCHES.items()))
-        print("     device stage calls: pair_counts=%d components=%d "
-              "phase_scores=%d (reads over the pair K cap on the host: %d)"
-              % (connections.COUNTS["device_calls"],
-                 blocks.COUNTS["device_calls"],
-                 phasing.COUNTS["device_calls"],
-                 connections.COUNTS["host_reads"]))
-    print('COMPLETED "Read backed phasing" of sample %s in %s hh:mm:ss'
-          % (args.sample,
-             time.strftime("%H:%M:%S", time.gmtime(time.time() - start))))
+    with trace.span("cli"):
+        from ..utils.failures import clear_failure_record
+        clear_failure_record(args.o)
+        if res.shard_device:
+            print("     shard device/wall seconds: %s"
+                  % " ".join("%.3f/%.3f" % dw for dw in res.shard_device))
+        if device != "host":
+            from ..engine import blocks, connections, phasing
+            from ..kernels.alleles import LAUNCHES
+            print("     kernel launches: %s"
+                  % " ".join("%s=%d" % kv for kv in LAUNCHES.items()))
+            print("     device stage calls: pair_counts=%d components=%d "
+                  "phase_scores=%d (reads over the pair K cap on the host: "
+                  "%d)"
+                  % (connections.COUNTS["device_calls"],
+                     blocks.COUNTS["device_calls"],
+                     phasing.COUNTS["device_calls"],
+                     connections.COUNTS["host_reads"]))
+        print('COMPLETED "Read backed phasing" of sample %s in %s hh:mm:ss'
+              % (args.sample,
+                 time.strftime("%H:%M:%S",
+                               time.gmtime(time.time() - start))))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

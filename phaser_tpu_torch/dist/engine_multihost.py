@@ -564,7 +564,8 @@ def run_phaser_sharded_threads(*, n_shards: int, vcf: str, bam: str,
             errors.append((sid, e))
             group.abort()
 
-    threads = [threading.Thread(target=worker, args=(s,), daemon=True)
+    from ..utils.trace import carry
+    threads = [threading.Thread(target=carry(worker), args=(s,), daemon=True)
                for s in range(n_shards)]
     for t in threads:
         t.start()

@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator, TypeVar
+from typing import Iterable, Iterator, Optional, TypeVar
+
+from . import trace
 
 T = TypeVar("T")
 
@@ -25,11 +27,14 @@ class _Failure:
         self.exc = exc
 
 
-def iter_prefetch(it: Iterable[T], depth: int = 2) -> Iterator[T]:
+def iter_prefetch(it: Iterable[T], depth: int = 2,
+                  parent: Optional[trace.Span] = None) -> Iterator[T]:
     """Iterate `it` on a daemon thread, yielding items through a bounded
     queue of `depth` in-flight items. Exceptions from the producer are
     re-raised at the consumer's next(); abandoning the iterator stops the
-    producer within one queue slot.
+    producer within one queue slot.  Each item the producer takes from
+    `it` is a `decode window` span on its thread, under `parent` (the
+    span the caller records the run in; None records nothing).
     """
     if depth < 1:
         raise ValueError("depth must be >= 1")
@@ -49,9 +54,15 @@ def iter_prefetch(it: Iterable[T], depth: int = 2) -> Iterator[T]:
 
     def _produce():
         try:
-            for item in it:
-                if not _put_stoppable(item):
-                    return
+            with trace.under(parent):
+                src = iter(it)
+                while True:
+                    with trace.span("decode window"):
+                        item = next(src, _SENTINEL)
+                    if item is _SENTINEL:
+                        break
+                    if not _put_stoppable(item):
+                        return
             _put_stoppable(_SENTINEL)
         except BaseException as exc:  # propagate to consumer
             _put_stoppable(_Failure(exc))

@@ -456,7 +456,9 @@ def test_dist_copy_matches_phaser_tpu(fx, tmp_path, monkeypatch, case):
 # the public surface: phaser_tpu's top-level public names that the port
 # leaves out on purpose.  The windowed fused programs and their planners
 # gave way to range joins that take no window (kernels/alleles.py); JAX's
-# compile cache has utils/build.py in its place.
+# compile cache has utils/build.py in its place; `device_section`, which
+# timed host-clock sections as device time, had no caller in the port (its
+# device seconds come from DeviceClock, its sections are spans).
 
 INTENDED_MISSING = {
     "kernels/alleles.py": [
@@ -465,6 +467,7 @@ INTENDED_MISSING = {
         "assign_compact_plane_windowed", "plan_windows_affine",
         "plan_windows_minmax"],
     "utils/jaxtune.py": "module",
+    "utils/trace.py": ["device_section"],
 }
 
 

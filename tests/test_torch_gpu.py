@@ -692,3 +692,87 @@ def test_lgamma_table_is_the_kernels_lgamma(cuda):
     assert table.numel() == S.LGAMMA_TABLE_SIZE
     assert torch.isfinite(table[1:]).all() and float(table[1]) == 0.0
     assert int((table != torch_lg).sum()) == mismatches
+
+
+def test_span_holds_the_kernel_it_waits_for(cuda, tmp_path):
+    """Under a profiler of CUDA activity only (the benchmark's), the kineto
+    state reads enabled on this thread, so a span records; a span around
+    torch.cuda._sleep and a synchronize holds the kernel: its interval in
+    the Chrome trace (ts + baseTimeNanoseconds) lies inside the span mapped
+    to unix time through its run's anchor, within 0.5 ms."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from phaser_tpu_torch.utils import trace
+    trace.clear_spans()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assert torch._C._autograd._profiler_enabled()
+        with trace.span("sleep") as sp:
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+    path = str(tmp_path / "t.json")
+    prof.export_chrome_trace(path)
+    data = json.load(open(path))
+    base = data["baseTimeNanoseconds"]
+    kernels = [e for e in data["traceEvents"] if e.get("cat") == "kernel"]
+    assert sp is not None and len(kernels) == 1, kernels
+    s = float(kernels[0]["ts"]) * 1e3 + base
+    e = s + float(kernels[0]["dur"]) * 1e3
+    lo, hi = trace.unix_interval(sp)
+    assert lo - 5e5 <= s and e <= hi + 5e5, (s - lo, hi - e)
+    assert e - s > 1e6
+    trace.clear_spans()
+
+
+def test_profile_dir_trace_of_a_run_on_the_card(cuda, tmp_path, monkeypatch):
+    """PHASER_TPU_PROFILE_DIR on the card: one Chrome trace a CLI run with
+    the card's operations (CUDA activity only, no CPU ops) and the run's
+    spans on the same axis; every device operation, and the longest idle
+    gap between two of them, falls under a named child of `phaser run`."""
+    import contextlib
+    import io
+    import json
+
+    from phaser_tpu_torch.cli import phaser_main
+    from phaser_tpu_torch.testing import datagen
+    from phaser_tpu_torch.utils import trace
+    vcf, bam, data = datagen.write_fixture_dir(
+        str(tmp_path), seed=51, contigs=("chr20",), contig_len=20000,
+        n_variants_per_contig=100, n_reads_per_contig=1500)
+    prof = tmp_path / "prof"
+    monkeypatch.setenv("PHASER_TPU_PROFILE_DIR", str(prof))
+    monkeypatch.setenv("PHASER_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    argv = ["--vcf", vcf, "--bam", bam, "--sample", data.sample,
+            "--mapq", "10", "--baseq", "10", "--paired_end", "1",
+            "--device", "cuda"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        for k in range(2):
+            assert phaser_main.main(argv + ["--o", str(tmp_path / "o")]) == 0
+    files = sorted(os.listdir(str(prof)))
+    assert len(files) == 2
+    ev = json.load(open(str(prof / files[-1])))["traceEvents"]
+    assert not any(e.get("cat") in ("cpu_op", "python_function")
+                   for e in ev)
+    dev = sorted((e for e in ev if e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset")),
+                 key=lambda e: float(e["ts"]))
+    spans = [e for e in ev if e.get("cat") == "phaser_span"]
+    run, = [e for e in spans if e["name"] == "phaser run"]
+    kids = [e for e in spans if e["args"]["parent"] == run["args"]["id"]]
+    assert dev and any(e["name"] == "#2 allele assignment" for e in kids)
+
+    def under(t):
+        return [e["name"] for e in kids
+                if e["ts"] <= t <= e["ts"] + e["dur"]]
+    for e in dev:
+        assert run["ts"] <= float(e["ts"]) <= run["ts"] + run["dur"], e
+    gaps = [(float(b["ts"]) - float(a["ts"]) - float(a["dur"]),
+             float(a["ts"]) + float(a["dur"]), float(b["ts"]))
+            for a, b in zip(dev, dev[1:])]
+    if gaps:
+        _, g0, g1 = max(gaps)
+        assert under(g0) or under(g1)
+    trace.clear_spans()

@@ -270,22 +270,57 @@ def test_entry_point_defaults_to_the_card(tmp_path, name):
 
 
 def test_profile_dir_hook_writes_a_torch_profiler_trace(tmp_path, monkeypatch):
-    """PHASER_TPU_PROFILE_DIR: a tracer captures a torch.profiler trace of
-    its run and writes it there as a Chrome trace; a second tracer alive at
-    the same time (a shard thread) does not start a nested profiler."""
+    """PHASER_TPU_PROFILE_DIR: a run's outermost span takes the process's
+    one trace and writes it there as a Chrome trace when it closes, holding
+    the spans of its tracer's stages (with a card, the card's own activity
+    beside them; never CPU ops); a second run alive at the same time (a
+    shard thread) with its own tracer nests no profiler and writes no
+    file of its own; once the variable is unset no file is written."""
     import json
+    import threading
 
+    from phaser_tpu_torch.utils import trace
     from phaser_tpu_torch.utils.trace import Tracer
-    monkeypatch.setenv("PHASER_TPU_PROFILE_DIR", str(tmp_path / "prof"))
-    first, second = Tracer(), Tracer()
-    assert first._profiler is not None and second._profiler is None
-    with first.stage("work"):
-        torch.arange(1000).sum()
-    second.finish()
-    first.finish()
-    traces = os.listdir(str(tmp_path / "prof"))
+    prof = tmp_path / "prof"
+    monkeypatch.setenv("PHASER_TPU_PROFILE_DIR", str(prof))
+    trace.clear_spans()
+
+    def second_run(seen):
+        with trace.root_span("phaser run"):
+            seen["profiler"] = torch._C._autograd._profiler_enabled()
+            second = Tracer()
+            with second.stage("#2 shard work"):
+                pass
+
+    seen = {}
+    with trace.root_span("phaser run"):
+        first = Tracer()
+        with first.stage("#1 work", "items"):
+            torch.arange(1000).sum()
+        first.add("#1 work", 3, "items")
+        t = threading.Thread(target=second_run, args=(seen,))
+        t.start()
+        t.join()
+        assert os.listdir(str(prof)) == []
+    assert seen == {"profiler": False}
+    traces = os.listdir(str(prof))
     assert len(traces) == 1 and traces[0].endswith(".json")
-    with open(str(tmp_path / "prof" / traces[0])) as fh:
-        assert json.load(fh)["traceEvents"]
+    with open(str(prof / traces[0])) as fh:
+        data = json.load(fh)
+    spans = {e["name"]: e for e in data["traceEvents"]
+             if e.get("cat") == "phaser_span"}
+    assert sorted(spans) == ["#1 work", "#2 shard work", "phaser run"]
+    assert spans["#1 work"]["args"]["items"] == 3
+    assert spans["#1 work"]["dur"] > 0
+    assert spans["#2 shard work"]["tid"] != spans["#1 work"]["tid"]
+    assert isinstance(data["baseTimeNanoseconds"], int)
+    assert not any(e.get("cat") in ("cpu_op", "python_function",
+                                    "user_annotation")
+                   for e in data["traceEvents"])
+    assert not torch._C._autograd._profiler_enabled()
     monkeypatch.delenv("PHASER_TPU_PROFILE_DIR")
-    assert Tracer()._profiler is None
+    with trace.root_span("phaser run") as sp:
+        with Tracer().stage("#1 work"):
+            pass
+    assert sp is None and os.listdir(str(prof)) == traces
+    trace.clear_spans()
