@@ -293,9 +293,11 @@ int64_t bgzf_compress_bound(int64_t size) {
 }
 
 // Compresses [data, data+size) as BGZF members into out (caller sizes via
-// bgzf_compress_bound). No EOF block. Returns compressed bytes or negative.
-int64_t bgzf_compress(const uint8_t* data, int64_t size, int level,
-                      uint8_t* out, int n_threads) {
+// bgzf_compress_bound). No EOF block. Returns compressed bytes or negative;
+// block_size, when given, receives each member's compressed size.
+static int64_t bgzf_compress_impl(const uint8_t* data, int64_t size,
+                                  int level, uint8_t* out, int n_threads,
+                                  int64_t* block_size) {
   int64_t nb = (size + kBgzfIn - 1) / kBgzfIn;
   if (size == 0) nb = 0;
   if (n_threads < 1) n_threads = 1;
@@ -360,8 +362,23 @@ int64_t bgzf_compress(const uint8_t* data, int64_t size, int level,
   for (int64_t i = 0; i < nb; i++) {
     memmove(out + off, scratch.data() + i * kBgzfSlot, block_len[(size_t)i]);
     off += block_len[(size_t)i];
+    if (block_size) block_size[i] = block_len[(size_t)i];
   }
   return off;
+}
+
+int64_t bgzf_compress(const uint8_t* data, int64_t size, int level,
+                      uint8_t* out, int n_threads) {
+  return bgzf_compress_impl(data, size, level, out, n_threads, nullptr);
+}
+
+// bgzf_compress, with each block's compressed size written to block_size
+// (one entry per 0xff00 input bytes): what a tabix index needs to place
+// the text's lines without reading the stream back.
+int64_t bgzf_compress_sized(const uint8_t* data, int64_t size, int level,
+                            uint8_t* out, int n_threads,
+                            int64_t* block_size) {
+  return bgzf_compress_impl(data, size, level, out, n_threads, block_size);
 }
 
 // ---------------------------------------------------------------------------
@@ -1451,6 +1468,444 @@ void read_spans_native(int64_t n, const int32_t* pos, const uint32_t* cigar,
     });
   }
   for (auto& th : threads) th.join();
+}
+
+// ---------------------------------------------------------------------------
+// Phased VCF writer (engine/vcf_writer.py).  vcf_scan classifies the lines
+// of the inflated input VCF and applies the contig and position filters;
+// vcf_emit writes every output line into one buffer: cut to columns 1-9 and
+// the sample's, FORMAT extended with phASER's tags, the lines that are not
+// phased tagged here, the phased ones copied from the caller.  Both follow
+// the Python writer's string operations exactly.  Where the text holds
+// anything on which Python's str.splitlines, int() or the tag logic could
+// act otherwise, vcf_scan returns a negative code and the caller runs the
+// Python writer.
+// ---------------------------------------------------------------------------
+
+enum : int8_t {
+  kVcfDrop = 0, kVcfHeader = 1, kVcfFormat = 2, kVcfChrom = 3,
+  kVcfBody = 4, kVcfBodyGt = 5
+};
+
+// `cut -f 1-9,<sample_col + 1>` of the line [s, e): tab[k] is the tab that
+// ends column k (k < n_tabs <= 9); the cut line is [s, a_end) and, where
+// the line has column sample_col and sample_col >= 9, a tab and [b_s, b_e).
+struct VcfCut {
+  int64_t tab[9];
+  int n_tabs;
+  int64_t a_end, b_s, b_e;
+};
+
+static void vcf_cut(const uint8_t* t, int64_t s, int64_t e,
+                    int32_t sample_col, VcfCut* c) {
+  c->n_tabs = 0;
+  c->a_end = e;
+  c->b_s = c->b_e = -1;
+  int64_t p = s;
+  while (c->n_tabs < 9) {
+    const uint8_t* q = (const uint8_t*)memchr(t + p, '\t', (size_t)(e - p));
+    if (!q) return;
+    c->tab[c->n_tabs++] = q - t;
+    p = (q - t) + 1;
+  }
+  c->a_end = c->tab[8];
+  if (sample_col < 9) return;
+  for (int32_t col = 9; col < sample_col; col++) {
+    const uint8_t* q = (const uint8_t*)memchr(t + p, '\t', (size_t)(e - p));
+    if (!q) return;
+    p = (q - t) + 1;
+  }
+  const uint8_t* q = (const uint8_t*)memchr(t + p, '\t', (size_t)(e - p));
+  c->b_s = p;
+  c->b_e = q ? q - t : e;
+}
+
+static bool vcf_has(const uint8_t* t, int64_t a, int64_t b, const char* pat,
+                    size_t n) {
+  return b - a >= (int64_t)n &&
+         memmem(t + a, (size_t)(b - a), pat, n) != nullptr;
+}
+
+// pat in the cut line (no pattern holds a tab, so none spans the two parts)
+static bool vcf_cut_has(const uint8_t* t, int64_t s, const VcfCut& c,
+                        const char* pat, size_t n) {
+  return vcf_has(t, s, c.a_end, pat, n) ||
+         (c.b_s >= 0 && vcf_has(t, c.b_s, c.b_e, pat, n));
+}
+
+static void vcf_put_cut(std::string* o, const uint8_t* t, int64_t s,
+                        const VcfCut& c) {
+  o->append((const char*)t + s, (size_t)(c.a_end - s));
+  if (c.b_s >= 0) {
+    o->push_back('\t');
+    o->append((const char*)t + c.b_s, (size_t)(c.b_e - c.b_s));
+  }
+}
+
+// int() of [a, b) when it is 1-18 ASCII digits, else -1
+static int64_t vcf_digits(const uint8_t* t, int64_t a, int64_t b) {
+  if (b <= a || b - a > 18) return -1;
+  int64_t v = 0;
+  for (int64_t i = a; i < b; i++) {
+    uint8_t d = (uint8_t)(t[i] - '0');
+    if (d > 9) return -1;
+    v = v * 10 + d;
+  }
+  return v;
+}
+
+// Python's s.split(sep) of [a, b) as spans
+static void vcf_split(const uint8_t* t, int64_t a, int64_t b, uint8_t sep,
+                      std::vector<std::pair<int64_t, int64_t>>* out) {
+  out->clear();
+  int64_t p = a;
+  while (true) {
+    const uint8_t* q = (const uint8_t*)memchr(t + p, sep, (size_t)(b - p));
+    int64_t x = q ? q - t : b;
+    out->emplace_back(p, x);
+    if (!q) return;
+    p = x + 1;
+  }
+}
+
+// Lines of t[0, n) as str.splitlines() gives them: kind, [lstart, lend)
+// (no '\n'), and for body lines POS and cols[5 i + k], the offset from the
+// line's start of the tab that ends column k (CHROM, POS, ID, REF, ALT).
+// A body line is dropped unless its contig is one of the n_contigs names
+// (contig_buf[contig_off[k], contig_off[k + 1])), when n_contigs >= 0, and,
+// with use_ranges, POS - 1 lies in one of its ranges
+// [rng_lo[r], rng_hi[r]), r in [rng_off[k], rng_off[k + 1]).  Returns the
+// number of lines, or negative: -1 a byte Python would split or decode
+// otherwise, -2 a line over 2 GiB, -3 a line the Python writer parses
+// otherwise or fails on, -4 more than cap lines.
+int64_t vcf_scan(const uint8_t* t, int64_t n, int32_t sample_col,
+                 int64_t n_contigs, const uint8_t* contig_buf,
+                 const int64_t* contig_off, int32_t use_ranges,
+                 const int64_t* rng_off, const int64_t* rng_lo,
+                 const int64_t* rng_hi, int64_t cap, int8_t* kind,
+                 int64_t* lstart, int64_t* lend, int64_t* pos,
+                 int32_t* cols) {
+  for (int64_t i = 0; i < n; i++) {
+    uint8_t b = t[i];
+    if (b >= 0x80 || b == '\r' || b == 0x0b || b == 0x0c ||
+        (b >= 0x1c && b <= 0x1e))
+      return -1;
+  }
+  std::unordered_map<std::string, int64_t> contigs;
+  for (int64_t k = 0; k < n_contigs; k++)
+    contigs[std::string((const char*)contig_buf + contig_off[k],
+                        (size_t)(contig_off[k + 1] - contig_off[k]))] = k;
+  int64_t prev_s = -1, prev_len = 0, prev_k = -1;
+  int64_t n_lines = 0;
+  for (int64_t s = 0; s < n;) {
+    const uint8_t* nl = (const uint8_t*)memchr(t + s, '\n', (size_t)(n - s));
+    int64_t e = nl ? nl - t : n;
+    int64_t next = e + 1;
+    if (n_lines >= cap) return -4;
+    if (e - s > INT32_MAX) return -2;
+    int64_t i = n_lines++;
+    kind[i] = kVcfDrop;
+    lstart[i] = s;
+    lend[i] = e;
+    pos[i] = -1;
+    VcfCut c;
+    if (e > s && t[s] == '#') {
+      vcf_cut(t, s, e, sample_col, &c);
+      if (vcf_cut_has(t, s, c, "##FORMAT", 8)) {
+        kind[i] = kVcfFormat;
+      } else if (e - s >= 6 && memcmp(t + s, "#CHROM", 6) == 0) {
+        if (c.b_s < 0) return -3;
+        kind[i] = kVcfChrom;
+      } else {
+        kind[i] = kVcfHeader;
+      }
+      s = next;
+      continue;
+    }
+    s = next;
+    if (n_contigs >= 0) {
+      const uint8_t* t0 = (const uint8_t*)memchr(t + lstart[i], '\t',
+                                                 (size_t)(e - lstart[i]));
+      int64_t c_end = t0 ? t0 - t : e;
+      int64_t len = c_end - lstart[i], k;
+      if (prev_s >= 0 && len == prev_len &&
+          memcmp(t + lstart[i], t + prev_s, (size_t)len) == 0) {
+        k = prev_k;
+      } else {
+        auto it = contigs.find(std::string((const char*)t + lstart[i],
+                                           (size_t)len));
+        k = it == contigs.end() ? -1 : it->second;
+        prev_s = lstart[i];
+        prev_len = len;
+        prev_k = k;
+      }
+      if (k < 0) continue;
+      if (use_ranges) {
+        if (!t0) return -3;
+        const uint8_t* t1 = (const uint8_t*)memchr(t0 + 1, '\t',
+                                                   (size_t)(e - c_end - 1));
+        if (!t1) return -3;
+        int64_t p = vcf_digits(t, c_end + 1, t1 - t);
+        if (p < 0) return -3;
+        bool in = false;
+        for (int64_t r = rng_off[k]; r < rng_off[k + 1] && !in; r++)
+          in = rng_lo[r] <= p - 1 && p - 1 < rng_hi[r];
+        if (!in) continue;
+      }
+    }
+    vcf_cut(t, lstart[i], e, sample_col, &c);
+    if (c.b_s < 0) return -3;
+    if (vcf_cut_has(t, lstart[i], c, "##FORMAT", 8)) return -3;
+    int64_t p = vcf_digits(t, c.tab[0] + 1, c.tab[1]);
+    if (p < 0) return -3;
+    pos[i] = p;
+    for (int k = 0; k < 5; k++) cols[5 * i + k] = (int32_t)(c.tab[k] - lstart[i]);
+    int64_t fa = c.tab[7] + 1, fb = c.tab[8];
+    if (vcf_has(t, fa, fb, "GT", 2)) {
+      // the writer's FORMAT.split(":").index("GT") fails without a GT field
+      std::vector<std::pair<int64_t, int64_t>> fields;
+      vcf_split(t, fa, fb, ':', &fields);
+      bool gt = false;
+      for (auto& f : fields)
+        gt |= f.second - f.first == 2 && t[f.first] == 'G' &&
+              t[f.first + 1] == 'T';
+      if (!gt) return -3;
+      kind[i] = kVcfBodyGt;
+    } else {
+      kind[i] = kVcfBody;
+    }
+  }
+  return n_lines;
+}
+
+// the FORMAT fields the writer adds, in the order it appends them
+static const char* const kVcfTags[6] = {"PG", "PB", "PI", "PW", "PC", "PM"};
+
+struct VcfFormat {
+  int gt, n_fields, n_out;
+  int tag[6];
+  std::string out;
+};
+
+static const VcfFormat& vcf_format(
+    std::unordered_map<std::string, VcfFormat>* cache, const uint8_t* t,
+    int64_t a, int64_t b) {
+  std::string key((const char*)t + a, (size_t)(b - a));
+  auto it = cache->find(key);
+  if (it != cache->end()) return it->second;
+  std::vector<std::pair<int64_t, int64_t>> spans;
+  vcf_split(t, a, b, ':', &spans);
+  std::vector<std::string> f;
+  for (auto& sp : spans)
+    f.emplace_back((const char*)t + sp.first, (size_t)(sp.second - sp.first));
+  VcfFormat v;
+  v.n_fields = (int)f.size();
+  v.gt = (int)(std::find(f.begin(), f.end(), std::string("GT")) - f.begin());
+  for (const char* tag : kVcfTags)
+    if (std::find(f.begin(), f.end(), std::string(tag)) == f.end())
+      f.emplace_back(tag);
+  for (int k = 0; k < 6; k++)
+    v.tag[k] = (int)(std::find(f.begin(), f.end(), std::string(kVcfTags[k])) -
+                     f.begin());
+  v.n_out = (int)f.size();
+  for (size_t j = 0; j < f.size(); j++) {
+    if (j) v.out.push_back(':');
+    v.out += f[j];
+  }
+  return cache->emplace(key, v).first->second;
+}
+
+struct VcfOut {
+  std::string text[2];  // [0] header lines (when split), [1] the rest
+};
+
+// Writes the output lines of vcf_scan's lines, each ending in '\n', to
+// text[1] (header lines to text[0] when split).  A #CHROM line is preceded
+// by each of the n_extra header lines extra[extra_off[k], extra_off[k + 1])
+// whose start up to its first ',' (`##FORMAT=<ID=XX,`) no ##FORMAT line
+// before it held.  The GT lines repl_line[r] (ascending) are written as
+// repl_buf[repl_off[r], repl_off[r + 1]); every other GT line is tagged:
+// PG = the GT's characters less its first '|' and first '/', sorted and
+// joined by '/', PW = the GT, PB, PI, PM and PC '.'.  counts[0] gets the
+// body lines written here, counts[1] those copied from repl_buf.
+void* vcf_emit(const uint8_t* t, int64_t n_lines, const int8_t* kind,
+               const int64_t* lstart, const int64_t* lend,
+               int32_t sample_col, int32_t n_extra, const uint8_t* extra,
+               const int64_t* extra_off, int32_t split, int64_t n_repl,
+               const int64_t* repl_line, const int64_t* repl_off,
+               const uint8_t* repl_buf, int64_t* counts) {
+  VcfOut* out = new VcfOut();
+  std::string* hdr = &out->text[split ? 0 : 1];
+  std::string* body = &out->text[1];
+  std::vector<std::string> pattern;
+  for (int32_t k = 0; k < n_extra; k++) {
+    const char* a = (const char*)extra + extra_off[k];
+    const char* b = (const char*)extra + extra_off[k + 1];
+    const char* comma = std::find(a, b, ',');
+    pattern.emplace_back(a, comma == b ? b : comma + 1);
+  }
+  std::vector<char> seen((size_t)n_extra, 0);
+  std::unordered_map<std::string, VcfFormat> formats;
+  const VcfFormat* last = nullptr;
+  int64_t last_a = 0, last_len = 0;
+  std::vector<std::pair<int64_t, int64_t>> fs;
+  std::string pg;
+  int64_t r = 0;
+  counts[0] = counts[1] = 0;
+  for (int64_t i = 0; i < n_lines; i++) {
+    int8_t k = kind[i];
+    if (k == kVcfDrop) continue;
+    int64_t s = lstart[i], e = lend[i];
+    VcfCut c;
+    vcf_cut(t, s, e, sample_col, &c);
+    if (k == kVcfHeader || k == kVcfFormat) {
+      if (k == kVcfFormat)
+        for (int32_t x = 0; x < n_extra; x++)
+          seen[x] |= vcf_cut_has(t, s, c, pattern[x].data(),
+                                 pattern[x].size());
+      vcf_put_cut(hdr, t, s, c);
+      hdr->push_back('\n');
+      continue;
+    }
+    if (k == kVcfChrom) {
+      for (int32_t x = 0; x < n_extra; x++)
+        if (!seen[x]) {
+          hdr->append((const char*)extra + extra_off[x],
+                      (size_t)(extra_off[x + 1] - extra_off[x]));
+          hdr->push_back('\n');
+        }
+      vcf_put_cut(hdr, t, s, c);
+      hdr->push_back('\n');
+      continue;
+    }
+    if (r < n_repl && repl_line[r] == i) {
+      body->append((const char*)repl_buf + repl_off[r],
+                   (size_t)(repl_off[r + 1] - repl_off[r]));
+      body->push_back('\n');
+      r++;
+      counts[1]++;
+      continue;
+    }
+    counts[0]++;
+    if (k == kVcfBody) {
+      vcf_put_cut(body, t, s, c);
+      body->push_back('\n');
+      continue;
+    }
+    // FORMAT strings repeat line after line: look one up when it changes
+    int64_t fa = c.tab[7] + 1, fl = c.tab[8] - fa;
+    if (!last || fl != last_len || memcmp(t + fa, t + last_a, (size_t)fl)) {
+      last = &vcf_format(&formats, t, fa, c.tab[8]);
+      last_a = fa;
+      last_len = fl;
+    }
+    const VcfFormat& f = *last;
+    body->append((const char*)t + s, (size_t)(c.tab[7] + 1 - s));
+    body->append(f.out);
+    body->push_back('\t');
+    // the sample column padded with ':' to FORMAT's field count
+    vcf_split(t, c.b_s, c.b_e, ':', &fs);
+    while ((int)fs.size() < f.n_fields) fs.emplace_back(0, 0);
+    int64_t ga = fs[f.gt].first, gb = fs[f.gt].second;
+    pg.assign((const char*)t + ga, (size_t)(gb - ga));
+    size_t bar = pg.find('|');
+    if (bar != std::string::npos) pg.erase(bar, 1);
+    size_t slash = pg.find('/');
+    if (slash != std::string::npos) pg.erase(slash, 1);
+    std::sort(pg.begin(), pg.end(), [](char x, char y) {
+      return (uint8_t)x < (uint8_t)y;
+    });
+    int n_o = std::max((int)fs.size(), f.n_out);
+    for (int j = 0; j < n_o; j++) {
+      if (j) body->push_back(':');
+      int tag = -1;
+      for (int x = 0; x < 6; x++)
+        if (f.tag[x] == j) tag = x;
+      if (tag == 0) {
+        for (size_t q = 0; q < pg.size(); q++) {
+          if (q) body->push_back('/');
+          body->push_back(pg[q]);
+        }
+      } else if (tag == 3) {
+        body->append((const char*)t + ga, (size_t)(gb - ga));
+      } else if (tag >= 0) {
+        body->push_back('.');
+      } else if (j < (int)fs.size()) {
+        body->append((const char*)t + fs[j].first,
+                     (size_t)(fs[j].second - fs[j].first));
+      }
+    }
+    body->push_back('\n');
+  }
+  return out;
+}
+
+int64_t vcf_emit_size(void* h, int32_t which) {
+  return (int64_t)((VcfOut*)h)->text[which].size();
+}
+
+const uint8_t* vcf_emit_data(void* h, int32_t which) {
+  return (const uint8_t*)((VcfOut*)h)->text[which].data();
+}
+
+void vcf_emit_free(void* h) { delete (VcfOut*)h; }
+
+// The records of a bgzipped VCF's text as io/tabix.py's build_text_index
+// reads them: lines split on '\n', empty ones and those starting with '#'
+// skipped.  A record's contig is its first column (tid in order of first
+// appearance; name_start / name_len of each tid), its span
+// [POS - 1, POS - 1 + len(REF)) with REF the fourth column ("N" when the
+// line has fewer), ustart its line's start and uend one past the line's
+// '\n' (or its end).  Returns the number of records, -1 where a POS is not
+// 1-18 ASCII digits, -4 more than cap records.
+int64_t vcf_tbx_scan(const uint8_t* t, int64_t n, int64_t cap, int32_t* tid,
+                     int64_t* beg, int64_t* end, int64_t* ustart,
+                     int64_t* uend, int64_t* name_start, int64_t* name_len) {
+  std::unordered_map<std::string, int32_t> names;
+  int64_t prev_s = -1, prev_len = 0;
+  int32_t prev_t = -1, n_names = 0;
+  int64_t m = 0;
+  for (int64_t s = 0; s < n;) {
+    const uint8_t* nl = (const uint8_t*)memchr(t + s, '\n', (size_t)(n - s));
+    int64_t e = nl ? nl - t : n;
+    int64_t ls = s;
+    s = e + 1;
+    if (e == ls || t[ls] == '#') continue;
+    if (m >= cap) return -4;
+    int64_t tab[4];
+    int n_tabs = 0;
+    for (int64_t p = ls; n_tabs < 4;) {
+      const uint8_t* q = (const uint8_t*)memchr(t + p, '\t', (size_t)(e - p));
+      if (!q) break;
+      tab[n_tabs++] = q - t;
+      p = (q - t) + 1;
+    }
+    if (n_tabs < 1) return -1;
+    int64_t p1 = vcf_digits(t, tab[0] + 1, n_tabs > 1 ? tab[1] : e);
+    if (p1 < 0) return -1;
+    int64_t ref_len = n_tabs < 3 ? 1 : (n_tabs > 3 ? tab[3] : e) - tab[2] - 1;
+    int64_t len = tab[0] - ls;
+    if (!(prev_s >= 0 && len == prev_len &&
+          memcmp(t + ls, t + prev_s, (size_t)len) == 0)) {
+      std::string key((const char*)t + ls, (size_t)len);
+      auto it = names.find(key);
+      if (it == names.end()) {
+        name_start[n_names] = ls;
+        name_len[n_names] = len;
+        it = names.emplace(key, n_names++).first;
+      }
+      prev_t = it->second;
+      prev_s = ls;
+      prev_len = len;
+    }
+    tid[m] = prev_t;
+    beg[m] = p1 - 1;
+    end[m] = p1 - 1 + ref_len;
+    ustart[m] = ls;
+    uend[m] = e + 1;
+    m++;
+  }
+  return m;
 }
 
 }  // extern "C"

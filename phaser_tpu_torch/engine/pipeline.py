@@ -45,6 +45,7 @@ from ..mapper.dispatch import (AUTO_ON_CARD, assign_alleles_auto,
                                stage_device)
 from ..utils import trace
 from ..utils.trace import Tracer
+from .vcf_writer import COUNTS as VCF_COUNTS
 from .vcf_writer import write_phased_vcf
 
 
@@ -143,6 +144,12 @@ def _assign_counts() -> Dict[str, int]:
                                  "uploads_pinned")}
     out.update(("launches_" + k, v) for k, v in LAUNCHES.items())
     return out
+
+
+def _vcf_counts() -> Dict[str, int]:
+    """The writer's counters that a `#7 vcf write` span records the
+    increase of: body lines written natively and formatted in Python."""
+    return dict(VCF_COUNTS)
 
 
 def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
@@ -780,7 +787,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
                                        for c in decode_order}
                     vcf_chrom = (",".join(decode_order)
                                  if decode_order else "\x00none")
-                with tracer.stage("#7 vcf write", "lines"):
+                with tracer.stage("#7 vcf write", "lines", _vcf_counts):
                     res.unphased_phased, res.phase_corrections = \
                         write_phased_vcf(
                             vcf, sample_column, o, vcf_chrom, merged, opts,
@@ -794,7 +801,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
                         vt = vr.vt
                         for i, uid in enumerate(vt.unique_ids):
                             rsid_lookup[uid] = vt.rsids_out[i]
-                with tracer.stage("#7 vcf write", "lines"):
+                with tracer.stage("#7 vcf write", "lines", _vcf_counts):
                     # contig-sharded runs: the per-shard VCF body carries
                     # ONLY owned contigs
                     vcf_chrom = (",".join(own_order)

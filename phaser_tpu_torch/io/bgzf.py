@@ -292,17 +292,10 @@ def compress_bytes(data, level: int = 6, eof: bool = True) -> bytes:
         data = data.encode()
     lib = native_mod.get_lib()
     if lib is not None and hasattr(lib, "bgzf_compress"):
-        import ctypes
-        import os as _os
         arr = _np.frombuffer(data, _np.uint8) if not isinstance(
             data, _np.ndarray) else data
-        out = _np.empty(int(lib.bgzf_compress_bound(len(arr))), _np.uint8)
-        got = lib.bgzf_compress(
-            arr.ctypes.data_as(ctypes.c_void_p), len(arr), level,
-            out.ctypes.data_as(ctypes.c_void_p),
-            min(_os.cpu_count() or 1, 8))
-        if got >= 0:
-            body = out[:got].tobytes()
+        body = _native_compress(lib, arr, level)
+        if body is not None:
             return body + BGZF_EOF if eof else body
     parts = []
     data = bytes(data)
@@ -311,6 +304,41 @@ def compress_bytes(data, level: int = 6, eof: bool = True) -> bytes:
     if eof:
         parts.append(BGZF_EOF)
     return b"".join(parts)
+
+
+def _native_compress(lib, arr, level: int, sizes=None):
+    """The native compressor's blocks of the uint8 array arr (no EOF
+    block), None on failure; `sizes`, an int64 array of one entry per
+    block, receives their compressed sizes."""
+    import ctypes
+    import numpy as _np
+    ptr = ctypes.c_void_p
+    out = _np.empty(int(lib.bgzf_compress_bound(len(arr))), _np.uint8)
+    args = (arr.ctypes.data_as(ptr), len(arr), level, out.ctypes.data_as(ptr),
+            min(os.cpu_count() or 1, 8))
+    got = lib.bgzf_compress(*args) if sizes is None else \
+        lib.bgzf_compress_sized(*args, sizes.ctypes.data_as(ptr))
+    return out[:got].tobytes() if got >= 0 else None
+
+
+def compress_sized(arr, level: int = 6):
+    """(compress_bytes(arr, level), compressed sizes, payload sizes) of
+    the uint8 array arr, the sizes of every block the stream holds, the EOF
+    block last: what places a line in the stream without reading it back.
+    Needs the native library."""
+    from . import native as native_mod
+    import numpy as _np
+    n_blocks = -(-len(arr) // MAX_BLOCK_PAYLOAD)
+    csizes = _np.zeros(n_blocks + 1, _np.int64)
+    body = _native_compress(native_mod.get_lib(), arr, level, csizes)
+    if body is None:
+        raise BgzfError("native BGZF compression failed")
+    csizes[-1] = len(BGZF_EOF)
+    usizes = _np.full(n_blocks + 1, MAX_BLOCK_PAYLOAD, _np.int64)
+    usizes[-1] = 0
+    if n_blocks:
+        usizes[-2] = len(arr) - (n_blocks - 1) * MAX_BLOCK_PAYLOAD
+    return body + BGZF_EOF, csizes, usizes
 
 
 def compress_to_path(data: bytes, path: str, level: int = 6) -> None:

@@ -69,6 +69,26 @@ def _declare(lib) -> None:
     lib.bgzf_compress.restype = c.c_int64
     lib.bgzf_compress.argtypes = [c.c_void_p, c.c_int64, c.c_int,
                                   c.c_void_p, c.c_int]
+    lib.bgzf_compress_sized.restype = c.c_int64
+    lib.bgzf_compress_sized.argtypes = [c.c_void_p, c.c_int64, c.c_int,
+                                        c.c_void_p, c.c_int, c.c_void_p]
+    lib.vcf_scan.restype = c.c_int64
+    lib.vcf_scan.argtypes = [c.c_void_p, c.c_int64, c.c_int32, c.c_int64,
+                             c.c_void_p, c.c_void_p, c.c_int32] + \
+        [c.c_void_p] * 3 + [c.c_int64] + [c.c_void_p] * 5
+    lib.vcf_emit.restype = c.c_void_p
+    lib.vcf_emit.argtypes = [c.c_void_p, c.c_int64] + [c.c_void_p] * 3 + \
+        [c.c_int32, c.c_int32, c.c_void_p, c.c_void_p, c.c_int32,
+         c.c_int64] + [c.c_void_p] * 4
+    lib.vcf_emit_size.restype = c.c_int64
+    lib.vcf_emit_size.argtypes = [c.c_void_p, c.c_int32]
+    lib.vcf_emit_data.restype = c.c_void_p
+    lib.vcf_emit_data.argtypes = [c.c_void_p, c.c_int32]
+    lib.vcf_emit_free.restype = None
+    lib.vcf_emit_free.argtypes = [c.c_void_p]
+    lib.vcf_tbx_scan.restype = c.c_int64
+    lib.vcf_tbx_scan.argtypes = [c.c_void_p, c.c_int64, c.c_int64] + \
+        [c.c_void_p] * 7
     lib.bam_scan_v2.restype = c.c_int64
     lib.bam_scan_v2.argtypes = [c.c_void_p, c.c_int64, c.c_void_p,
                                 c.c_void_p, c.c_void_p, c.c_void_p]

@@ -186,6 +186,99 @@ def build_text_index(vcf_gz_path: str, tbi_path: Optional[str] = None,
     b.write(tbi_path or vcf_gz_path + ".tbi")
 
 
+def vcf_index_from_text(text, csizes, usizes) -> bytes:
+    """The .tbi, uncompressed, that build_vcf_index writes for a bgzipped
+    VCF, from the VCF's text (a uint8 array) and the compressed and payload
+    size of each of its blocks, the EOF block last (`bgzf.compress_sized`),
+    without reading the file back: the same names, bins, chunks and linear
+    index, byte for byte.  Needs the native library."""
+    import numpy as np
+
+    tid, beg, end, ustart, uend, names = _vcf_records(text)
+    csizes = np.asarray(csizes, np.int64)
+    usizes = np.asarray(usizes, np.int64)
+    coff = np.cumsum(csizes) - csizes
+    uends = np.cumsum(usizes)
+
+    def uoff2voff(u):
+        # build_text_index's bisect: a block's end maps to the next block
+        bi = np.minimum(np.searchsorted(uends, u, side="right"),
+                        len(uends) - 1)
+        return (coff[bi] << 16) | (u - (uends[bi] - usizes[bi]))
+
+    vbeg, vend = uoff2voff(ustart), uoff2voff(uend)
+    b = TabixIndexBuilder(names)
+    if not len(beg) or beg.min() < 0:
+        # (a POS of 0 sends the builder's window loop to negative windows:
+        # replay it record by record)
+        for rec in zip(tid.tolist(), beg.tolist(), end.tolist(),
+                       vbeg.tolist(), vend.tolist()):
+            b.add(*rec)
+        return b.tobytes()
+    bins = _reg2bin_vec(beg, end)
+    # chunks: records of one bin in file order, merged where one ends at
+    # the next one's start (TabixIndexBuilder.add)
+    order = np.lexsort((np.arange(len(tid)), bins, tid))
+    t_s, b_s, vb_s, ve_s = tid[order], bins[order], vbeg[order], vend[order]
+    new = np.ones(len(order), bool)
+    new[1:] = ((t_s[1:] != t_s[:-1]) | (b_s[1:] != b_s[:-1]) |
+               (vb_s[1:] != ve_s[:-1]))
+    starts = np.flatnonzero(new)
+    stops = np.append(starts[1:], len(order)) - 1
+    for t, bn, cb, ce in zip(t_s[starts].tolist(), b_s[starts].tolist(),
+                             vb_s[starts].tolist(), ve_s[stops].tolist()):
+        b._bins[t].setdefault(bn, []).append([cb, ce])
+    # linear index: each 16 KiB window a record touches takes the first
+    # nonzero start, in file order, of the records touching it
+    w0 = beg >> _MIN_SHIFT
+    w1 = np.maximum(beg, end - 1) >> _MIN_SHIFT
+    span = w1 - w0 + 1
+    rec = np.repeat(np.arange(len(tid)), span)
+    win = w0[rec] + np.arange(len(rec)) - np.repeat(np.cumsum(span) - span,
+                                                    span)
+    keep = vbeg[rec] != 0
+    rec, win = rec[keep], win[keep]
+    order = np.lexsort((np.arange(len(rec)), win, tid[rec]))
+    t_o, w_o, r_o = tid[rec][order], win[order], rec[order]
+    first = np.ones(len(order), bool)
+    first[1:] = (t_o[1:] != t_o[:-1]) | (w_o[1:] != w_o[:-1])
+    t_f, w_f, v_f = t_o[first], w_o[first], vbeg[r_o[first]]
+    n_win = np.zeros(len(names), np.int64)
+    np.maximum.at(n_win, tid, w1 + 1)
+    bounds = np.searchsorted(t_f, np.arange(len(names) + 1))
+    for t in range(len(names)):
+        lin = np.zeros(int(n_win[t]), np.int64)
+        lin[w_f[bounds[t]:bounds[t + 1]]] = v_f[bounds[t]:bounds[t + 1]]
+        b._linear[t] = lin.tolist()
+    return b.tobytes()
+
+
+def _vcf_records(text):
+    """(tid, beg, end, ustart, uend, names) of the VCF text's records as
+    build_text_index reads them (`vcf_tbx_scan`): line starts and one past
+    their ends, contigs in order of first appearance."""
+    import ctypes
+
+    import numpy as np
+
+    from . import native as native_mod
+    text = np.asarray(text, np.uint8)
+    cap = int(np.count_nonzero(text == 10)) + 1
+    tid = np.empty(cap, np.int32)
+    cols = [np.empty(cap, np.int64) for _ in range(6)]
+    ptr = ctypes.c_void_p
+    n = native_mod.get_lib().vcf_tbx_scan(
+        text.ctypes.data_as(ptr), len(text), cap, tid.ctypes.data_as(ptr),
+        *[c.ctypes.data_as(ptr) for c in cols])
+    if n < 0:
+        raise ValueError("a VCF record's POS is not a plain number")
+    beg, end, ustart, uend, nstart, nlen = (c[:n] for c in cols)
+    n_names = int(tid[:n].max()) + 1 if n else 0
+    names = [text[a:a + k].tobytes().decode() for a, k in
+             zip(nstart[:n_names].tolist(), nlen[:n_names].tolist())]
+    return tid[:n].astype(np.int64), beg, end, ustart, uend, names
+
+
 CSI_MAGIC = b"CSI\x01"
 
 

@@ -235,6 +235,32 @@ def test_cli_run_leaves_a_tree_that_covers_the_pass(fixture_files, tmp_path):
         assert sp.items > 0
 
 
+def test_vcf_write_span_holds_the_writer_phases_and_line_counts(
+        fixture_files, tmp_path):
+    """`#7 vcf write` holds the native writer's six phases, in order, as
+    its children; its counters say how many body lines the native emit
+    wrote and how many phased ones Python formatted: together the body
+    lines of the .vcf.gz."""
+    from phaser_tpu_torch.io import bgzf
+    out = str(tmp_path / "o")
+    _, spans, _ = _traced_cli_run(fixture_files, out)
+    stage, = _by_name(spans, "#7 vcf write")
+    kids = sorted((s for s in spans if s.parent == stage.id),
+                  key=lambda s: s.start_ns)
+    assert [s.name for s in kids] == [
+        "vcf inflate", "vcf scan", "vcf phased", "vcf emit", "vcf compress",
+        "vcf index"]
+    assert stage.start_ns <= kids[0].start_ns
+    assert kids[-1].end_ns <= stage.end_ns
+    for a, b in zip(kids, kids[1:]):
+        assert a.end_ns <= b.start_ns, (a, b)
+    text = bgzf.decompress_all(open(out + ".vcf.gz", "rb").read()).decode()
+    n_body = sum(not line.startswith("#") for line in text.splitlines())
+    counts = stage.counts
+    assert counts["lines_native"] > 0 and counts["lines_python"] > 0
+    assert counts["lines_native"] + counts["lines_python"] == n_body
+
+
 def test_streaming_decode_windows_on_the_prefetch_thread(
         fixture_files, tmp_path, monkeypatch):
     """Above the streaming threshold the windows decode on the prefetch
