@@ -136,13 +136,15 @@ def _index_skip_plan(xbam: str, contig_order, tables, log):
 
 
 def _assign_counts() -> Dict[str, int]:
-    """The dispatcher's and the allele kernels' counters that a
-    `#2 allele assignment` span records the increase of."""
+    """The dispatcher's and the allele kernels' counters that the
+    `#2 allele assignment` spans record the increase of, and the
+    `#2 hit resolve` spans, where an overflowed chunk is relaunched."""
     from ..kernels.alleles import LAUNCHES
-    from ..mapper.dispatch import STATS
+    from ..mapper.dispatch import RELAUNCHES, STATS
     out = {k: STATS[k] for k in ("rows_in", "rows_kept", "uploads",
-                                 "uploads_pinned")}
+                                 "uploads_pinned", "stager_waits")}
     out.update(("launches_" + k, v) for k, v in LAUNCHES.items())
+    out["relaunches_capacity"] = RELAUNCHES["capacity"]
     return out
 
 
@@ -462,13 +464,16 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
                     % (usize / 1e9))
                 # windows decode on the prefetch thread; the critical
                 # path pays the wait for each, timed as the decode stage
-                from ..utils.prefetch import iter_prefetch
+                # (its spans count `stream_waits`)
+                from ..utils.prefetch import consumer_counts, iter_prefetch
                 windows = iter_prefetch(bamio.iter_bam_stream(xbam),
                                         depth=2,
-                                        parent=trace.current_span())
+                                        parent=trace.current_span(),
+                                        counters=bamio.stream_counts)
                 try:
                     while True:
-                        with tracer.stage("#2 bam decode", "reads"):
+                        with tracer.stage("#2 bam decode", "reads",
+                                          consumer_counts):
                             bd = next(windows, None)
                         if bd is None:
                             break
@@ -490,7 +495,7 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
         # program to finish BEFORE the first device->host fetch (the fetch
         # drops the device link into slow dispatch mode), then fetch + merge
         # each chunk's hits and collect the per-BAM alignment scores
-        with tracer.stage("#2 hit resolve", "hits"):
+        with tracer.stage("#2 hit resolve", "hits", _assign_counts):
             from ..mapper.dispatch import resolve_all
             flat = [(c, ei) for c in contig_order
                     for ei in range(len(per_contig_bam_hits[c]))]

@@ -16,6 +16,7 @@ with the same array contract.
 from __future__ import annotations
 
 import struct
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -475,13 +476,26 @@ def _read_bam_native(raw: bytes, n_threads: int = 0) -> Optional[BamData]:
     return bd
 
 
+_stream_tls = threading.local()
+
+
+def stream_counts() -> Dict[str, int]:
+    """What `iter_bam_stream` has done on the calling thread: records
+    yielded (`reads`), compressed bytes taken (`bytes_in`) and bytes they
+    inflated to (`bytes_out`).  Over a whole file the three are its
+    records, its size and its uncompressed size."""
+    return dict(zip(("reads", "bytes_in", "bytes_out"),
+                    getattr(_stream_tls, "counts", (0, 0, 0))))
+
+
 def iter_bam_stream(path: str, window_bytes: int = 256 * 1024 * 1024,
                     n_threads: int = 0):
     """Stream a BAM in bounded-memory windows of whole records.
 
     Yields BamData chunks (sharing ref_names/header) in file order; peak
     memory is ~one compressed window + its decompressed payload, instead of
-    the whole file. Requires the native library.
+    the whole file. Requires the native library.  Each window adds to this
+    thread's `stream_counts`.
     """
     from . import bgzf as bgzf_mod
     from . import native as native_mod
@@ -540,6 +554,9 @@ def iter_bam_stream(path: str, window_bytes: int = 256 * 1024 * 1024,
                                         n_threads)
         carry = data[used:].copy()
         bi = end_bi
+        r, b_in, b_out = getattr(_stream_tls, "counts", (0, 0, 0))
+        _stream_tls.counts = (r + len(chunk), b_in + len(cslice),
+                              b_out + total)
         if len(chunk):
             yield chunk
     if len(carry):

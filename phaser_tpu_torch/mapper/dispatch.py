@@ -72,11 +72,12 @@ RELAUNCHES = {"capacity": 0}
 # what the last calls did, for the smoke and the tests: reads offered to the
 # device side / kept by the pre-filter / dropped; packed-hit buffers fetched,
 # their columns copied back / needed (min(n_hits, cap) + 1 a part) /
-# allocated; host-to-device copies, and those from pinned memory
+# allocated; host-to-device copies, and those from pinned memory; the
+# waits for a pinned staging buffer whose last copy was still running
 STATS = {"rows_in": 0, "rows_kept": 0, "rows_dropped": 0,
          "parts_fetched": 0, "columns_fetched": 0, "columns_needed": 0,
          "columns_allocated": 0,
-         "uploads": 0, "uploads_pinned": 0}
+         "uploads": 0, "uploads_pinned": 0, "stager_waits": 0}
 
 
 def reset_stats() -> None:
@@ -393,8 +394,10 @@ class _Stager:
         """(slot, pinned uint8 buffer of nbytes) whose last copy is done."""
         k = self._next
         self._next = (k + 1) % self.SLOTS
-        if self._events[k] is not None:
-            self._events[k].synchronize()   # the slot's last copy is done
+        done = self._events[k]
+        if done is not None and not done.query():
+            bump(STATS, "stager_waits")
+            done.synchronize()              # the slot's last copy is done
         buf = self._bufs[k]
         if buf is None or buf.numel() < nbytes:
             grown = max(nbytes, 2 * (buf.numel() if buf is not None else 0),
